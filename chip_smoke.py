@@ -1,0 +1,467 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a CUDA card and nvcc.  It
+builds the kernels from ``src/repro_torch/kernels/csrc``, holds every
+kernel against its plain PyTorch version on the card (block windows, and
+the full grids of the main path's shapes), drives the main path
+(``repro_torch.permanent`` at n = 30, ``permanent_batch`` buckets at
+n = 22 and n = 24) with the launch counters reset just before and read
+just after, checks the values (closed form at full width, the torch
+engine on a bucket), splits each call's host time into planning and
+execution, and times each kernel beside its bound.  A summary goes to
+``chiprun_out/chip_smoke.json``.
+
+The last line of standard output is
+``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before it is
+the per-kernel JSON.  Any failed phase exits 1 without that line, as does
+a machine without a usable card.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+SEED = 20250226
+N_MAIN = 30              # the largest dense leaf the main path serves
+N_BUCKET, B_BUCKET = 22, 16
+N_THRU, B_THRU = 24, 256
+WINDOW_NS = (4, 13, N_BUCKET, N_THRU, N_MAIN, 40, 64)
+PRECISIONS = ("dd", "dq_fast", "dq_acc", "qq", "kahan")
+RTOL_KERNEL, ATOL_KERNEL = 1e-12, 1e-15
+MAIN_REPS = 3
+
+# Data-sheet FP64 (vector, an FMA counted as two) and memory rates by SKU.
+_SKUS = (("H100 PCIe", 25.6e12, 2.0e12), ("H100 NVL", 30.0e12, 3.9e12),
+         ("H100", 34.0e12, 3.35e12), ("H200", 34.0e12, 4.8e12))
+
+
+def _sku(name: str):
+    for key, fp64, bw in _SKUS:
+        if key in name:
+            return key, fp64, bw
+    raise RuntimeError(f"no FP64/memory rates on record for {name!r}")
+
+
+class Smoke:
+    def __init__(self):
+        self.failures: list[str] = []
+        self.summary: dict = {}
+
+    def check(self, ok: bool, what: str) -> None:
+        print(f"[{'ok' if ok else 'FAIL'}] {what}", flush=True)
+        if not ok:
+            self.failures.append(what)
+
+
+def _time_ms(torch, fn, reps: int):
+    """(mean ms per call over ``reps`` calls by CUDA events after one
+    warm-up call, the last call's result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def _ulp_gap(a: np.ndarray, b: np.ndarray) -> float:
+    scale = np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    gap = np.abs(a - b) / np.where(scale > 0, scale, 1.0)
+    return float(np.max(gap)) if gap.size else 0.0
+
+
+def _ptxas_summary(log: str) -> list[dict]:
+    """(npad, precision code, registers, spill bytes) per kernel."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            t = re.search(r"ryser_dense_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            cur = {"npad": int(t.group(1)), "prec": int(t.group(2))} if t \
+                else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = None
+    return sorted(out, key=lambda d: (d["npad"], d["prec"]))
+
+
+def phase_card(smoke: Smoke, torch) -> dict:
+    q = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    line = q.stdout.strip().splitlines()[0] if q.stdout.strip() else ""
+    smoke.check(q.returncode == 0 and bool(line), "nvidia-smi reads the card")
+    print(line)
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {name} count {torch.cuda.device_count()}")
+    return {"nvidia_smi": line, "name": name}
+
+
+def phase_build(smoke: Smoke) -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.load_library()
+    dt = time.perf_counter() - t0
+    print(f"build: {dt:.1f} s -> {build.build_dir()}")
+    regs = _ptxas_summary(build.ptxas_log())
+    smoke.summary["build_s"] = dt
+    smoke.summary["ptxas"] = regs
+    for r in regs:
+        print(f"  ptxas npad={r['npad']:2d} prec={r['prec']} "
+              f"registers={r['registers']} spill={r.get('spill_stores', 0)}"
+              f"/{r.get('spill_loads', 0)} B")
+    smoke.check(len(regs) == 32, f"32 kernel instantiations built "
+                                 f"({len(regs)})")
+
+
+def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
+    """Each kernel entry against block_partials_plain on the card: windows
+    of up to 8 blocks, the first and the last (the top of the step space,
+    which exercises the u64 high bits and ``live``), both modes, all
+    precisions; the batched entry at B = 3; and the bucket of the main
+    path (16 x n = 22, dq_acc, batched) over its full grid.  The timing
+    phase holds the other two main-path shapes over their full grids."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_cuda as RC
+    rng = np.random.default_rng(SEED)
+    err = {"ryser_dense_scalar": 0.0, "ryser_dense_batched": 0.0}
+    worst_ulp = 0.0
+    ok = True
+    for n in WINDOW_NS:
+        # below the bucket sizes a small geometry, so the window still
+        # spans 8 blocks; from there on the main path's own
+        geom = DEFAULT_GEOMETRY if n >= N_BUCKET else Geometry(8, 8, 4)
+        TB, C, Wu, blocks = geom.kernel_geometry(n)
+        nb = min(8, blocks)
+        As = torch.as_tensor(rng.uniform(-1, 1, (3, n, n)), device="cuda")
+        A_pads, xb_pads, _ = ops.prepare(As)
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+        for mode in ("baseline", "batched"):
+            for prec in PRECISIONS:
+                for base in sorted({0, blocks * TB - nb * TB}):
+                    got = RC.ryser_cuda_call(A_pads[0], xb_pads[0], base,
+                                             precision=prec, mode=mode, **geo)
+                    want = RC.block_partials_plain(
+                        A_pads[:1], xb_pads[:1], base, precision=prec,
+                        mode=mode, **geo)[0]
+                    ok &= _agree(got, want, err, "ryser_dense_scalar")
+                    worst_ulp = max(worst_ulp, _ulp_gap(
+                        got.cpu().numpy(), want.cpu().numpy()))
+                got = RC.ryser_cuda_call_batched(A_pads, xb_pads,
+                                                 precision=prec, mode=mode,
+                                                 **geo)
+                want = RC.block_partials_plain(A_pads, xb_pads, 0,
+                                               precision=prec, mode=mode,
+                                               **geo)
+                ok &= _agree(got, want, err, "ryser_dense_batched")
+                worst_ulp = max(worst_ulp, _ulp_gap(got.cpu().numpy(),
+                                                    want.cpu().numpy()))
+        torch.cuda.synchronize()
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(N_BUCKET)
+    As = torch.as_tensor(rng.uniform(-1, 1, (B_BUCKET, N_BUCKET, N_BUCKET)),
+                         device="cuda")
+    A_pads, xb_pads, _ = ops.prepare(As)
+    geo = dict(n=N_BUCKET, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+               precision="dq_acc", mode="batched")
+    got = RC.ryser_cuda_call_batched(A_pads, xb_pads, **geo)
+    want = RC.block_partials_plain(A_pads, xb_pads, 0, **geo)
+    ok &= _agree(got, want, err, "ryser_dense_batched")
+    worst_ulp = max(worst_ulp, _ulp_gap(got.cpu().numpy(),
+                                        want.cpu().numpy()))
+    print(f"kernel vs plain: worst ulp gap {worst_ulp:g}, max abs err "
+          f"{err}")
+    smoke.check(ok, f"kernels agree with their plain versions for n in "
+                    f"{WINDOW_NS} (rtol {RTOL_KERNEL:g}, atol "
+                    f"{ATOL_KERNEL:g}), both modes, {len(PRECISIONS)} "
+                    f"precisions, scalar windows incl. the top of the space, "
+                    f"batched B=3, full grid {B_BUCKET} x n={N_BUCKET} "
+                    f"({blocks} blocks)")
+    smoke.summary["kernel_vs_plain"] = {"worst_ulp": worst_ulp, **err}
+    return err
+
+
+def _agree(got, want, err: dict, entry: str) -> bool:
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    err[entry] = max(err[entry], float(np.max(np.abs(g - w))))
+    gs, ws = g[..., 0] + g[..., 1], w[..., 0] + w[..., 1]
+    return bool(np.all(np.isfinite(g)) and np.all(
+        np.abs(gs - ws) <= ATOL_KERNEL + RTOL_KERNEL * np.abs(ws)))
+
+
+def phase_main_path(smoke: Smoke, torch) -> dict:
+    """The main path through the user entry points, counters 0 before and
+    read right after.  Returns the matrices and values for the checks."""
+    import repro_torch
+    from repro_torch.kernels import ryser_cuda as RC
+    rng = np.random.default_rng(SEED + 1)
+    A30 = rng.uniform(-1, 1, (N_MAIN, N_MAIN))
+    bucket = rng.uniform(-1, 1, (B_BUCKET, N_BUCKET, N_BUCKET))
+    thru = rng.uniform(-1, 1, (B_THRU, N_THRU, N_THRU))
+    torch.cuda.synchronize()
+
+    RC.reset_counters()
+    t_scalar = []
+    for _ in range(MAIN_REPS):
+        t0 = time.perf_counter()
+        v30, rep = repro_torch.permanent(A30, return_report=True)
+        t_scalar.append(time.perf_counter() - t0)
+    counts_scalar = dict(RC.counters)
+
+    RC.reset_counters()
+    vb, reps_b = repro_torch.permanent_batch(bucket, return_report=True)
+    t_thru = []
+    for _ in range(MAIN_REPS):
+        t0 = time.perf_counter()
+        vt = repro_torch.permanent_batch(thru)
+        t_thru.append(time.perf_counter() - t0)
+    counts_batch = dict(RC.counters)
+
+    print(f"main path scalar: perm(A30) = {v30:+.17e}, host seconds "
+          f"{t_scalar}, dispatch {rep.dispatch}, counters {counts_scalar}")
+    print(f"main path buckets: {reps_b[0].dispatch}; {B_THRU} x n={N_THRU} "
+          f"host seconds {t_thru} = {B_THRU / min(t_thru):.1f} perms/s "
+          f"(best), counters {counts_batch}")
+    smoke.check(counts_scalar["ryser_dense_scalar"] > 0
+                and counts_scalar["block_partials_plain"] == 0,
+                "scalar main path launched ryser_dense_scalar, plain 0")
+    smoke.check(counts_batch["ryser_dense_batched"] > 0
+                and counts_batch["block_partials_plain"] == 0,
+                "bucket main path launched ryser_dense_batched, plain 0")
+    smoke.check(bool(np.isfinite(v30)) and vb.shape == (B_BUCKET,)
+                and vt.shape == (B_THRU,) and bool(np.all(np.isfinite(vt))),
+                "main-path values are finite and of the expected shape")
+    smoke.summary["main_path"] = {
+        "perm_A30": v30, "scalar_s": t_scalar, "thru_s": t_thru,
+        "thru_perms_per_s": B_THRU / min(t_thru),
+        "launches_scalar": counts_scalar, "launches_batch": counts_batch}
+    return {"A30": A30, "v30": v30, "bucket": bucket, "vb": vb,
+            "thru": thru,
+            "launches": {"ryser_dense_scalar":
+                         counts_scalar["ryser_dense_scalar"],
+                         "ryser_dense_batched":
+                         counts_batch["ryser_dense_batched"]}}
+
+
+def phase_values(smoke: Smoke, torch, mp: dict) -> None:
+    import repro_torch
+    from repro_torch.core.oracle import all_ones_permanent
+    from repro_torch.kernels import ops
+    # scaled all-ones D1 J D2: perm = n! prod(r) prod(c)
+    rng = np.random.default_rng(SEED + 2)
+    r = rng.uniform(0.5, 1.5, N_MAIN)
+    c = rng.uniform(0.5, 1.5, N_MAIN)
+    exact = all_ones_permanent(N_MAIN) * math.prod(r) * math.prod(c)
+    got = repro_torch.permanent(np.outer(r, c), precision="dq_acc")
+    rel = rel_ones = abs(got - exact) / abs(exact)
+    print(f"all-ones D1 J D2 n={N_MAIN}: {got:+.17e} exact {exact:+.17e} "
+          f"rel.err {rel:.3e}")
+    smoke.check(rel <= 1e-8, f"scaled all-ones n={N_MAIN} rel.err "
+                             f"{rel:.3e} <= 1e-8")
+    # the scalar value against the batched entry (the other kernel mode)
+    vbat = float(ops.permanent_cuda_batched(mp["A30"][None])[0])
+    rel = abs(vbat - mp["v30"]) / abs(mp["v30"])
+    smoke.check(rel <= 1e-9, f"n={N_MAIN} scalar (baseline) vs batched "
+                             f"entry rel {rel:.3e} <= 1e-9")
+    # the bucket against the torch engine on the card
+    ref = repro_torch.permanent_batch(mp["bucket"], backend="torch")
+    rel = float(np.max(np.abs(mp["vb"] - ref) / np.abs(ref)))
+    smoke.check(rel <= 1e-9, f"bucket {B_BUCKET} x n={N_BUCKET} vs torch "
+                             f"engine max rel {rel:.3e} <= 1e-9")
+    smoke.summary["values"] = {"allones_rel": rel_ones,
+                               "bucket_vs_torch": rel}
+
+
+def phase_timing(smoke: Smoke, torch, card: dict, launches: dict) -> list:
+    """Kernel, plain and bound at the main path's shapes, each kernel held
+    against its plain version over the full grid of the timed shape."""
+    from repro_torch.core.ryser import ryser_flops
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_cuda as RC
+    sku, fp64, bw = _sku(card["name"])
+    rng = np.random.default_rng(SEED + 3)
+    full_err = {"ryser_dense_scalar": 0.0, "ryser_dense_batched": 0.0}
+    rows = []
+    for entry, n, B, mode, replaces, fn_k in (
+            ("ryser_dense_scalar", N_MAIN, 1, "baseline",
+             "src/repro/kernels/ryser_pallas.py:305", RC.ryser_cuda_call),
+            ("ryser_dense_batched", N_THRU, B_THRU, "batched",
+             "src/repro/kernels/ryser_pallas.py:342",
+             RC.ryser_cuda_call_batched)):
+        TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+        As = torch.as_tensor(rng.uniform(-1, 1, (B, n, n)), device="cuda")
+        A_pads, xb_pads, _ = ops.prepare(As)
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+                   precision="dq_acc", mode=mode)
+        if entry == "ryser_dense_scalar":
+            kern = lambda: fn_k(A_pads[0], xb_pads[0], 0, **geo)  # noqa: E731
+        else:
+            kern = lambda: fn_k(A_pads, xb_pads, **geo)  # noqa: E731
+        ms, got = _time_ms(torch, kern, reps=5)
+        plain = lambda: RC.block_partials_plain(  # noqa: E731
+            A_pads, xb_pads, 0, **geo)
+        plain_ms, want = _time_ms(torch, plain, reps=1)
+        if entry == "ryser_dense_scalar":
+            want = want[0]
+        smoke.check(_agree(got, want, full_err, entry),
+                    f"{entry} agrees with its plain version over the full "
+                    f"grid of {B} x n={n} ({blocks} blocks, {mode}, dq_acc): "
+                    f"max abs err {full_err[entry]:g}")
+        del want
+        torch.cuda.empty_cache()
+        ops_count = B * ryser_flops(n)
+        nbytes = 8 * (A_pads.numel() + xb_pads.numel() + 2 * B * blocks)
+        t_ops, t_bytes = ops_count / (fp64 / 2) * 1e3, nbytes / bw * 1e3
+        rows.append({
+            "name": entry, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ryser_dense.cu",
+            "replaces": replaces, "launches": launches[entry],
+            "max_abs_err": max(full_err[entry],
+                               smoke.summary["kernel_vs_plain"][entry]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None})
+        print(f"{entry}: {B} x n={n} {mode} dq_acc: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+              f"({sku}: FP64 {fp64 / 1e12:g} TFLOP/s / 2), "
+              f"{ms / max(t_ops, t_bytes):.2f}x the bound")
+    smoke.summary["kernel_vs_plain_full_grid"] = full_err
+    return rows
+
+
+def phase_host_split(smoke: Smoke, torch, mp: dict) -> None:
+    """Host seconds of each main-path call split into planning
+    (``plan``/``plan_batch``: DM/FM, routing, buckets) and execution, with
+    the executor's per-site wall times (``ExecStats.timings``: stacking,
+    transfer, kernel, reduce and copy back of one dispatch site).  A fresh
+    solver per call, so no result-cache hit."""
+    from repro_torch.core.solver import PermanentSolver
+    out = {}
+    for label, batched, data in (
+            (f"permanent n={N_MAIN}", False, mp["A30"]),
+            (f"permanent_batch {B_THRU} x n={N_THRU}", True, mp["thru"])):
+        runs = []
+        for _ in range(MAIN_REPS):
+            solver = PermanentSolver()
+            t0 = time.perf_counter()
+            plan = solver.plan_batch(data) if batched else solver.plan(data)
+            t1 = time.perf_counter()
+            solver.execute(plan)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            runs.append({"plan_s": t1 - t0, "execute_s": t2 - t1,
+                         "sites_s": {k: t["total_s"] for k, t in
+                                     solver.stats()["leaf_timings"].items()}})
+        out[label] = runs
+        print(f"host split {label}: " + "; ".join(
+            f"plan {r['plan_s'] * 1e3:.2f} ms, execute "
+            f"{r['execute_s'] * 1e3:.2f} ms "
+            f"{ {k: round(v * 1e3, 2) for k, v in r['sites_s'].items()} }"
+            for r in runs))
+    smoke.summary["host_split"] = out
+
+
+def phase_profile(smoke: Smoke, torch, mp: dict) -> None:
+    """Device busy share of each main-path call (kernel time over wall
+    time, the profiler's own overhead included in the wall time), and
+    device time by kernel name, from torch.profiler (CUPTI)."""
+    import repro_torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for label, call in (
+            (f"permanent n={N_MAIN}", lambda: repro_torch.permanent(mp["A30"])),
+            (f"permanent_batch {B_THRU} x n={N_THRU}",
+             lambda: repro_torch.permanent_batch(mp["thru"]))):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_name = {}                 # device-side (kernel) events only
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                by_name[ev.key] = by_name.get(ev.key, 0.0) + \
+                    ev.self_device_time_total
+        busy = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        share = busy / wall_us if busy > 0 else None
+        out[label] = {"wall_us": wall_us, "device_us": busy,
+                      "busy_share": share, "top": top}
+        print(f"profile {label}: wall {wall_us:.0f} us, device "
+              f"{busy:.0f} us, busy share "
+              f"{'not measured' if share is None else f'{share:.3f}'}; "
+              f"top {[(k[:40], round(v)) for k, v in top]}")
+    smoke.summary["profile"] = out
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script needs a card",
+              file=sys.stderr)
+        return 1
+    smoke = Smoke()
+    t_start = time.perf_counter()
+    card = phase_card(smoke, torch)
+    phase_build(smoke)
+    phase_kernel_vs_plain(smoke, torch)
+    mp = phase_main_path(smoke, torch)
+    phase_values(smoke, torch, mp)
+    phase_profile(smoke, torch, mp)
+    phase_host_split(smoke, torch, mp)
+    rows = phase_timing(smoke, torch, card, mp["launches"])
+    smoke.summary.update(card=card, kernels=rows,
+                         seconds=time.perf_counter() - t_start,
+                         failures=smoke.failures)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
+        json.dump(smoke.summary, f, indent=1, default=str)
+    if smoke.failures:
+        print(f"chip_smoke: {len(smoke.failures)} phase(s) failed: "
+              f"{smoke.failures}", file=sys.stderr)
+        return 1
+    print(card["nvidia_smi"])
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

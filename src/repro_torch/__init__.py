@@ -1,0 +1,12 @@
+"""SUperman permanents on PyTorch and CUDA (the port of ``repro``).
+
+``permanent(A)`` / ``permanent_batch(As)`` run on the card by default
+(``device="cpu"`` for the host); the dense real f64 path goes through the
+CUDA kernel in ``kernels/csrc/ryser_dense.cu``.
+"""
+
+from .core.engine import permanent, permanent_batch
+from .core.planner import SolverConfig
+from .core.solver import PermanentSolver
+
+__all__ = ["permanent", "permanent_batch", "PermanentSolver", "SolverConfig"]

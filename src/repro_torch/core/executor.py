@@ -1,0 +1,407 @@
+"""Execute side of the plan/execute split: backend registry + dispatcher.
+
+The port of the reference package's ``core/executor.py`` for the dense
+real route.  Each :class:`Backend` runs one dense leaf and (optionally) a
+whole same-size bucket; ``register_backend`` adds strategies without
+touching the dispatcher.  Two register at import:
+
+* ``torch`` -- the chunked torch engine (``core/ryser.py``), the
+  counterpart of the reference's ``jnp``;
+* ``cuda``  -- the dense CUDA kernel (``kernels/ops.py``), the counterpart
+  of ``pallas``: scalar leaves run the scalar entry (``baseline``), buckets
+  the batch-grid entry (``batched``); n < 4 runs the torch engine, as
+  ``PallasBackend._kernel_ok`` sends n < 4 to ``jnp``.
+
+Both run on ``SolverConfig.device`` (None = the card).  The sparse route,
+complex input and campaign (``step_sharded``) leaves are not ported yet
+and raise ``NotImplementedError`` naming their ROADMAP item; they never
+run on another engine.
+
+**Batch contract.**  ``dense_batch(stack, *, precision, num_chunks,
+geometry, device)`` runs one same-size bucket as a single device program
+and returns a (B,) ndarray, or ``None`` for "unsupported for this bucket":
+the dispatcher then re-runs it on ``torch`` and tags the downgrade
+``dense_batch(n=..,b=..,cuda->torch)``.  ``value_backend`` names the
+strategy whose numerics produce a leaf's value; the result cache keys on
+THAT name, so a torch-computed downgrade never satisfies a kernel lookup.
+
+:func:`execute_plan` returns per-matrix totals, one
+:class:`PermanentReport` per matrix and an :class:`ExecStats`.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from . import ryser as R
+from .cache import ResultCache
+from .planner import (ROUTE_CAMPAIGN, ROUTE_DENSE, ROUTE_INLINE,
+                      ROUTE_SPARSE, ExecutionPlan, LeafTask, PermanentReport)
+
+__all__ = ["Backend", "TorchBackend", "CudaBackend", "register_backend",
+           "get_backend", "available_backends", "ExecStats", "LeafTiming",
+           "execute_plan"]
+
+_SPARSE_TODO = ("the sparse route is not ported yet (ROADMAP.md, modules "
+                "queue: 'Sparse'); pass preprocess/dense input or a "
+                "matrix with density >= 0.30")
+_CAMPAIGN_TODO = ("step_sharded (campaign) leaves are not ported yet "
+                  "(ROADMAP.md, modules queue: 'Campaign on one GPU'); "
+                  "the largest dense leaf served is n = 30")
+
+
+def _scalar(v) -> float:
+    """A 0-d tensor / numpy scalar / Python number as a Python float."""
+    return float(v.item() if hasattr(v, "item") else v)
+
+
+def _host(vals) -> np.ndarray:
+    return vals.detach().cpu().numpy() if hasattr(vals, "detach") \
+        else np.asarray(vals)
+
+
+@dataclass
+class LeafTiming:
+    """Wall-clock accounting for one dispatch-site key, e.g.
+    ``dense_batch(n=12,cuda)``: ``count`` device dispatches, ``leaves``
+    the leaf results they produced."""
+    count: int = 0
+    leaves: int = 0
+    total_s: float = 0.0
+    max_s: float = 0.0
+
+    def add(self, seconds: float, leaves: int = 1) -> None:
+        self.count += 1
+        self.leaves += leaves
+        self.total_s += seconds
+        self.max_s = max(self.max_s, seconds)
+
+    def merge(self, other: "LeafTiming") -> None:
+        self.count += other.count
+        self.leaves += other.leaves
+        self.total_s += other.total_s
+        self.max_s = max(self.max_s, other.max_s)
+
+    def to_json(self) -> dict:
+        return {"count": self.count, "leaves": self.leaves,
+                "total_s": self.total_s, "max_s": self.max_s,
+                "mean_s": self.total_s / self.count if self.count else 0.0}
+
+
+@dataclass
+class ExecStats:
+    """What one execute_plan call actually did (for tests/benchmarks)."""
+    device_dispatches: int = 0       # scalar leaf calls + bucket programs
+    batched_leaves: int = 0          # leaves served by bucket programs
+    scalar_leaves: int = 0           # leaves served one at a time
+    inline_leaves: int = 0           # n <= 2 closed forms
+    cache_hits: int = 0
+    cache_misses: int = 0
+    downgrades: list[str] = field(default_factory=list)
+    timings: dict[str, LeafTiming] = field(default_factory=dict)
+
+    def record_time(self, key: str, seconds: float,
+                    leaves: int = 1) -> None:
+        self.timings.setdefault(key, LeafTiming()).add(seconds, leaves)
+
+
+# ---------------------------------------------------------------------------
+# Backend strategy registry
+# ---------------------------------------------------------------------------
+
+class Backend:
+    """One execution strategy for dense permanent leaves.
+
+    ``dense`` runs a single leaf and returns a Python scalar;
+    ``dense_batch`` follows the batch contract in the module docstring.
+    ``geometry`` is the leaf's resolved kernel geometry (None = kernel
+    defaults); the torch engine ignores it.  Times are host wall-clock
+    around work that ends in a copy to the host, so they include the
+    device's work.
+    """
+
+    name = "?"
+
+    def dense(self, M: np.ndarray, *, precision: str, num_chunks: int,
+              geometry=None, device=None) -> float:
+        raise NotImplementedError
+
+    def dense_batch(self, stack: np.ndarray, *, precision: str,
+                    num_chunks: int, geometry=None,
+                    device=None) -> np.ndarray | None:
+        return None
+
+    def value_backend(self, route: str, n: int, *, batched: bool) -> str:
+        """Registry name of the strategy whose numerics produce this leaf's
+        value (the result-cache identity)."""
+        return self.name
+
+
+class TorchBackend(Backend):
+    """Chunked torch engine (the reference's ``jnp`` counterpart)."""
+
+    name = "torch"
+
+    def dense(self, M, *, precision, num_chunks, geometry=None, device=None):
+        return _scalar(R.perm_ryser_chunked(M, num_chunks=num_chunks,
+                                            precision=precision,
+                                            device=device))
+
+    def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
+                    device=None):
+        return _host(R.perm_ryser_batched(stack, num_chunks=num_chunks,
+                                          precision=precision, device=device))
+
+
+class CudaBackend(TorchBackend):
+    """Dense CUDA kernel, n >= 4 (scalar entry for leaves, batch-grid
+    entry for buckets); n < 4 runs the torch engine (scalar silently,
+    buckets with a ``cuda->torch`` downgrade tag)."""
+
+    name = "cuda"
+
+    @staticmethod
+    def _kernel_ok(n: int) -> bool:
+        return n >= 4
+
+    def dense(self, M, *, precision, num_chunks, geometry=None, device=None):
+        if self._kernel_ok(M.shape[-1]):
+            from ..kernels import ops as K
+            return _scalar(K.permanent_cuda(M, precision=precision,
+                                            geometry=geometry,
+                                            device=device))
+        return super().dense(M, precision=precision, num_chunks=num_chunks,
+                             device=device)
+
+    def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
+                    device=None):
+        if self._kernel_ok(stack.shape[-1]):
+            from ..kernels import ops as K
+            return _host(K.permanent_cuda_batched(
+                stack, precision=precision, geometry=geometry,
+                device=device))
+        return None                  # dispatcher falls back + tags downgrade
+
+    def value_backend(self, route, n, *, batched):
+        return self.name if self._kernel_ok(n) else "torch"
+
+
+_BACKENDS: dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend, name: str | None = None) -> Backend:
+    """Register a strategy object under ``name`` (default: backend.name)."""
+    _BACKENDS[name or backend.name] = backend
+    return backend
+
+
+def get_backend(name: str) -> Backend:
+    try:
+        return _BACKENDS[name]
+    except KeyError:
+        raise ValueError(f"unknown backend {name!r}; registered: "
+                         f"{sorted(_BACKENDS)}") from None
+
+
+def available_backends() -> list[str]:
+    return sorted(_BACKENDS)
+
+
+register_backend(TorchBackend())
+register_backend(CudaBackend())
+
+_FALLBACK = "torch"
+
+
+# ---------------------------------------------------------------------------
+# Plan execution
+# ---------------------------------------------------------------------------
+
+def _geometry_tag(leaf: LeafTask, produced_by: str) -> str:
+    """Geometry component of the cache key: the kernel geometry tag when a
+    CUDA kernel serves the leaf, else the ``"-"`` sentinel."""
+    g = leaf.geometry if produced_by == "cuda" else None
+    return g.tag() if g is not None else "-"
+
+
+def _cache_key(leaf: LeafTask, plan: ExecutionPlan, produced_by: str) -> tuple:
+    """Result-cache key for ``leaf``: content hash, route, effective
+    precision, the VALUE-producing backend, chunk count, leaf dtype and
+    resolved kernel geometry -- all seven components bound."""
+    return ResultCache.key(leaf.key, leaf.route, plan.precision,
+                           produced_by, plan.config.num_chunks,
+                           dtype=leaf.matrix.dtype.str,
+                           geometry=_geometry_tag(leaf, produced_by))
+
+
+def _check_ported(plan: ExecutionPlan) -> None:
+    """Refuse what the port does not run yet, before any device work."""
+    if plan.is_complex:
+        raise NotImplementedError(R._COMPLEX_TODO)
+    for leaf in plan.leaves:
+        if leaf.route == ROUTE_SPARSE:
+            raise NotImplementedError(_SPARSE_TODO)
+        if leaf.route == ROUTE_CAMPAIGN:
+            raise NotImplementedError(_CAMPAIGN_TODO)
+
+
+def _run_leaf(leaf: LeafTask, plan: ExecutionPlan, backend: Backend,
+              report: PermanentReport, stats: ExecStats) -> float:
+    """One dense leaf through the scalar strategy path."""
+    n = leaf.n
+    cfg = plan.config
+    produced = backend.value_backend(ROUTE_DENSE, n, batched=False)
+    report.dispatch.append(f"dense(n={n})")
+    t0 = time.perf_counter()
+    val = backend.dense(leaf.matrix, precision=plan.precision,
+                        num_chunks=cfg.num_chunks, geometry=leaf.geometry,
+                        device=cfg.device)
+    stats.record_time(f"dense(n={n},{produced})", time.perf_counter() - t0)
+    stats.device_dispatches += 1
+    stats.scalar_leaves += 1
+    return val
+
+
+def _inline_value(m: np.ndarray) -> float:
+    return m[0, 0] if m.shape[0] == 1 else \
+        m[0, 0] * m[1, 1] + m[0, 1] * m[1, 0]
+
+
+def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
+    """Dispatch every leaf of ``plan`` and accumulate per-matrix totals.
+
+    Returns ``(totals, reports, stats)``: ``totals`` is a (B,) float64
+    array, ``reports`` one PermanentReport per planned matrix, ``stats``
+    the dispatch/cache accounting.
+    """
+    _check_ported(plan)
+    cfg = plan.config
+    backend = get_backend(cfg.backend)
+    fallback = get_backend(_FALLBACK)
+    stats = ExecStats()
+    totals = np.zeros(plan.num_matrices, dtype=np.float64)
+    reports = [PermanentReport(n=e.n, nnz=e.nnz, density=e.density,
+                               dm_removed=e.dm_removed,
+                               fm_leaves=e.fm_leaves,
+                               leaf_sizes=list(e.leaf_sizes),
+                               precision=plan.precision, backend=cfg.backend)
+               for e in plan.entries]
+    for e in plan.entries:
+        totals[e.index] += e.const
+
+    def produced_by(leaf: LeafTask, batched: bool) -> str:
+        return backend.value_backend(leaf.route, leaf.n, batched=batched)
+
+    if not plan.batched:
+        # scalar mode: strict plan-order per-leaf dispatch
+        for leaf in plan.leaves:
+            key = val = None
+            if cache is not None:
+                key = _cache_key(leaf, plan, produced_by(leaf, False))
+                val = cache.get(key)
+                if val is None:
+                    stats.cache_misses += 1
+                else:
+                    stats.cache_hits += 1
+            if val is not None:
+                reports[leaf.owner].dispatch.append(
+                    f"cache({leaf.route},n={leaf.n})")
+            else:
+                val = _run_leaf(leaf, plan, backend, reports[leaf.owner],
+                                stats)
+                if key is not None:
+                    cache.put(key, val)
+            totals[leaf.owner] += leaf.coef * val
+        return totals, reports, stats
+
+    # batched mode: inline folds, cache probe (duplicate leaves of one
+    # cold batch are scheduled once), then one program per bucket
+    pending: dict[tuple[str, int], list[int]] = {}
+    computed: dict[tuple, float | None] = {}
+    followers: list[LeafTask] = []
+    for (route, n), idxs in plan.buckets.items():
+        for j in idxs:
+            leaf = plan.leaves[j]
+            if route == ROUTE_INLINE:
+                reports[leaf.owner].dispatch.append(f"dense(n={n})")
+                totals[leaf.owner] += leaf.coef * _inline_value(leaf.matrix)
+                stats.inline_leaves += 1
+                continue
+            if cache is not None:
+                key = _cache_key(leaf, plan, produced_by(leaf, True))
+                if key in computed:
+                    followers.append(leaf)
+                    continue
+                val = cache.get(key)
+                if val is not None:
+                    stats.cache_hits += 1
+                    reports[leaf.owner].dispatch.append(
+                        f"cache({route},n={n})")
+                    totals[leaf.owner] += leaf.coef * val
+                    continue
+                stats.cache_misses += 1
+                computed[key] = None      # scheduled; filled after its bucket
+            pending.setdefault((route, n), []).append(j)
+
+    for (route, n), idxs in sorted(pending.items()):
+        # one device program per resolved kernel geometry: geometry is
+        # numeric identity, so leaves of different geometry never share one
+        groups: dict[str, list[LeafTask]] = {}
+        for j in idxs:
+            leaf = plan.leaves[j]
+            gtag = leaf.geometry.tag() if leaf.geometry is not None else "-"
+            groups.setdefault(gtag, []).append(leaf)
+        for _gtag, leaves in sorted(groups.items()):
+            bname = produced_by(leaves[0], True)
+            geometry = leaves[0].geometry
+            if len(leaves) == 1:         # ragged straggler: scalar path
+                leaf = leaves[0]
+                val = _run_leaf(leaf, plan, backend, reports[leaf.owner],
+                                stats)
+                if cache is not None:
+                    k = _cache_key(leaf, plan, bname)
+                    cache.put(k, val)
+                    computed[k] = val
+                totals[leaf.owner] += leaf.coef * val
+                continue
+            tag = f"{route}_batch(n={n},b={len(leaves)})"
+            t_bucket = time.perf_counter()
+            stack = np.stack([l.matrix for l in leaves])
+            vals = backend.dense_batch(stack, precision=plan.precision,
+                                       num_chunks=cfg.num_chunks,
+                                       geometry=geometry, device=cfg.device)
+            if vals is None:             # tiny bucket under cuda
+                vals = fallback.dense_batch(stack, precision=plan.precision,
+                                            num_chunks=cfg.num_chunks,
+                                            device=cfg.device)
+                tag = f"{route}_batch(n={n},b={len(leaves)}," \
+                      f"{cfg.backend}->{_FALLBACK})"
+                stats.downgrades.append(tag)
+                bname = _FALLBACK
+            stats.device_dispatches += 1
+            stats.batched_leaves += len(leaves)
+            stats.record_time(f"{route}_batch(n={n},{bname})",
+                              time.perf_counter() - t_bucket,
+                              leaves=len(leaves))
+            for leaf, v in zip(leaves, vals):
+                v = _scalar(v)
+                reports[leaf.owner].dispatch.append(tag)
+                if cache is not None:
+                    cache.put(_cache_key(leaf, plan, bname), v)
+                    computed[_cache_key(leaf, plan,
+                                        produced_by(leaf, True))] = v
+                totals[leaf.owner] += leaf.coef * v
+
+    for leaf in followers:               # duplicates of scheduled leaves
+        val = computed[_cache_key(leaf, plan, produced_by(leaf, True))]
+        if val is None:
+            raise RuntimeError("scheduled leaf was never computed")
+        cache.hits += 1                  # in-flight dedup is still a hit
+        stats.cache_hits += 1
+        reports[leaf.owner].dispatch.append(
+            f"cache({leaf.route},n={leaf.n})")
+        totals[leaf.owner] += leaf.coef * val
+    return totals, reports, stats

@@ -1,0 +1,181 @@
+"""`PermanentSolver`: the stateful plan/execute session object.
+
+The port of the reference package's ``core/solver.py``:
+
+    solver = PermanentSolver(SolverConfig(precision="dq_acc"))
+    plan = solver.plan(A)            # DM/FM + routing; no device work
+    value = solver.execute(plan)     # dispatch through the backend registry
+    values = solver.execute(solver.plan_batch(As))   # one program per bucket
+
+**Queue** (`submit` / `flush` / `poll`): submitted matrices accumulate in
+size-keyed buckets and flush through a bucketed batch plan when a bucket
+reaches ``config.queue_max_batch`` or its oldest request ages past
+``config.queue_max_delay_s``.  ``submit`` returns a
+:class:`PermanentRequest` future.  Leaf results are memoised in a
+content-hash :class:`~repro_torch.core.cache.ResultCache`.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+
+from .cache import ResultCache
+from .executor import ExecStats, LeafTiming, execute_plan
+from .planner import ExecutionPlan, PermanentReport, SolverConfig, build_plan
+
+__all__ = ["PermanentSolver", "PermanentRequest", "SolverConfig",
+           "SolverError"]
+
+
+class SolverError(RuntimeError):
+    """Typed failure from the solver's queue/flush machinery."""
+
+
+class PermanentRequest:
+    """Future for one queued permanent; resolved by a solver flush."""
+
+    def __init__(self, solver: "PermanentSolver", matrix: np.ndarray):
+        self._solver = solver
+        self.matrix = matrix
+        self.n = matrix.shape[0]
+        self.done = False
+        self.value: float | None = None
+        self.report: PermanentReport | None = None
+
+    def result(self) -> float:
+        """The permanent; flushes this request's size bucket if pending."""
+        if not self.done:
+            self._solver._flush_bucket(self.n)
+        if not self.done:
+            _, reqs = self._solver._queue.get(self.n, (0.0, []))
+            raise SolverError(
+                f"flush of size bucket n={self.n} left {len(reqs)} "
+                f"request(s) unresolved (this future among them)")
+        return self.value
+
+    def _resolve(self, value, report) -> None:
+        self.value = value
+        self.report = report
+        self.done = True
+
+
+class PermanentSolver:
+    """Stateful plan/execute session: backend dispatch + cache + queue."""
+
+    def __init__(self, config: SolverConfig | None = None, *,
+                 clock: Callable[[], float] | None = None, **overrides):
+        config = config or SolverConfig()
+        if overrides:
+            config = config.replace(**overrides)
+        self.config = config
+        self.cache = ResultCache(config.cache_entries) if config.cache \
+            else None
+        # clock precedence: explicit kwarg > SolverConfig.clock > monotonic
+        self._clock = clock if clock is not None \
+            else (config.clock or time.monotonic)  # permlint: disable=PL004  # sanctioned injectable-clock default
+        self._queue: dict[int, tuple[float, list[PermanentRequest]]] = {}
+        self._stats = ExecStats()
+        self.flushes = 0
+
+    # -- plan ---------------------------------------------------------------
+
+    def plan(self, A) -> ExecutionPlan:
+        """Scalar plan for one matrix (per-leaf dispatch order)."""
+        A = np.asarray(A)
+        if A.ndim != 2 or A.shape[0] != A.shape[1]:
+            raise ValueError(f"square matrix required, got {A.shape}")
+        return build_plan([A], self.config, batched=False)
+
+    def plan_batch(self, As: Sequence) -> ExecutionPlan:
+        """Bucketed batch plan: same-size leaves share one device program."""
+        return build_plan(list(As), self.config, batched=True)
+
+    # -- execute ------------------------------------------------------------
+
+    def execute(self, plan: ExecutionPlan, *, return_report: bool = False):
+        """Dispatch a plan; scalar plans return a Python float, batch plans
+        a (B,) float64 ndarray."""
+        out, reports, stats = execute_plan(plan, cache=self.cache)
+        self._merge_stats(stats)
+        for i, r in enumerate(reports):
+            r.value = float(out[i])
+        if not plan.batched and plan.num_matrices == 1:
+            value = reports[0].value
+            return (value, reports[0]) if return_report else value
+        return (out, reports) if return_report else out
+
+    # -- async request queue ------------------------------------------------
+
+    def submit(self, A) -> PermanentRequest:
+        """Queue one matrix; returns a future resolved at the next flush."""
+        A = np.asarray(A)
+        if A.ndim != 2 or A.shape[0] != A.shape[1]:
+            raise ValueError(f"square matrix required, got {A.shape}")
+        req = PermanentRequest(self, A)
+        _, reqs = self._queue.setdefault(A.shape[0], (self._clock(), []))
+        reqs.append(req)
+        if len(reqs) >= self.config.queue_max_batch:
+            self._flush_bucket(A.shape[0])
+        self.poll()
+        return req
+
+    @property
+    def pending(self) -> int:
+        return sum(len(reqs) for _, reqs in self._queue.values())
+
+    def poll(self) -> int:
+        """Flush every bucket whose deadline has passed; returns the
+        number of requests flushed."""
+        now = self._clock()
+        due = [n for n, (t0, reqs) in self._queue.items()
+               if reqs and now - t0 >= self.config.queue_max_delay_s]
+        return sum(self._flush_bucket(n) for n in due)
+
+    def flush(self) -> int:
+        """Flush every queued bucket; returns the number of requests."""
+        return sum(self._flush_bucket(n) for n in list(self._queue))
+
+    def _flush_bucket(self, n: int) -> int:
+        _, reqs = self._queue.get(n, (0.0, []))
+        if not reqs:
+            self._queue.pop(n, None)
+            return 0
+        # plan + execute BEFORE dequeuing: if either raises, the bucket
+        # stays queued and the pending futures remain resolvable
+        plan = self.plan_batch([r.matrix for r in reqs])
+        _, reports = self.execute(plan, return_report=True)
+        self._queue.pop(n, None)
+        for req, report in zip(reqs, reports):
+            req._resolve(report.value, report)
+        self.flushes += 1
+        return len(reqs)
+
+    # -- accounting ---------------------------------------------------------
+
+    def _merge_stats(self, s: ExecStats) -> None:
+        t = self._stats
+        t.device_dispatches += s.device_dispatches
+        t.batched_leaves += s.batched_leaves
+        t.scalar_leaves += s.scalar_leaves
+        t.inline_leaves += s.inline_leaves
+        t.cache_hits += s.cache_hits
+        t.cache_misses += s.cache_misses
+        t.downgrades.extend(s.downgrades)
+        for key, lt in s.timings.items():
+            t.timings.setdefault(key, LeafTiming()).merge(lt)
+
+    def stats(self) -> dict:
+        """Dispatch + cache + queue accounting for the session."""
+        return {"device_dispatches": self._stats.device_dispatches,
+                "batched_leaves": self._stats.batched_leaves,
+                "scalar_leaves": self._stats.scalar_leaves,
+                "inline_leaves": self._stats.inline_leaves,
+                "downgrades": list(self._stats.downgrades),
+                "flushes": self.flushes,
+                "pending": self.pending,
+                "leaf_timings": {k: t.to_json() for k, t in
+                                 sorted(self._stats.timings.items())},
+                "cache": self.cache.stats() if self.cache else None}

@@ -1,0 +1,60 @@
+"""Carry a reference ``SolverConfig`` across to the port.
+
+The reference package's configuration travels as plain data -- its
+``dataclasses.asdict`` and ``Geometry.tag()`` strings -- so the port never
+imports the reference.  Backend names map ``jnp -> torch`` and
+``pallas -> cuda``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from .core.planner import SolverConfig
+from .core.stepspace import Geometry
+
+__all__ = ["BACKEND_NAMES", "config_from_reference", "geometry_from_tag"]
+
+BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda"}
+# Reference fields the port does not carry until the campaign slice; they
+# cross only at their defaults.
+_UNPORTED_DEFAULTS = {"campaign_checkpoint": None, "campaign_max_waves": None}
+
+
+def geometry_from_tag(tag: str | None) -> Geometry | None:
+    """``"128x64x16"`` / ``"8x8x4b2"`` -> Geometry; None passes through."""
+    return None if tag is None else Geometry.from_tag(tag)
+
+
+def config_from_reference(d: dict) -> SolverConfig:
+    """The port's SolverConfig for a reference config given as
+    ``dataclasses.asdict(cfg)``.
+
+    ``geometry`` may arrive as the asdict form (a dict of Geometry's
+    fields), a tag string or None.  A backend without a port yet
+    (``distributed*``) raises ``ValueError``; a campaign checkpoint or
+    wave limit raises ``NotImplementedError`` (campaigns are not ported).
+    """
+    d = dict(d)
+    for name, default in _UNPORTED_DEFAULTS.items():
+        value = d.pop(name, default)
+        if value != default:
+            raise NotImplementedError(
+                f"{name}={value!r}: campaigns are not ported yet (ROADMAP.md, "
+                "modules queue: 'Campaign on one GPU')")
+    backend = d.get("backend", "jnp")
+    if backend not in BACKEND_NAMES:
+        raise ValueError(f"backend {backend!r} has no port yet "
+                         f"(ported: {sorted(BACKEND_NAMES)})")
+    d["backend"] = BACKEND_NAMES[backend]
+    g = d.get("geometry")
+    if isinstance(g, dict):
+        g = Geometry(**g)
+    elif isinstance(g, str):
+        g = geometry_from_tag(g)
+    d["geometry"] = g
+    fields = {f.name for f in dataclasses.fields(SolverConfig)}
+    unknown = set(d) - fields
+    if unknown:
+        raise ValueError(f"reference fields without a port: {sorted(unknown)}")
+    return SolverConfig(**d)

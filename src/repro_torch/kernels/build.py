@@ -1,0 +1,145 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+The sources under ``kernels/csrc/`` have a plain C interface, so they are
+compiled by ``nvcc`` alone (no PyTorch headers, a few seconds a unit) and
+loaded with ``ctypes``.  ``ryser_dense.cu`` is compiled as one unit per
+padded matrix size (``-DRYSER_NPAD=k``) plus one unit for the C entry
+points, every unit in its own ``nvcc`` process, all started together;
+``nvcc -shared`` then links them.
+
+The library lands in ``build/repro_torch/<hash>/`` at the repository root,
+keyed by a hash of the sources and flags, and is built at first use.
+``ptxas -v`` output (registers, spills) is kept beside it as
+``ptxas.log``.  Without ``nvcc`` this module raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+__all__ = ["CSRC", "NPADS", "build_dir", "find_nvcc", "load_library",
+           "ptxas_log"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("ryser_dense.cu",)
+NPADS = (8, 16, 24, 32, 40, 48, 56, 64)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+TOOLKIT_NVCC = "/usr/local/cuda/bin/nvcc"     # the toolkit's default place
+_REPO_ROOT = Path(__file__).resolve().parents[3]
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def find_nvcc() -> str:
+    """Path of nvcc: PATH first, then the toolkit's default location."""
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists(TOOLKIT_NVCC):
+        nvcc = TOOLKIT_NVCC
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of repro_torch are built from "
+            "kernels/csrc/*.cu at first use and need the CUDA toolkit; pass "
+            "device='cpu' for the plain PyTorch versions")
+    return nvcc
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(NPADS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> Path:
+    return _REPO_ROOT / "build" / "repro_torch" / _source_hash()
+
+
+def ptxas_log() -> str:
+    """The ptxas report of the current build ('' before the first build)."""
+    path = build_dir() / "ptxas.log"
+    return path.read_text() if path.exists() else ""
+
+
+def _units(src: Path):
+    """(object name, extra nvcc defines) for each parallel compile unit."""
+    yield f"{src.stem}_api.o", ["-DRYSER_API_ONLY"]
+    for k in NPADS:
+        yield f"{src.stem}_n{k}.o", [f"-DRYSER_NPAD={k}"]
+
+
+def _compile(out_dir: Path) -> Path:
+    nvcc = find_nvcc()
+    out_dir.parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="tmp-", dir=out_dir.parent))
+    try:
+        procs = []
+        for name in SOURCES:
+            src = CSRC / name
+            for obj, defines in _units(src):
+                cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", str(src),
+                       "-o", str(tmp / obj)]
+                procs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        logs = []
+        failed = []
+        for cmd, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"$ {' '.join(cmd)}\n{out}")
+            if p.returncode != 0:
+                failed.append(f"$ {' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = tmp / "libryser.so"
+        objs = sorted(str(p) for p in tmp.glob("*.o"))
+        link = subprocess.run([nvcc, "-shared", "-o", str(lib), *objs],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        (tmp / "ptxas.log").write_text("\n".join(logs))
+        try:
+            os.replace(tmp, out_dir)         # atomic publish of the build
+        except OSError:
+            if not (out_dir / "libryser.so").exists():
+                raise                        # not a concurrent build's win
+        return out_dir / "libryser.so"
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ryser_dense_scalar.argtypes = [P, P, P, P, ctypes.c_uint64, I, I, I,
+                                       I, I, I, I, I, P]
+    lib.ryser_dense_scalar.restype = I
+    lib.ryser_dense_batched.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
+                                        I, P]
+    lib.ryser_dense_batched.restype = I
+    lib.ryser_error_string.argtypes = [I]
+    lib.ryser_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built from the sources at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = build_dir() / "libryser.so"
+            if not path.exists():
+                path = _compile(build_dir())
+            _lib = _bind(ctypes.CDLL(str(path)))
+        return _lib

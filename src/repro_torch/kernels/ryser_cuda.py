@@ -1,0 +1,329 @@
+"""Dense real Gray-code Ryser block partials: the CUDA kernel and its plain
+PyTorch version.
+
+The port of ``kernels/ryser_pallas.py``.  The kernel
+(``csrc/ryser_dense.cu``) replaces ``ryser_pallas_call`` (grid over
+blocks from a u64 chunk base) and ``ryser_pallas_call_batched`` (grid over
+(batch, block), chunk base 0); both run one block body, as
+``_ryser_block`` serves both Pallas kernels.
+
+Geometry: block = TB chunks (one thread each), chunk = C = Wu * M Gray
+steps.  Every entry returns per-block ``(hi, lo)`` partial sums WITHOUT
+the g = 0 term; ``kernels/ops.py::kernel_reduce`` closes the sum.
+
+Modes: ``baseline`` (sequential X updates, paper Alg. 3) and ``batched``
+(window states ``(X + A @ cumsig) + corr``).  The Pallas ``schedmat``
+mode is not ported yet.  Precisions follow ``_accum_add``: ``dd``,
+``kahan``, ``dq_acc``, ``dq_fast``; ``qq`` runs as ``dd``.  Input is f64.
+
+A wrapper takes the plain version only for a tensor on the CPU.  For a
+CUDA tensor it launches the kernel or raises; a failed build or launch
+propagates.  ``counters`` counts kernel launches per entry and plain
+calls, so a run can show which path served it.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..core import gray as G
+
+__all__ = ["ryser_cuda_call", "ryser_cuda_call_batched",
+           "block_partials_plain", "counters", "reset_counters",
+           "PRECISION_CODES"]
+
+# _accum_add's modes; qq has no twofloat product in-kernel and runs as dd
+PRECISION_CODES = {"dd": 0, "qq": 0, "kahan": 1, "dq_acc": 2, "dq_fast": 3}
+_MODE_CODES = {"baseline": 0, "batched": 1}
+
+counters = {"ryser_dense_scalar": 0, "ryser_dense_batched": 0,
+            "block_partials_plain": 0}
+
+
+def reset_counters() -> None:
+    for k in counters:
+        counters[k] = 0
+
+
+def _signed_const_schedule(Wu: int):
+    """Host schedule for inner steps w = 1..Wu-1 of any aligned window.
+
+    Returns [(j, s_const, is_mid, parity)]; the true sign is ``s_const``
+    except at the mid step (w = Wu/2), where lanes whose window base has
+    bit kw set use ``-s_const``.
+    """
+    kw = int(math.log2(Wu))
+    out = []
+    for w in range(1, Wu):
+        j = G.ctz(w)
+        if j + 1 < kw or kw == 0:
+            bit = ((w >> j) ^ (w >> (j + 1))) & 1
+            is_mid = False
+        else:  # w == Wu // 2, j == kw - 1
+            bit = (w >> j) & 1  # == 1; true bit = 1 ^ bit_kw(base)
+            is_mid = True
+        out.append((j, 2 * bit - 1, is_mid, w & 1))
+    return out
+
+
+def _cumsig_host(sched, n_pad: int) -> np.ndarray:
+    """Cumulative signed one-hot schedule (n_pad, Wu-1) for batched mode:
+    column idx holds sum_{w' <= w} s_const(w') e_{j(w')} (entries 0 or 1;
+    rows >= kw are zero)."""
+    C0 = np.zeros((n_pad, max(1, len(sched))), dtype=np.float64)
+    run = np.zeros(n_pad, dtype=np.float64)
+    for idx, (j, s, _is_mid, _) in enumerate(sched):
+        run[j] += s
+        C0[:, idx] = run
+    return C0
+
+
+# ---------------------------------------------------------------------------
+# The plain version: the kernel's arithmetic, vectorised over all lanes
+# ---------------------------------------------------------------------------
+
+def _ctz_u64(g: np.ndarray) -> np.ndarray:
+    low = g & (~g + np.uint64(1))            # lowest set bit, a power of two
+    return np.log2(low.astype(np.float64)).astype(np.int64)
+
+
+def _lane_tree(v: torch.Tensor, TB: int) -> torch.Tensor:
+    """(B, L) -> (B, L // TB): the kernel's shared-memory halving tree."""
+    v = v.reshape(v.shape[0], -1, TB)
+    h = TB
+    while h > 1:
+        h //= 2
+        v = v[..., :h] + v[..., h:2 * h]
+    return v[..., 0]
+
+
+def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
+                         TB: int, C: int, Wu: int, num_blocks: int,
+                         precision: str = "dq_acc",
+                         mode: str = "baseline") -> torch.Tensor:
+    """(B, num_blocks, 2) partials of a (B, n_pad, n_pad) stack, op for op
+    the kernel's: same init order, same window schedule, same lane tree.
+
+    Lane step indices are host numpy uint64 (exact up to n = 64); the
+    matrix arithmetic runs on the input's device.
+    """
+    counters["block_partials_plain"] += 1
+    B, n_pad, _ = A_pads.shape
+    dev, dt = A_pads.device, A_pads.dtype
+    k, kw, M = int(math.log2(C)), int(math.log2(Wu)), C // Wu
+    space = 1 << (n - 1)
+    L = num_blocks * TB
+    tensor = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
+
+    starts = (np.uint64(chunk_base) + np.arange(L, dtype=np.uint64)) \
+        << np.uint64(k)
+    gbits = tensor(G.gray_bits_matrix(starts, n))              # (n, L)
+    X = xb_pads.reshape(B, n_pad, 1).expand(B, n_pad, L)
+    for j in range(n):
+        X = X + A_pads[:, :, j:j + 1] * gbits[j]
+
+    def prod(S):
+        p = S[:, 0]
+        for i in range(1, n):
+            p = p * S[:, i]
+        return p
+
+    s_acc = torch.zeros((B, L), dtype=dt, device=dev)
+    c_acc = torch.zeros_like(s_acc)
+
+    def accum(term):
+        nonlocal s_acc, c_acc
+        s, c = s_acc, c_acc
+        if precision == "kahan":
+            y = term - c
+            t = s + y
+            s_acc, c_acc = t, (t - s) - y
+        elif precision == "dq_acc":
+            hi = s + term
+            bp = hi - s
+            e = (s - (hi - bp)) + (term - bp)
+            s_acc, c_acc = hi, c + e
+        elif precision == "dq_fast":
+            hi = s + term
+            bp = hi - s
+            e = (s - (hi - bp)) + (term - bp) + c
+            s2 = hi + e
+            s_acc, c_acc = s2, e - (s2 - hi)
+        else:                                # dd, qq
+            s_acc = s + term
+
+    sched = _signed_const_schedule(Wu)
+    mid_idx = Wu // 2 - 1
+    col_mid = A_pads[:, :, kw - 1:kw]                          # (B, n_pad, 1)
+    if mode == "batched":
+        C0 = tensor(_cumsig_host(sched, n_pad))
+        D = torch.zeros((B, n_pad, Wu - 1), dtype=dt, device=dev)
+        for kk in range(kw):                 # cumsig rows >= kw are zero
+            D = D + A_pads[:, :, kk:kk + 1] * C0[kk]
+    elif mode != "baseline":
+        raise ValueError(f"mode must be baseline|batched, got {mode!r}")
+
+    for m in range(M):
+        macro = starts + np.uint64(m * Wu)
+        bitk = tensor(((macro >> np.uint64(kw)) & np.uint64(1))
+                      .astype(np.float64))
+        if mode == "baseline":
+            mid_flip = 1.0 - 2.0 * bitk
+            for (j, s, is_mid, parity) in sched:
+                sl = mid_flip if is_mid else float(s)
+                X = X + A_pads[:, :, j:j + 1] * sl
+                p = prod(X)
+                accum(-p if parity else p)
+        else:
+            corr = col_mid * (-2.0 * bitk)
+            for idx, (_j, _s, _is_mid, parity) in enumerate(sched):
+                st = X + D[:, :, idx:idx + 1]
+                if idx >= mid_idx:
+                    st = st + corr
+                p = prod(st)
+                accum(-p if parity else p)
+            X = X + D[:, :, Wu - 2:Wu - 1]
+            X = X + corr
+
+        gb = macro + np.uint64(Wu)
+        jb = _ctz_u64(gb)
+        ggb = gb ^ (gb >> np.uint64(1))
+        sb = 2.0 * ((ggb >> jb.astype(np.uint64)) & np.uint64(1)) \
+            .astype(np.float64) - 1.0
+        live_np = (gb <= np.uint64(space - 1)).astype(np.float64)
+        live = tensor(live_np)
+        f = tensor(sb) * live
+        colb = A_pads[:, :, torch.as_tensor(jb, device=dev)]   # (B, n_pad, L)
+        X = X + colb * f
+        p = prod(X)
+        accum(p * live)
+
+    lo = c_acc if precision in ("dq_acc", "dq_fast") \
+        else torch.zeros_like(c_acc)
+    return torch.stack([_lane_tree(s_acc, TB), _lane_tree(lo, TB)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def _check(A, xb, *, n: int, TB: int, C: int, Wu: int, num_blocks: int,
+           precision: str, mode: str, batched: bool) -> None:
+    if A.dtype != torch.float64 or xb.dtype != torch.float64:
+        raise TypeError(f"f64 input required, got {A.dtype}/{xb.dtype} "
+                        "(f32 is not ported yet)")
+    if xb.device != A.device:
+        raise ValueError(f"A on {A.device}, xb on {xb.device}")
+    if A.ndim != (3 if batched else 2) or A.shape[-1] != A.shape[-2]:
+        raise ValueError(f"bad A shape {tuple(A.shape)}")
+    n_pad = A.shape[-1]
+    lead = A.shape[:-2]
+    if tuple(xb.shape) != (*lead, n_pad, 1):
+        raise ValueError(f"xb shape {tuple(xb.shape)} != {(*lead, n_pad, 1)}")
+    if not 3 <= n <= min(n_pad, 64) or n_pad % 8 or n_pad > 64:
+        raise ValueError(f"n={n} n_pad={n_pad}: need 3 <= n <= n_pad <= 64, "
+                         "n_pad a multiple of 8")
+    for name, v in (("TB", TB), ("C", C), ("Wu", Wu)):
+        if v < 1 or v & (v - 1):
+            raise ValueError(f"{name}={v} must be a power of two")
+    if Wu < 2 or C % Wu or TB > 256 or num_blocks < 1:
+        raise ValueError(f"bad geometry TB={TB} C={C} Wu={Wu} "
+                         f"blocks={num_blocks}")
+    if precision not in PRECISION_CODES:
+        raise ValueError(f"unknown precision {precision!r}")
+    if mode not in _MODE_CODES:
+        raise ValueError(f"mode must be baseline|batched, got {mode!r}")
+
+
+@functools.lru_cache(maxsize=64)
+def _cumsig_device(Wu: int, n_pad: int, device: torch.device) -> torch.Tensor:
+    """The batched mode's cumsig on the card, copied there once per
+    (Wu, n_pad, device) rather than at every launch."""
+    return torch.as_tensor(_cumsig_host(_signed_const_schedule(Wu), n_pad),
+                           device=device)
+
+
+def _c0_ptr(mode: str, Wu: int, n_pad: int, device: torch.device):
+    """cumsig pointer for the kernel; baseline mode never reads it (NULL)."""
+    return _cumsig_device(Wu, n_pad, device).data_ptr() \
+        if mode == "batched" else None
+
+
+def _launch(entry: str, A, xb, out, *args) -> None:
+    from .build import load_library
+    lib = load_library()
+    rc = getattr(lib, entry)(*args,
+                             torch.cuda.current_stream(A.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: "
+                           f"{lib.ryser_error_string(rc).decode()} ({rc})")
+    counters[entry] += 1
+
+
+def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
+                    TB: int, C: int, Wu: int, num_blocks: int,
+                    precision: str = "dq_acc",
+                    mode: str = "baseline") -> torch.Tensor:
+    """(num_blocks, 2) per-block (hi, lo) partials of one matrix over
+    blocks [0, num_blocks) from chunk ``dev_chunk_base`` (g = 0 term NOT
+    included).  ``A_pad`` is (n_pad, n_pad), ``x_base_pad`` (n_pad, 1)."""
+    _check(A_pad, x_base_pad, n=n, TB=TB, C=C, Wu=Wu, num_blocks=num_blocks,
+           precision=precision, mode=mode, batched=False)
+    base = int(dev_chunk_base)
+    if base < 0 or (base + num_blocks * TB) * C > (1 << (n - 1)):
+        raise ValueError(f"chunk range [{base}, +{num_blocks * TB}) exceeds "
+                         f"the 2^{n - 1} step space")
+    if A_pad.device.type == "cpu":
+        return block_partials_plain(A_pad[None], x_base_pad[None], base,
+                                    n=n, TB=TB, C=C, Wu=Wu,
+                                    num_blocks=num_blocks,
+                                    precision=precision, mode=mode)[0]
+    if A_pad.device.type != "cuda":
+        raise ValueError(f"unsupported device {A_pad.device}")
+    A_pad, x_base_pad = A_pad.contiguous(), x_base_pad.contiguous()
+    out = torch.empty((num_blocks, 2), dtype=torch.float64,
+                      device=A_pad.device)
+    _launch("ryser_dense_scalar", A_pad, x_base_pad, out,
+            A_pad.data_ptr(), x_base_pad.data_ptr(),
+            _c0_ptr(mode, Wu, A_pad.shape[0], A_pad.device),
+            out.data_ptr(), base, n, A_pad.shape[0], TB,
+            int(math.log2(C)), int(math.log2(Wu)), num_blocks,
+            PRECISION_CODES[precision], _MODE_CODES[mode])
+    return out
+
+
+def ryser_cuda_call_batched(A_pads, x_base_pads, *, n: int, TB: int, C: int,
+                            Wu: int, num_blocks: int,
+                            precision: str = "dq_acc",
+                            mode: str = "batched") -> torch.Tensor:
+    """(B, num_blocks, 2) partials of a (B, n_pad, n_pad) stack in ONE
+    launch, grid (num_blocks, B), chunk base 0 (g = 0 terms NOT
+    included).  ``x_base_pads`` is (B, n_pad, 1)."""
+    _check(A_pads, x_base_pads, n=n, TB=TB, C=C, Wu=Wu,
+           num_blocks=num_blocks, precision=precision, mode=mode,
+           batched=True)
+    if num_blocks * TB * C > (1 << (n - 1)):
+        raise ValueError("blocks exceed the step space")
+    if A_pads.device.type == "cpu":
+        return block_partials_plain(A_pads, x_base_pads, 0, n=n, TB=TB, C=C,
+                                    Wu=Wu, num_blocks=num_blocks,
+                                    precision=precision, mode=mode)
+    if A_pads.device.type != "cuda":
+        raise ValueError(f"unsupported device {A_pads.device}")
+    B = A_pads.shape[0]
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the grid's 65535 rows")
+    A_pads, x_base_pads = A_pads.contiguous(), x_base_pads.contiguous()
+    out = torch.empty((B, num_blocks, 2), dtype=torch.float64,
+                      device=A_pads.device)
+    _launch("ryser_dense_batched", A_pads, x_base_pads, out,
+            A_pads.data_ptr(), x_base_pads.data_ptr(),
+            _c0_ptr(mode, Wu, A_pads.shape[1], A_pads.device),
+            out.data_ptr(), B, n, A_pads.shape[1], TB,
+            int(math.log2(C)), int(math.log2(Wu)), num_blocks,
+            PRECISION_CODES[precision], _MODE_CODES[mode])
+    return out

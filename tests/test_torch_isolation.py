@@ -1,0 +1,83 @@
+"""The port stands alone and never falls back: it imports neither jax nor
+the reference package, a card that is asked for and missing raises, and
+the routes not ported yet raise ``NotImplementedError``."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch.core.solver import PermanentSolver  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import ryser_cuda as RC  # noqa: E402
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+
+_PROBE = """
+import sys
+import repro_torch, repro_torch.core.engine, repro_torch.kernels.ops
+import repro_torch.kernels.build, repro_torch.launch.permanent
+import repro_torch.interop
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([os.path.join(REPO, "src"), REPO]))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_missing_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A = np.random.default_rng(0).uniform(-1, 1, (6, 6))
+    RC.reset_counters()
+    for call in (lambda: repro_torch.permanent(A),
+                 lambda: repro_torch.permanent_batch([A, A]),
+                 lambda: repro_torch.permanent(A, device="cuda",
+                                               backend="torch"),
+                 lambda: PermanentSolver().execute(PermanentSolver().plan(A))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert RC.counters["block_partials_plain"] == 0
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build, "TOOLKIT_NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "build_dir", lambda: tmp_path / "kernels")
+    RC.reset_counters()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load_library()
+    assert RC.counters["block_partials_plain"] == 0
+    assert not (tmp_path / "kernels").exists()
+
+
+def test_unported_routes_raise():
+    rng = np.random.default_rng(1)
+    sparse = rng.uniform(0.5, 1.5, (8, 8)) * (rng.uniform(0, 1, (8, 8)) < 0.2)
+    np.fill_diagonal(sparse, 1.0)
+    with pytest.raises(NotImplementedError, match="sparse"):
+        repro_torch.permanent(sparse, preprocess=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="[Cc]omplex"):
+        repro_torch.permanent(np.eye(5) * (1 + 1j), device="cpu")
+    with pytest.raises(NotImplementedError, match="[Cc]omplex"):
+        repro_torch.permanent_batch([np.eye(5) * 1j] * 2, device="cpu")
+    solver = PermanentSolver(device="cpu", campaign_threshold=-1.0)
+    with pytest.raises(NotImplementedError, match="campaign"):
+        solver.execute(solver.plan(rng.uniform(-1, 1, (6, 6))))
+    with pytest.raises(NotImplementedError, match="[Tt]uning"):
+        PermanentSolver(device="cpu", tuning_table="t.json").plan(np.eye(4))
