@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with a CUDA card and nvcc.  It
-builds the kernels from ``src/repro_torch/kernels/csrc``, holds every
-kernel against its plain PyTorch version on the card (block windows, and
-the full grids of the main path's shapes), drives the main path
-(``repro_torch.permanent`` at n = 30, ``permanent_batch`` buckets at
+builds the kernels from ``src/repro_torch/kernels/csrc`` (the dense real
+kernel and the split-plane complex one), holds every kernel against its
+plain PyTorch version on the card (block windows, and the full grids of
+the main path's shapes), drives the main path for real and for complex
+input (``repro_torch.permanent`` at n = 30, ``permanent_batch`` buckets at
 n = 22 and n = 24) with the launch counters reset just before and read
-just after, checks the values (closed form at full width, the torch
-engine on a bucket), splits each call's host time into planning and
-execution, and times each kernel beside its bound.  A summary goes to
+just after each path, checks the values (closed forms at full width, the
+torch engine on a bucket, a scalar leaf against the same leaf in a
+bucket), splits each call's host time into planning and execution, and
+times each kernel beside its bound.  A summary goes to
 ``chiprun_out/chip_smoke.json``.
 
 The last line of standard output is
@@ -55,6 +57,13 @@ def _sku(name: str):
     raise RuntimeError(f"no FP64/memory rates on record for {name!r}")
 
 
+def complex_ryser_ops(n: int) -> float:
+    """FP64 instructions of one split-plane complex permanent: per Gray
+    step 2n adds for the two column updates and 6(n - 1) for the complex
+    product (rounded up to 8n), over 2^(n-1) steps."""
+    return 8.0 * n * 2.0 ** (n - 1)
+
+
 class Smoke:
     def __init__(self):
         self.failures: list[str] = []
@@ -88,14 +97,16 @@ def _ulp_gap(a: np.ndarray, b: np.ndarray) -> float:
 
 
 def _ptxas_summary(log: str) -> list[dict]:
-    """(npad, precision code, registers, spill bytes) per kernel."""
+    """(kernel, npad, precision code, registers, spill bytes) per kernel
+    instantiation of ryser_dense.cu and ryser_complex.cu."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"ryser_dense_kernelILi(\d+)ELi(\d+)E", m.group(1))
-            cur = {"npad": int(t.group(1)), "prec": int(t.group(2))} if t \
-                else None
+            t = re.search(r"ryser_(dense|complex)_kernelILi(\d+)ELi(\d+)E",
+                          m.group(1))
+            cur = {"kernel": t.group(1), "npad": int(t.group(2)),
+                   "prec": int(t.group(3))} if t else None
             continue
         if cur is None:
             continue
@@ -108,7 +119,7 @@ def _ptxas_summary(log: str) -> list[dict]:
             cur["registers"] = int(m.group(1))
             out.append(cur)
             cur = None
-    return sorted(out, key=lambda d: (d["npad"], d["prec"]))
+    return sorted(out, key=lambda d: (d["kernel"], d["npad"], d["prec"]))
 
 
 def phase_card(smoke: Smoke, torch) -> dict:
@@ -134,11 +145,18 @@ def phase_build(smoke: Smoke) -> None:
     smoke.summary["build_s"] = dt
     smoke.summary["ptxas"] = regs
     for r in regs:
-        print(f"  ptxas npad={r['npad']:2d} prec={r['prec']} "
-              f"registers={r['registers']} spill={r.get('spill_stores', 0)}"
+        print(f"  ptxas {r['kernel']:7s} npad={r['npad']:2d} "
+              f"prec={r['prec']} registers={r['registers']} "
+              f"spill={r.get('spill_stores', 0)}"
               f"/{r.get('spill_loads', 0)} B")
-    smoke.check(len(regs) == 32, f"32 kernel instantiations built "
-                                 f"({len(regs)})")
+    for kernel in ("dense", "complex"):
+        k = [r for r in regs if r["kernel"] == kernel]
+        smoke.check(len(k) == 32, f"32 {kernel} kernel instantiations built "
+                                  f"({len(k)})")
+    spills = [(r["kernel"], r["npad"], r["prec"]) for r in regs
+              if r["npad"] <= 32 and (r.get("spill_stores", 0)
+                                      or r.get("spill_loads", 0))]
+    smoke.check(not spills, f"no spills at NPAD <= 32 ({spills})")
 
 
 def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
@@ -209,11 +227,81 @@ def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
 
 
 def _agree(got, want, err: dict, entry: str) -> bool:
+    """Partials agree per component: (hi + lo) of a real kernel's
+    (hi, lo), (re_hi + re_err, im_hi + im_err) of a complex kernel's."""
     g, w = got.cpu().numpy(), want.cpu().numpy()
     err[entry] = max(err[entry], float(np.max(np.abs(g - w))))
-    gs, ws = g[..., 0] + g[..., 1], w[..., 0] + w[..., 1]
+    gs, ws = g[..., 0::2] + g[..., 1::2], w[..., 0::2] + w[..., 1::2]
     return bool(np.all(np.isfinite(g)) and np.all(
         np.abs(gs - ws) <= ATOL_KERNEL + RTOL_KERNEL * np.abs(ws)))
+
+
+def _cgauss(rng, shape):
+    """Complex Gaussian entries of unit variance (amplitude matrices)."""
+    return (rng.normal(size=shape) + 1j * rng.normal(size=shape)) \
+        / math.sqrt(2)
+
+
+def phase_kernel_vs_plain_complex(smoke: Smoke, torch) -> dict:
+    """Both complex entries against block_partials_plain_complex on the
+    card: windows of up to 8 blocks, the first and the last, all
+    precisions; the batched entry at B = 3; and the complex bucket of the
+    main path (16 x n = 22, dq_acc) over its full grid."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_complex_cuda as RX
+    rng = np.random.default_rng(SEED + 10)
+    err = {"ryser_complex_scalar": 0.0, "ryser_complex_batched": 0.0}
+    worst_ulp = 0.0
+    ok = True
+
+    def hold(got, want, entry):
+        nonlocal ok, worst_ulp
+        ok &= _agree(got, want, err, entry)
+        worst_ulp = max(worst_ulp, _ulp_gap(got.cpu().numpy(),
+                                            want.cpu().numpy()))
+
+    for n in WINDOW_NS:
+        geom = DEFAULT_GEOMETRY if n >= N_BUCKET else Geometry(8, 8, 4)
+        TB, C, Wu, blocks = geom.kernel_geometry(n)
+        nb = min(8, blocks)
+        As = torch.as_tensor(_cgauss(rng, (3, n, n)), device="cuda")
+        Ar, Ai, xbr, xbi, _ = ops.prepare_complex(As)
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+        for prec in PRECISIONS:
+            for base in sorted({0, blocks * TB - nb * TB}):
+                got = RX.ryser_cuda_call_complex(Ar[0], Ai[0], xbr[0], xbi[0],
+                                                 base, precision=prec, **geo)
+                want = RX.block_partials_plain_complex(
+                    Ar[:1], Ai[:1], xbr[:1], xbi[:1], base, precision=prec,
+                    **geo)[0]
+                hold(got, want, "ryser_complex_scalar")
+            got = RX.ryser_cuda_call_complex_batched(Ar, Ai, xbr, xbi,
+                                                     precision=prec, **geo)
+            want = RX.block_partials_plain_complex(Ar, Ai, xbr, xbi, 0,
+                                                   precision=prec, **geo)
+            hold(got, want, "ryser_complex_batched")
+        torch.cuda.synchronize()
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(N_BUCKET)
+    As = torch.as_tensor(_cgauss(rng, (B_BUCKET, N_BUCKET, N_BUCKET)),
+                         device="cuda")
+    planes = ops.prepare_complex(As)[:4]
+    geo = dict(n=N_BUCKET, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+               precision="dq_acc")
+    hold(RX.ryser_cuda_call_complex_batched(*planes, **geo),
+         RX.block_partials_plain_complex(*planes, 0, **geo),
+         "ryser_complex_batched")
+    print(f"complex kernel vs plain: worst ulp gap {worst_ulp:g}, max abs "
+          f"err {err}")
+    smoke.check(ok, f"complex kernels agree with their plain versions for "
+                    f"n in {WINDOW_NS} (rtol {RTOL_KERNEL:g}, atol "
+                    f"{ATOL_KERNEL:g} per component), {len(PRECISIONS)} "
+                    f"precisions, scalar windows incl. the top of the space, "
+                    f"batched B=3, full grid {B_BUCKET} x n={N_BUCKET} "
+                    f"({blocks} blocks)")
+    smoke.summary["kernel_vs_plain_complex"] = {"worst_ulp": worst_ulp,
+                                                **err}
+    return err
 
 
 def phase_main_path(smoke: Smoke, torch) -> dict:
@@ -299,53 +387,175 @@ def phase_values(smoke: Smoke, torch, mp: dict) -> None:
                                "bucket_vs_torch": rel}
 
 
-def phase_timing(smoke: Smoke, torch, card: dict, launches: dict) -> list:
-    """Kernel, plain and bound at the main path's shapes, each kernel held
-    against its plain version over the full grid of the timed shape."""
+def phase_main_path_complex(smoke: Smoke, torch) -> dict:
+    """The complex main path through the same entry points: a 30 x 30
+    complex Gaussian (the amplitude shape of a 30-photon submatrix) and
+    complex buckets, counters 0 before each path and read right after."""
+    import repro_torch
+    from repro_torch.kernels import ryser_cuda as RC
+    rng = np.random.default_rng(SEED + 11)
+    A30 = _cgauss(rng, (N_MAIN, N_MAIN))
+    bucket = _cgauss(rng, (B_BUCKET, N_BUCKET, N_BUCKET))
+    thru = _cgauss(rng, (B_THRU, N_THRU, N_THRU))
+    torch.cuda.synchronize()
+
+    RC.reset_counters()
+    t_scalar = []
+    for _ in range(MAIN_REPS):
+        t0 = time.perf_counter()
+        v30, rep = repro_torch.permanent(A30, return_report=True)
+        t_scalar.append(time.perf_counter() - t0)
+    counts_scalar = dict(RC.counters)
+
+    RC.reset_counters()
+    vb, reps_b = repro_torch.permanent_batch(bucket, return_report=True)
+    t_thru = []
+    for _ in range(MAIN_REPS):
+        t0 = time.perf_counter()
+        vt = repro_torch.permanent_batch(thru)
+        t_thru.append(time.perf_counter() - t0)
+    counts_batch = dict(RC.counters)
+
+    print(f"complex main path scalar: perm(A30c) = {v30.real:+.17e} "
+          f"{v30.imag:+.17e}j, host seconds {t_scalar} = "
+          f"{1 / min(t_scalar):.1f} perms/s (best), dispatch {rep.dispatch}, "
+          f"counters {counts_scalar}")
+    print(f"complex main path buckets: {reps_b[0].dispatch}; {B_THRU} x "
+          f"n={N_THRU} host seconds {t_thru} = {B_THRU / min(t_thru):.1f} "
+          f"perms/s (best), counters {counts_batch}")
+    smoke.check(counts_scalar["ryser_complex_scalar"] > 0
+                and counts_scalar["block_partials_plain_complex"] == 0,
+                "complex scalar main path launched ryser_complex_scalar, "
+                "plain 0")
+    smoke.check(counts_batch["ryser_complex_batched"] > 0
+                and counts_batch["block_partials_plain_complex"] == 0,
+                "complex bucket main path launched ryser_complex_batched, "
+                "plain 0")
+    smoke.check(isinstance(v30, complex) and bool(np.isfinite(v30))
+                and vb.shape == (B_BUCKET,) and vb.dtype == np.complex128
+                and vt.shape == (B_THRU,) and bool(np.all(np.isfinite(vt))),
+                "complex main-path values are finite complex of the "
+                "expected shape")
+    smoke.summary["main_path_complex"] = {
+        "perm_A30c": [v30.real, v30.imag], "scalar_s": t_scalar,
+        "thru_s": t_thru, "thru_perms_per_s": B_THRU / min(t_thru),
+        "launches_scalar": counts_scalar, "launches_batch": counts_batch}
+    return {"A30": A30, "v30": v30, "bucket": bucket, "vb": vb,
+            "thru": thru,
+            "launches": {"ryser_complex_scalar":
+                         counts_scalar["ryser_complex_scalar"],
+                         "ryser_complex_batched":
+                         counts_batch["ryser_complex_batched"]}}
+
+
+def phase_values_complex(smoke: Smoke, torch, mp: dict) -> None:
+    import repro_torch
+    from repro_torch.core.oracle import all_ones_permanent
+    # complex scaled all-ones D1 J D2: perm = n! prod(r) prod(c)
+    rng = np.random.default_rng(SEED + 12)
+    r = rng.uniform(0.5, 1.5, N_MAIN) * np.exp(1j * rng.uniform(
+        -np.pi, np.pi, N_MAIN))
+    c = rng.uniform(0.5, 1.5, N_MAIN) * np.exp(1j * rng.uniform(
+        -np.pi, np.pi, N_MAIN))
+    exact = all_ones_permanent(N_MAIN) * complex(np.prod(r)) \
+        * complex(np.prod(c))
+    got = repro_torch.permanent(np.outer(r, c), precision="dq_acc")
+    rel_ones = abs(got - exact) / abs(exact)
+    print(f"complex all-ones D1 J D2 n={N_MAIN}: {got} exact {exact} "
+          f"rel.err {rel_ones:.3e}")
+    smoke.check(rel_ones <= 1e-8, f"complex scaled all-ones n={N_MAIN} "
+                                  f"rel.err {rel_ones:.3e} <= 1e-8")
+    # the complex bucket against the torch engine on the card
+    ref = repro_torch.permanent_batch(mp["bucket"], backend="torch")
+    rel = float(np.max(np.abs(mp["vb"] - ref) / np.abs(ref)))
+    smoke.check(rel <= 1e-9, f"complex bucket {B_BUCKET} x n={N_BUCKET} vs "
+                             f"torch engine max rel {rel:.3e} <= 1e-9")
+    # a scalar leaf equals the same leaf in a bucket, bit for bit: both run
+    # the window-batched body
+    other = _cgauss(rng, (N_MAIN, N_MAIN))
+    vb = repro_torch.permanent_batch([mp["A30"], other])
+    smoke.check(vb[0] == mp["v30"], f"complex n={N_MAIN} scalar leaf equals "
+                                    f"the same leaf in a bucket bit for bit "
+                                    f"({mp['v30']} vs {vb[0]})")
+    smoke.summary["values_complex"] = {"allones_rel": rel_ones,
+                                       "bucket_vs_torch": rel,
+                                       "scalar_vs_bucket_equal":
+                                       bool(vb[0] == mp["v30"])}
+
+
+def _timed_inputs(torch, rng, entry: str, n: int, B: int):
+    """(kernel call, plain call, input bytes, operation count, mode) of one
+    kernel entry at a main-path shape."""
     from repro_torch.core.ryser import ryser_flops
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_complex_cuda as RX
     from repro_torch.kernels import ryser_cuda as RC
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks, precision="dq_acc")
+    scalar = entry.endswith("_scalar")
+    if entry.startswith("ryser_complex"):
+        As = torch.as_tensor(_cgauss(rng, (B, n, n)), device="cuda")
+        planes = ops.prepare_complex(As)[:4]
+        kern = (lambda: RX.ryser_cuda_call_complex(  # noqa: E731
+            *(p[0] for p in planes), 0, **geo)) if scalar else \
+            (lambda: RX.ryser_cuda_call_complex_batched(  # noqa: E731
+                *planes, **geo))
+        plain = lambda: RX.block_partials_plain_complex(  # noqa: E731
+            *planes, 0, **geo)
+        nbytes = 8 * (sum(p.numel() for p in planes) + 4 * B * blocks)
+        return kern, plain, nbytes, B * complex_ryser_ops(n), "batched"
+    mode = "baseline" if scalar else "batched"
+    As = torch.as_tensor(rng.uniform(-1, 1, (B, n, n)), device="cuda")
+    A_pads, xb_pads, _ = ops.prepare(As)
+    kern = (lambda: RC.ryser_cuda_call(  # noqa: E731
+        A_pads[0], xb_pads[0], 0, mode=mode, **geo)) if scalar else \
+        (lambda: RC.ryser_cuda_call_batched(  # noqa: E731
+            A_pads, xb_pads, mode=mode, **geo))
+    plain = lambda: RC.block_partials_plain(  # noqa: E731
+        A_pads, xb_pads, 0, mode=mode, **geo)
+    nbytes = 8 * (A_pads.numel() + xb_pads.numel() + 2 * B * blocks)
+    return kern, plain, nbytes, B * ryser_flops(n), mode
+
+
+def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
+                 window_err: dict) -> list:
+    """Kernel, plain and bound at the main path's shapes, each kernel held
+    against its plain version over the full grid of the timed shape."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     sku, fp64, bw = _sku(card["name"])
     rng = np.random.default_rng(SEED + 3)
-    full_err = {"ryser_dense_scalar": 0.0, "ryser_dense_batched": 0.0}
+    full_err = {}
     rows = []
-    for entry, n, B, mode, replaces, fn_k in (
-            ("ryser_dense_scalar", N_MAIN, 1, "baseline",
-             "src/repro/kernels/ryser_pallas.py:305", RC.ryser_cuda_call),
-            ("ryser_dense_batched", N_THRU, B_THRU, "batched",
-             "src/repro/kernels/ryser_pallas.py:342",
-             RC.ryser_cuda_call_batched)):
-        TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
-        As = torch.as_tensor(rng.uniform(-1, 1, (B, n, n)), device="cuda")
-        A_pads, xb_pads, _ = ops.prepare(As)
-        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
-                   precision="dq_acc", mode=mode)
-        if entry == "ryser_dense_scalar":
-            kern = lambda: fn_k(A_pads[0], xb_pads[0], 0, **geo)  # noqa: E731
-        else:
-            kern = lambda: fn_k(A_pads, xb_pads, **geo)  # noqa: E731
+    for entry, n, B, replaces, source in (
+            ("ryser_dense_scalar", N_MAIN, 1,
+             "src/repro/kernels/ryser_pallas.py:305", "ryser_dense.cu"),
+            ("ryser_dense_batched", N_THRU, B_THRU,
+             "src/repro/kernels/ryser_pallas.py:342", "ryser_dense.cu"),
+            ("ryser_complex_scalar", N_MAIN, 1,
+             "src/repro/kernels/ryser_complex.py:181", "ryser_complex.cu"),
+            ("ryser_complex_batched", N_THRU, B_THRU,
+             "src/repro/kernels/ryser_complex.py:216", "ryser_complex.cu")):
+        blocks = DEFAULT_GEOMETRY.kernel_geometry(n)[3]
+        kern, plain, nbytes, ops_count, mode = _timed_inputs(
+            torch, rng, entry, n, B)
         ms, got = _time_ms(torch, kern, reps=5)
-        plain = lambda: RC.block_partials_plain(  # noqa: E731
-            A_pads, xb_pads, 0, **geo)
         plain_ms, want = _time_ms(torch, plain, reps=1)
-        if entry == "ryser_dense_scalar":
+        if entry.endswith("_scalar"):
             want = want[0]
+        full_err[entry] = 0.0
         smoke.check(_agree(got, want, full_err, entry),
                     f"{entry} agrees with its plain version over the full "
                     f"grid of {B} x n={n} ({blocks} blocks, {mode}, dq_acc): "
                     f"max abs err {full_err[entry]:g}")
-        del want
+        del kern, plain, got, want
         torch.cuda.empty_cache()
-        ops_count = B * ryser_flops(n)
-        nbytes = 8 * (A_pads.numel() + xb_pads.numel() + 2 * B * blocks)
         t_ops, t_bytes = ops_count / (fp64 / 2) * 1e3, nbytes / bw * 1e3
         rows.append({
             "name": entry, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ryser_dense.cu",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[entry],
-            "max_abs_err": max(full_err[entry],
-                               smoke.summary["kernel_vs_plain"][entry]),
+            "max_abs_err": max(full_err[entry], window_err[entry]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None})
@@ -357,7 +567,16 @@ def phase_timing(smoke: Smoke, torch, card: dict, launches: dict) -> list:
     return rows
 
 
-def phase_host_split(smoke: Smoke, torch, mp: dict) -> None:
+def _main_calls(mp: dict, mpc: dict) -> list:
+    """(label, batched, data) of the main-path calls the profile and the
+    host split read: n = 30 and 256 x n = 24, real and complex."""
+    return [(f"{kind}permanent n={N_MAIN}", False, m["A30"])
+            for kind, m in (("", mp), ("complex ", mpc))] + \
+        [(f"{kind}permanent_batch {B_THRU} x n={N_THRU}", True, m["thru"])
+         for kind, m in (("", mp), ("complex ", mpc))]
+
+
+def phase_host_split(smoke: Smoke, torch, calls: list) -> None:
     """Host seconds of each main-path call split into planning
     (``plan``/``plan_batch``: DM/FM, routing, buckets) and execution, with
     the executor's per-site wall times (``ExecStats.timings``: stacking,
@@ -365,9 +584,7 @@ def phase_host_split(smoke: Smoke, torch, mp: dict) -> None:
     solver per call, so no result-cache hit."""
     from repro_torch.core.solver import PermanentSolver
     out = {}
-    for label, batched, data in (
-            (f"permanent n={N_MAIN}", False, mp["A30"]),
-            (f"permanent_batch {B_THRU} x n={N_THRU}", True, mp["thru"])):
+    for label, batched, data in calls:
         runs = []
         for _ in range(MAIN_REPS):
             solver = PermanentSolver()
@@ -389,7 +606,7 @@ def phase_host_split(smoke: Smoke, torch, mp: dict) -> None:
     smoke.summary["host_split"] = out
 
 
-def phase_profile(smoke: Smoke, torch, mp: dict) -> None:
+def phase_profile(smoke: Smoke, torch, calls: list) -> None:
     """Device busy share of each main-path call (kernel time over wall
     time, the profiler's own overhead included in the wall time), and
     device time by kernel name, from torch.profiler (CUPTI)."""
@@ -397,15 +614,13 @@ def phase_profile(smoke: Smoke, torch, mp: dict) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for label, call in (
-            (f"permanent n={N_MAIN}", lambda: repro_torch.permanent(mp["A30"])),
-            (f"permanent_batch {B_THRU} x n={N_THRU}",
-             lambda: repro_torch.permanent_batch(mp["thru"]))):
+    for label, batched, data in calls:
+        call = repro_torch.permanent_batch if batched else repro_torch.permanent
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            call()
+            call(data)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         by_name = {}                 # device-side (kernel) events only
@@ -439,12 +654,17 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card(smoke, torch)
     phase_build(smoke)
-    phase_kernel_vs_plain(smoke, torch)
+    window_err = {**phase_kernel_vs_plain(smoke, torch),
+                  **phase_kernel_vs_plain_complex(smoke, torch)}
     mp = phase_main_path(smoke, torch)
     phase_values(smoke, torch, mp)
-    phase_profile(smoke, torch, mp)
-    phase_host_split(smoke, torch, mp)
-    rows = phase_timing(smoke, torch, card, mp["launches"])
+    mpc = phase_main_path_complex(smoke, torch)
+    phase_values_complex(smoke, torch, mpc)
+    calls = _main_calls(mp, mpc)
+    phase_profile(smoke, torch, calls)
+    phase_host_split(smoke, torch, calls)
+    rows = phase_timing(smoke, torch, card,
+                        {**mp["launches"], **mpc["launches"]}, window_err)
     smoke.summary.update(card=card, kernels=rows,
                          seconds=time.perf_counter() - t_start,
                          failures=smoke.failures)

@@ -2,7 +2,8 @@
 
 ``permanent(A)`` / ``permanent_batch(As)`` run on the card by default
 (``device="cpu"`` for the host); the dense real f64 path goes through the
-CUDA kernel in ``kernels/csrc/ryser_dense.cu``.
+CUDA kernel in ``kernels/csrc/ryser_dense.cu``, the dense complex128 path
+(split re/im planes) through ``kernels/csrc/ryser_complex.cu``.
 """
 
 from .core.engine import permanent, permanent_batch

@@ -3,7 +3,8 @@
 The port of the reference package's ``core/engine.py``.
 ``permanent(A)`` and ``permanent_batch(As)`` build a one-shot plan
 (``core.planner``), execute it uncached (``core.executor``) and return
-Python floats / a float64 ndarray.  They run on the card unless the
+Python floats / a float64 ndarray, or Python complex / a complex128
+ndarray when the input is complex.  They run on the card unless the
 caller passes ``device="cpu"``; a card that is asked for and missing
 raises ``RuntimeError``.  Code that wants plan inspection, cached
 re-execution or the request queue holds a ``PermanentSolver`` instead.
@@ -17,7 +18,7 @@ from .executor import execute_plan
 from .planner import (DENSITY_SWITCH, PermanentReport, SolverConfig,
                       build_plan)
 from .ryser import resolve_device
-from .solver import PermanentSolver
+from .solver import PermanentSolver, plan_values
 
 __all__ = ["permanent", "permanent_batch", "PermanentReport",
            "PermanentSolver", "SolverConfig", "DENSITY_SWITCH"]
@@ -36,10 +37,11 @@ def permanent(A, *, precision: str = "dq_acc", preprocess: bool = True,
               dm: bool | None = None, fm: bool | None = None,
               num_chunks: int = 4096, backend: str = "cuda", device=None,
               return_report: bool = False):
-    """Compute perm(A) of a real (n, n) matrix the SUperman way.
+    """Compute perm(A) of an (n, n) matrix the SUperman way.
 
     Args:
-      A: (n, n) real array-like.
+      A: (n, n) real or complex array-like; returns a Python float or
+        complex.
       precision: one of ``dd | dq_fast | dq_acc | qq | kahan`` (Table 3).
       preprocess / dm / fm: DM + FM preprocessing switches (Sec. 4).
       num_chunks: chunk count of the ``torch`` engine (Alg. 3's tau).
@@ -54,8 +56,8 @@ def permanent(A, *, precision: str = "dq_acc", preprocess: bool = True,
     cfg = _config(precision, preprocess, dm, fm, num_chunks, backend, device)
     plan = build_plan([A], cfg, batched=False)
     totals, reports, _ = execute_plan(plan)
+    plan_values(plan, totals, reports)
     report = reports[0]
-    report.value = float(totals[0])
     return (report.value, report) if return_report else report.value
 
 
@@ -63,13 +65,15 @@ def permanent_batch(As, *, precision: str = "dq_acc", preprocess: bool = True,
                     dm: bool | None = None, fm: bool | None = None,
                     num_chunks: int = 4096, backend: str = "cuda",
                     device=None, return_report: bool = False) -> np.ndarray:
-    """perm(A) for a stack of real matrices in bucketed batches.
+    """perm(A) for a stack of real or complex matrices in bucketed
+    batches.
 
     Each matrix is DM/FM-preprocessed; same-size leaves share one bucket
     program (``cuda``: one batch-grid kernel launch), single-leaf buckets
     take the scalar path.  ``As`` is (B, n, n) or a sequence of square
     matrices of any sizes; arguments as in ``permanent``.  Returns a (B,)
-    float64 array, with ``return_report`` a ``(values, reports)`` tuple.
+    float64 array (complex128 when any matrix is complex), with
+    ``return_report`` a ``(values, reports)`` tuple.
     """
     mats = [np.asarray(M) for M in As]
     for M in mats:
@@ -77,7 +81,6 @@ def permanent_batch(As, *, precision: str = "dq_acc", preprocess: bool = True,
             raise ValueError(f"square matrices required, got {M.shape}")
     cfg = _config(precision, preprocess, dm, fm, num_chunks, backend, device)
     plan = build_plan(mats, cfg, batched=True)
-    out, reports, _ = execute_plan(plan)
-    for i, r in enumerate(reports):
-        r.value = float(out[i])
+    totals, reports, _ = execute_plan(plan)
+    out = plan_values(plan, totals, reports)
     return (out, reports) if return_report else out

@@ -1,21 +1,24 @@
 """Execute side of the plan/execute split: backend registry + dispatcher.
 
 The port of the reference package's ``core/executor.py`` for the dense
-real route.  Each :class:`Backend` runs one dense leaf and (optionally) a
-whole same-size bucket; ``register_backend`` adds strategies without
-touching the dispatcher.  Two register at import:
+route, real and complex.  Each :class:`Backend` runs one dense leaf and
+(optionally) a whole same-size bucket; ``register_backend`` adds
+strategies without touching the dispatcher.  Two register at import:
 
 * ``torch`` -- the chunked torch engine (``core/ryser.py``), the
   counterpart of the reference's ``jnp``;
-* ``cuda``  -- the dense CUDA kernel (``kernels/ops.py``), the counterpart
-  of ``pallas``: scalar leaves run the scalar entry (``baseline``), buckets
-  the batch-grid entry (``batched``); n < 4 runs the torch engine, as
-  ``PallasBackend._kernel_ok`` sends n < 4 to ``jnp``.
+* ``cuda``  -- the dense CUDA kernels (``kernels/ops.py``), the
+  counterpart of ``pallas``: real scalar leaves run the scalar entry
+  (``baseline``), buckets the batch-grid entry (``batched``); complex
+  leaves and buckets run the split-plane kernel's two entries; n < 4 runs
+  the torch engine, as ``PallasBackend._kernel_ok`` sends n < 4 to
+  ``jnp``.
 
-Both run on ``SolverConfig.device`` (None = the card).  The sparse route,
-complex input and campaign (``step_sharded``) leaves are not ported yet
-and raise ``NotImplementedError`` naming their ROADMAP item; they never
-run on another engine.
+Both run on ``SolverConfig.device`` (None = the card).  The sparse route
+(real or complex) and campaign (``step_sharded``) leaves are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP item; they
+never run on another engine.  A complex ``qq`` plan runs as ``kahan`` and
+says so with a ``precision(qq->kahan)`` tag on every report.
 
 **Batch contract.**  ``dense_batch(stack, *, precision, num_chunks,
 geometry, device)`` runs one same-size bucket as a single device program
@@ -53,9 +56,11 @@ _CAMPAIGN_TODO = ("step_sharded (campaign) leaves are not ported yet "
                   "the largest dense leaf served is n = 30")
 
 
-def _scalar(v) -> float:
-    """A 0-d tensor / numpy scalar / Python number as a Python float."""
-    return float(v.item() if hasattr(v, "item") else v)
+def _scalar(v) -> complex | float:
+    """A 0-d tensor / numpy scalar / Python number as a Python float, or
+    a Python complex for a complex value."""
+    v = v.item() if hasattr(v, "item") else v
+    return v if isinstance(v, complex) else float(v)
 
 
 def _host(vals) -> np.ndarray:
@@ -126,7 +131,7 @@ class Backend:
     name = "?"
 
     def dense(self, M: np.ndarray, *, precision: str, num_chunks: int,
-              geometry=None, device=None) -> float:
+              geometry=None, device=None) -> complex | float:
         raise NotImplementedError
 
     def dense_batch(self, stack: np.ndarray, *, precision: str,
@@ -157,9 +162,9 @@ class TorchBackend(Backend):
 
 
 class CudaBackend(TorchBackend):
-    """Dense CUDA kernel, n >= 4 (scalar entry for leaves, batch-grid
-    entry for buckets); n < 4 runs the torch engine (scalar silently,
-    buckets with a ``cuda->torch`` downgrade tag)."""
+    """Dense CUDA kernels, real or complex, n >= 4 (scalar entry for
+    leaves, batch-grid entry for buckets); n < 4 runs the torch engine
+    (scalar silently, buckets with a ``cuda->torch`` downgrade tag)."""
 
     name = "cuda"
 
@@ -239,8 +244,6 @@ def _cache_key(leaf: LeafTask, plan: ExecutionPlan, produced_by: str) -> tuple:
 
 def _check_ported(plan: ExecutionPlan) -> None:
     """Refuse what the port does not run yet, before any device work."""
-    if plan.is_complex:
-        raise NotImplementedError(R._COMPLEX_TODO)
     for leaf in plan.leaves:
         if leaf.route == ROUTE_SPARSE:
             raise NotImplementedError(_SPARSE_TODO)
@@ -249,7 +252,7 @@ def _check_ported(plan: ExecutionPlan) -> None:
 
 
 def _run_leaf(leaf: LeafTask, plan: ExecutionPlan, backend: Backend,
-              report: PermanentReport, stats: ExecStats) -> float:
+              report: PermanentReport, stats: ExecStats) -> complex | float:
     """One dense leaf through the scalar strategy path."""
     n = leaf.n
     cfg = plan.config
@@ -265,7 +268,7 @@ def _run_leaf(leaf: LeafTask, plan: ExecutionPlan, backend: Backend,
     return val
 
 
-def _inline_value(m: np.ndarray) -> float:
+def _inline_value(m: np.ndarray) -> complex | float:
     return m[0, 0] if m.shape[0] == 1 else \
         m[0, 0] * m[1, 1] + m[0, 1] * m[1, 0]
 
@@ -273,16 +276,17 @@ def _inline_value(m: np.ndarray) -> float:
 def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
     """Dispatch every leaf of ``plan`` and accumulate per-matrix totals.
 
-    Returns ``(totals, reports, stats)``: ``totals`` is a (B,) float64
-    array, ``reports`` one PermanentReport per planned matrix, ``stats``
-    the dispatch/cache accounting.
+    Returns ``(totals, reports, stats)``: ``totals`` is a (B,) complex128
+    array (callers take the real part for real plans), ``reports`` one
+    PermanentReport per planned matrix, ``stats`` the dispatch/cache
+    accounting.
     """
     _check_ported(plan)
     cfg = plan.config
     backend = get_backend(cfg.backend)
     fallback = get_backend(_FALLBACK)
     stats = ExecStats()
-    totals = np.zeros(plan.num_matrices, dtype=np.float64)
+    totals = np.zeros(plan.num_matrices, dtype=np.complex128)
     reports = [PermanentReport(n=e.n, nnz=e.nnz, density=e.density,
                                dm_removed=e.dm_removed,
                                fm_leaves=e.fm_leaves,
@@ -291,6 +295,11 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
                for e in plan.entries]
     for e in plan.entries:
         totals[e.index] += e.const
+    if plan.precision_downgrade:
+        ptag = f"precision({plan.precision_downgrade})"
+        stats.downgrades.append(ptag)
+        for r in reports:
+            r.dispatch.append(ptag)
 
     def produced_by(leaf: LeafTask, batched: bool) -> str:
         return backend.value_backend(leaf.route, leaf.n, batched=batched)
@@ -320,7 +329,7 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
     # batched mode: inline folds, cache probe (duplicate leaves of one
     # cold batch are scheduled once), then one program per bucket
     pending: dict[tuple[str, int], list[int]] = {}
-    computed: dict[tuple, float | None] = {}
+    computed: dict[tuple, complex | float | None] = {}
     followers: list[LeafTask] = []
     for (route, n), idxs in plan.buckets.items():
         for j in idxs:

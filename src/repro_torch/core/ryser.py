@@ -1,7 +1,7 @@
-"""Dense real Gray-code Ryser engine (paper Alg. 3) in PyTorch: the
-``torch`` backend.
+"""Dense Gray-code Ryser engine (paper Alg. 3) in PyTorch: the ``torch``
+backend, real and split-plane complex.
 
-The port of the reference package's ``core/ryser.py`` (real dense arm).
+The port of the reference package's ``core/ryser.py`` (dense arms).
 The iteration space is split into ``T`` power-of-two, window-aligned
 chunks (the paper's CEG load distribution); each chunk rebuilds its
 row-sum vector from ``Gray(start)`` and iterates locally, and the column
@@ -10,8 +10,16 @@ takes a leading batch axis: the scalar engine runs as a one-matrix batch,
 so a scalar leaf equals the same leaf inside a bucket bit for bit (eager
 elementwise ops do not depend on the batch extent).
 
+Complex matrices travel as (re, im) f64 planes (``as_planes``): column
+updates are two real adds, the product is the explicit 4-mult/2-add
+recurrence (``chain_prod_complex``), and partial sums accumulate per
+component.  The reference maps its complex engine over the batch with
+``lax.map`` because XLA fuses differently at different batch extents;
+eager elementwise torch ops do not, so the complex engine also runs on
+the leading batch axis (pinned by tests/test_torch_complex.py).
+
 Precision modes (paper Table 3): ``dd``, ``dq_fast``, ``dq_acc``, ``qq``,
-``kahan``.  The cross-chunk reduction is a fixed-order twofloat tree
+``kahan`` (complex ``qq`` runs as ``kahan``).  The cross-chunk reduction is a fixed-order twofloat tree
 (``tf_tree_sum``) and the products are sequential chains, never
 ``torch.sum``/``torch.prod``.  Runs on whatever device the tensors are on.
 """
@@ -32,18 +40,21 @@ __all__ = [
     "perm_ryser_chunked",
     "perm_ryser_batched",
     "batched_values",
+    "batched_values_complex",
     "tf_tree_sum",
     "chain_prod",
+    "chain_prod_complex",
+    "complex_precision",
     "chunk_partial_sums",
+    "chunk_partial_sums_complex",
     "rank1_chunk_init",
     "chunk_geometry",
     "ryser_flops",
     "as_matrix",
+    "as_planes",
+    "is_complex",
     "resolve_device",
 ]
-
-_COMPLEX_TODO = ("complex input is not ported yet (ROADMAP.md, modules "
-                 "queue: 'Complex')")
 
 
 def resolve_device(device) -> torch.device:
@@ -57,17 +68,36 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def is_complex(A) -> bool:
+    return A.is_complex() if torch.is_tensor(A) else np.iscomplexobj(A)
+
+
 def as_matrix(A, device) -> torch.Tensor:
-    """f64 tensor on ``device`` from an array-like; complex input raises."""
+    """f64 tensor on ``device`` from a real array-like.  Complex input
+    raises: no real-only function may drop an imaginary part."""
+    device = resolve_device(device)
+    if is_complex(A):
+        raise TypeError("complex input to a real-only function; use "
+                        "as_planes")
+    if torch.is_tensor(A):
+        return A.to(device=device, dtype=torch.float64)
+    return torch.as_tensor(np.asarray(A).astype(np.float64), device=device)
+
+
+def as_planes(A, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The f64 (re, im) planes on ``device`` of a real or complex
+    array-like (a real input has a zero im plane)."""
     device = resolve_device(device)
     if torch.is_tensor(A):
-        if A.is_complex():
-            raise NotImplementedError(_COMPLEX_TODO)
-        return A.to(device=device, dtype=torch.float64)
+        A = A.to(device)
+        if not A.is_complex():
+            A = A.to(torch.float64)
+            return A, torch.zeros_like(A)
+        A = A.to(torch.complex128)
+        return A.real.contiguous(), A.imag.contiguous()
     A = np.asarray(A)
-    if np.iscomplexobj(A):
-        raise NotImplementedError(_COMPLEX_TODO)
-    return torch.as_tensor(A.astype(np.float64), device=device)
+    return (torch.as_tensor(np.real(A).astype(np.float64), device=device),
+            torch.as_tensor(np.imag(A).astype(np.float64), device=device))
 
 
 def nw_base_vector(A):
@@ -98,6 +128,24 @@ def chain_prod(X):
     for i in range(1, X.shape[-2]):
         t = t * X[..., i, :]
     return t
+
+
+def chain_prod_complex(Xr, Xi):
+    """Fixed-order complex product over axis -2 of split (re, im) planes
+    (..., n, T): the explicit 4-mult/2-add recurrence the kernel unrolls,
+    never complex-dtype ``*``."""
+    pr, pi = Xr[..., 0, :], Xi[..., 0, :]
+    for i in range(1, Xr.shape[-2]):
+        xr, xi = Xr[..., i, :], Xi[..., i, :]
+        pr, pi = pr * xr - pi * xi, pr * xi + pi * xr
+    return pr, pi
+
+
+def complex_precision(precision: str) -> str:
+    """``qq``'s twofloat product relies on Dekker splitting, which is
+    real-only; complex runs it as ``kahan`` (the planner tags this
+    ``qq->kahan``)."""
+    return "kahan" if precision == "qq" else precision
 
 
 def tf_tree_sum(hi, lo):
@@ -267,31 +315,122 @@ def batched_values(As, T: int, C: int, precision: str):
     return P.tf_value(total) * _final_factor(n)
 
 
+def chunk_partial_sums_complex(Ar, Ai, T: int, C: int,
+                               precision: str = "dq_acc",
+                               chunk_offset: int = 0,
+                               total_chunks: int | None = None):
+    """Split-plane complex chunk partials of a (B, n, n) stack given as
+    (re, im) planes; mirrors ``chunk_partial_sums``.
+
+    Returns ``(re, im, base)``: ``re``/``im`` are TwoFloats of shape
+    (B, T) WITHOUT the base (g == 0) term, accumulated per component;
+    ``base`` is the ``(p0_re, p0_im)`` (B,) pair of that term, the product
+    of lane 0's initial state (the NW base vector when
+    ``chunk_offset == 0``).  ``qq`` runs as ``kahan``.
+    """
+    precision = complex_precision(precision)
+    n = Ar.shape[-1]
+    dtype, dev = Ar.dtype, Ar.device
+    S = _CEGSchedules(n, T, C, chunk_offset, total_chunks)
+    Gbits = S.gray_bits(n, dtype, dev)
+    Xr = rank1_chunk_init(Ar, nw_base_vector(Ar), Gbits)
+    Xi = rank1_chunk_init(Ai, nw_base_vector(Ai), Gbits)
+    b0r, b0i = chain_prod_complex(Xr[..., :1], Xi[..., :1])
+    base = (b0r[..., 0], b0i[..., 0])
+    lane_bitk = torch.as_tensor(S.lane_bitk, device=dev)
+
+    def accum(acc, term):
+        if precision == "dq_fast":
+            t = P.tf_add_fast(P.TwoFloat(*acc), term)
+            return (t.hi, t.lo)
+        if precision == "dq_acc":
+            t = P.tf_add_acc(P.TwoFloat(*acc), term)
+            return (t.hi, t.lo)
+        if precision == "kahan":
+            return P.kahan_add(acc, term)
+        return (acc[0] + term, acc[1])               # dd
+
+    z = torch.zeros(Xr.shape[:-2] + (T,), dtype=dtype, device=dev)
+    acc_r = acc_i = (z, z)
+    for col_j, bit, midf, par in zip(S.sched_j, S.base_bits, S.mid_flags,
+                                     S.w_parity):
+        if midf:                                     # lane-dependent sign
+            s = (2 * (bit ^ lane_bitk) - 1).to(dtype)
+        else:
+            s = float(2 * bit - 1)
+        Xr = Xr + Ar[..., :, col_j:col_j + 1] * s    # broadcast column
+        Xi = Xi + Ai[..., :, col_j:col_j + 1] * s
+        pr, pi = chain_prod_complex(Xr, Xi)
+        acc_r = accum(acc_r, -pr if par else pr)
+        acc_i = accum(acc_i, -pi if par else pi)
+
+    # tail step w = C (per-chunk column; sign/mask folded into the columns)
+    Xr = Xr + S.tail_columns(Ar)
+    Xi = Xi + S.tail_columns(Ai)
+    pr, pi = chain_prod_complex(Xr, Xi)
+    live = torch.as_tensor(S.tail_live, device=dev)
+    neg = (C & 1) == 1       # (-1)^{g = start + C} == (-1)^C, chunk-uniform
+    zero = torch.zeros_like(pr)
+    acc_r = accum(acc_r, torch.where(live, -pr if neg else pr, zero))
+    acc_i = accum(acc_i, torch.where(live, -pi if neg else pi, zero))
+
+    if precision in ("kahan", "dd"):
+        return (P.TwoFloat(acc_r[0], torch.zeros_like(acc_r[0])),
+                P.TwoFloat(acc_i[0], torch.zeros_like(acc_i[0])), base)
+    return (P.TwoFloat(*acc_r), P.TwoFloat(*acc_i), base)
+
+
+def batched_values_complex(Ars, Ais, T: int, C: int, precision: str):
+    """(values_re, values_im), each (B,), of a split-plane complex stack at
+    a fixed chunk geometry: per-component fixed-order twofloat trees."""
+    n = Ars.shape[-1]
+    parts_r, parts_i, (p0r, p0i) = chunk_partial_sums_complex(
+        Ars, Ais, T, C, precision)
+    f = _final_factor(n)
+    out = []
+    for parts, p0 in ((parts_r, p0r), (parts_i, p0i)):
+        hi, e1 = tf_tree_sum(parts.hi, parts.lo)
+        out.append(P.tf_value(P.tf_add_acc(P.TwoFloat(hi, e1), p0)) * f)
+    return tuple(out)
+
+
+def _small_n(As):
+    """perm of a (B, n, n) stack with n <= 2 in closed form."""
+    if As.shape[-1] == 1:
+        return As[:, 0, 0]
+    return As[:, 0, 0] * As[:, 1, 1] + As[:, 0, 1] * As[:, 1, 0]
+
+
 def perm_ryser_batched(As, num_chunks: int = 4096,
                        precision: str = "dq_acc", *,
                        device="cuda") -> torch.Tensor:
-    """Permanents of a (B, n, n) stack of same-size real matrices; returns
-    a (B,) f64 tensor on ``device``."""
-    As = as_matrix(As, device)
+    """Permanents of a (B, n, n) stack of same-size matrices; returns a
+    (B,) f64 tensor on ``device``, complex128 for complex input."""
+    cplx = is_complex(As)
+    As = torch.complex(*as_planes(As, device)) if cplx \
+        else as_matrix(As, device)
     if As.ndim != 3 or As.shape[1] != As.shape[2]:
         raise ValueError(f"(B, n, n) stack required, got {tuple(As.shape)}")
     n = As.shape[1]
-    if n == 1:
-        return As[:, 0, 0]
-    if n == 2:
-        return As[:, 0, 0] * As[:, 1, 1] + As[:, 0, 1] * As[:, 1, 0]
+    if n <= 2:
+        return _small_n(As)
     T, C, _ = chunk_geometry(n, num_chunks)
+    if cplx:
+        return torch.complex(*batched_values_complex(As.real, As.imag, T, C,
+                                                     precision))
     return batched_values(As, T, C, precision)
 
 
 def perm_ryser_chunked(A, num_chunks: int = 4096, precision: str = "dq_acc",
                        *, device="cuda") -> torch.Tensor:
-    """perm(A) by chunked Alg. 3 with CEG-aligned chunks; a 0-d f64 tensor.
+    """perm(A) by chunked Alg. 3 with CEG-aligned chunks; a 0-d f64 tensor
+    (complex128 for complex input).
 
     Runs as a one-matrix batch, so it equals the same matrix's entry of
     ``perm_ryser_batched`` bit for bit.
     """
-    A = as_matrix(A, device)
+    if not torch.is_tensor(A):
+        A = np.asarray(A)
     if A.ndim != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"square matrix required, got {tuple(A.shape)}")
     return perm_ryser_batched(A[None], num_chunks, precision,

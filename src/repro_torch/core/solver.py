@@ -27,7 +27,17 @@ from .executor import ExecStats, LeafTiming, execute_plan
 from .planner import ExecutionPlan, PermanentReport, SolverConfig, build_plan
 
 __all__ = ["PermanentSolver", "PermanentRequest", "SolverConfig",
-           "SolverError"]
+           "SolverError", "plan_values"]
+
+
+def plan_values(plan: ExecutionPlan, totals: np.ndarray, reports):
+    """An executor's complex128 totals as the plan's value type: complex128
+    for a complex plan, else the float64 real part; sets each report's
+    ``value`` to a Python complex or float."""
+    out = totals if plan.is_complex else totals.real.copy()
+    for r, v in zip(reports, out):
+        r.value = v.item()
+    return out
 
 
 class SolverError(RuntimeError):
@@ -42,10 +52,10 @@ class PermanentRequest:
         self.matrix = matrix
         self.n = matrix.shape[0]
         self.done = False
-        self.value: float | None = None
+        self.value: complex | float | None = None
         self.report: PermanentReport | None = None
 
-    def result(self) -> float:
+    def result(self) -> complex | float:
         """The permanent; flushes this request's size bucket if pending."""
         if not self.done:
             self._solver._flush_bucket(self.n)
@@ -97,11 +107,11 @@ class PermanentSolver:
 
     def execute(self, plan: ExecutionPlan, *, return_report: bool = False):
         """Dispatch a plan; scalar plans return a Python float, batch plans
-        a (B,) float64 ndarray."""
-        out, reports, stats = execute_plan(plan, cache=self.cache)
+        a (B,) float64 ndarray (Python complex / complex128 for a complex
+        plan)."""
+        totals, reports, stats = execute_plan(plan, cache=self.cache)
         self._merge_stats(stats)
-        for i, r in enumerate(reports):
-            r.value = float(out[i])
+        out = plan_values(plan, totals, reports)
         if not plan.batched and plan.num_matrices == 1:
             value = reports[0].value
             return (value, reports[0]) if return_report else value

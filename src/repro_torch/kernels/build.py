@@ -2,10 +2,12 @@
 
 The sources under ``kernels/csrc/`` have a plain C interface, so they are
 compiled by ``nvcc`` alone (no PyTorch headers, a few seconds a unit) and
-loaded with ``ctypes``.  ``ryser_dense.cu`` is compiled as one unit per
-padded matrix size (``-DRYSER_NPAD=k``) plus one unit for the C entry
-points, every unit in its own ``nvcc`` process, all started together;
-``nvcc -shared`` then links them.
+loaded with ``ctypes``.  Each source (``ryser_dense.cu``, real, and
+``ryser_complex.cu``, split-plane complex; both include
+``ryser_common.cuh``) is compiled as one unit per padded matrix size
+(``-DRYSER_NPAD=k``) plus one unit for its C entry points, every unit in
+its own ``nvcc`` process, all started together; ``nvcc -shared`` then
+links them into one library.
 
 The library lands in ``build/repro_torch/<hash>/`` at the repository root,
 keyed by a hash of the sources and flags, and is built at first use.
@@ -28,7 +30,8 @@ __all__ = ["CSRC", "NPADS", "build_dir", "find_nvcc", "load_library",
            "ptxas_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ryser_dense.cu",)
+SOURCES = ("ryser_dense.cu", "ryser_complex.cu")
+HEADERS = ("ryser_common.cuh",)
 NPADS = (8, 16, 24, 32, 40, 48, 56, 64)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,7 +57,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -128,6 +131,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ryser_dense_batched.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
                                         I, P]
     lib.ryser_dense_batched.restype = I
+    lib.ryser_complex_scalar.argtypes = [P, P, P, P, P, P, ctypes.c_uint64,
+                                         I, I, I, I, I, I, I, P]
+    lib.ryser_complex_scalar.restype = I
+    lib.ryser_complex_batched.argtypes = [P, P, P, P, P, P, I, I, I, I, I,
+                                          I, I, I, P]
+    lib.ryser_complex_batched.restype = I
     lib.ryser_error_string.argtypes = [I]
     lib.ryser_error_string.restype = ctypes.c_char_p
     return lib

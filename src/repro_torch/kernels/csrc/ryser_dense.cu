@@ -42,38 +42,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ryser_common.cuh"
+
 namespace {
 
-enum Prec { P_DD = 0, P_KAHAN = 1, P_DQ_ACC = 2, P_DQ_FAST = 3 };
 enum Mode { M_BASELINE = 0, M_BATCHED = 1 };
-
-constexpr int kMaxThreads = 256;
-
-// _accum_add (ryser_pallas.py): one product term into the lane accumulator.
-template <int P>
-__device__ __forceinline__ void accum_add(double& s, double& c, double term) {
-  if (P == P_KAHAN) {
-    const double y = term - c;
-    const double t = s + y;
-    c = (t - s) - y;
-    s = t;
-  } else if (P == P_DQ_ACC) {
-    const double hi = s + term;
-    const double bp = hi - s;
-    const double e = (s - (hi - bp)) + (term - bp);
-    s = hi;
-    c = c + e;
-  } else if (P == P_DQ_FAST) {
-    const double hi = s + term;
-    const double bp = hi - s;
-    const double e = ((s - (hi - bp)) + (term - bp)) + c;
-    const double s2 = hi + e;
-    c = e - (s2 - hi);
-    s = s2;
-  } else {
-    s = s + term;  // dd, and qq (no twofloat product in the kernel)
-  }
-}
 
 // Sequential product over the n live rows; padded rows are exactly 1.
 template <int NPAD>

@@ -1,4 +1,4 @@
-"""Entry points around the dense CUDA Ryser kernel (real f64 arm).
+"""Entry points around the dense CUDA Ryser kernels (real and complex).
 
 The port of the reference package's ``kernels/ops.py``.
 ``permanent_cuda(A)`` computes perm(A) with the scalar kernel entry
@@ -6,12 +6,16 @@ The port of the reference package's ``kernels/ops.py``.
 stack with one (block, batch)-grid launch (``mode="batched"``).  Both go
 through ``_cuda_values``: geometry, padding, NW base vectors and the
 twofloat cross-block epilogue ``kernel_reduce`` are shared, only the
-kernel entry differs.  ``block_partials_cuda`` exposes the raw per-block
-partials over any chunk window.
+kernel entry differs.  Real input launches ``ryser_dense.cu``; complex
+input launches the split-plane kernel ``ryser_complex.cu`` in its only
+mode, ``batched``, and ``kernel_reduce`` runs once per plane.
+``block_partials_cuda`` exposes the raw per-block real partials over any
+chunk window.
 
 ``device=None`` means the card.  On a CPU tensor the kernel wrappers run
-their plain PyTorch version instead (``ryser_cuda.block_partials_plain``).
-Complex, sparse and f32 input are not ported yet.
+their plain PyTorch versions instead (``block_partials_plain``,
+``block_partials_plain_complex``).  Sparse and f32 input are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -21,13 +25,18 @@ import math
 import torch
 
 from ..core import precision as P
-from ..core.ryser import _final_factor, as_matrix, chain_prod, nw_base_vector
+from ..core.ryser import (_final_factor, _small_n, as_matrix, as_planes,
+                          chain_prod, chain_prod_complex, is_complex,
+                          nw_base_vector)
 from ..core.stepspace import DEFAULT_GEOMETRY, Geometry
+from .ryser_complex_cuda import (ryser_cuda_call_complex,
+                                 ryser_cuda_call_complex_batched)
 from .ryser_cuda import ryser_cuda_call, ryser_cuda_call_batched
 
 __all__ = ["Geometry", "DEFAULT_GEOMETRY", "permanent_cuda",
            "permanent_cuda_batched", "block_partials_cuda", "kernel_reduce",
-           "pad_matrix", "pad_base_vector", "prepare", "tree_sum"]
+           "pad_matrix", "pad_base_vector", "prepare", "prepare_complex",
+           "split_matrix_planes", "split_base_planes", "tree_sum"]
 
 _PAD = 8  # the kernel is instantiated for n_pad in 8, 16, ..., 64
 
@@ -50,6 +59,20 @@ def pad_base_vector(x, n_pad: int):
     out = torch.ones(x.shape[:-1] + (n_pad,), dtype=x.dtype, device=x.device)
     out[..., :n] = x
     return out
+
+
+def split_matrix_planes(A):
+    """Zero-padded (re, im) f64 planes of a complex matrix or stack."""
+    return pad_matrix(A.real), pad_matrix(A.imag)
+
+
+def split_base_planes(xb, n_pad: int):
+    """Padded (re, im) planes (..., n_pad, 1) of complex NW base
+    vector(s): re pads with ones, im with zeros, so padded rows multiply
+    by (1 + 0i)."""
+    return (pad_base_vector(xb.real, n_pad)[..., None],
+            torch.nn.functional.pad(xb.imag, (0, n_pad - xb.shape[-1]))
+            [..., None])
 
 
 def tree_sum(x):
@@ -81,9 +104,54 @@ def prepare(As):
     return A_pads, pad_base_vector(xbs, A_pads.shape[-1])[..., None], xbs
 
 
+def prepare_complex(As):
+    """Kernel inputs (Ar_pads, Ai_pads, xbr_pads, xbi_pads, xbs) of a
+    complex matrix or stack; the NW base vectors ``xbs`` are computed per
+    plane (real adds and an exact halving)."""
+    xbs = torch.complex(nw_base_vector(As.real), nw_base_vector(As.imag))
+    Ar_pads, Ai_pads = split_matrix_planes(As)
+    return (Ar_pads, Ai_pads, *split_base_planes(xbs, Ar_pads.shape[-1]),
+            xbs)
+
+
+def _as_input(A, device):
+    """f64 tensor on ``device``, complex128 for complex input."""
+    return torch.complex(*as_planes(A, device)) if is_complex(A) \
+        else as_matrix(A, device)
+
+
+def _complex_values(As, *, batched: bool, precision: str,
+                    geometry: Geometry):
+    """The complex arm of ``_cuda_values``: the split-plane kernel, then
+    ``kernel_reduce`` per plane.  The g = 0 term is ``chain_prod_complex``
+    over the base planes, where the reference takes a complex-dtype product
+    (``jnp.prod``); the contract forbids complex ``*`` here, and the two
+    differ at most in the last ulp of that one term, far inside the 1e-9
+    value bar."""
+    n = As.shape[-1]
+    TB, C, Wu, blocks = geometry.kernel_geometry(n)
+    Ar_pads, Ai_pads, xbr, xbi, xbs = prepare_complex(As)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+               precision=precision)
+    if batched:
+        out = ryser_cuda_call_complex_batched(Ar_pads, Ai_pads, xbr, xbi,
+                                              **geo)
+    else:
+        out = ryser_cuda_call_complex(Ar_pads, Ai_pads, xbr, xbi, 0, **geo)
+    p0r, p0i = chain_prod_complex(xbs.real[..., None], xbs.imag[..., None])
+    return torch.complex(kernel_reduce(out[..., 0], out[..., 1], p0r[..., 0],
+                                       n),
+                         kernel_reduce(out[..., 2], out[..., 3], p0i[..., 0],
+                                       n))
+
+
 def _cuda_values(As, *, batched: bool, precision: str, mode: str,
                  geometry: Geometry):
-    """The body behind both dense entries: (n, n) -> 0-d, (B, n, n) -> (B,)."""
+    """The body behind both dense entries: (n, n) -> 0-d, (B, n, n) -> (B,);
+    complex input runs the split-plane kernel (window-batched only)."""
+    if As.is_complex():
+        return _complex_values(As, batched=batched, precision=precision,
+                               geometry=geometry)
     n = As.shape[-1]
     TB, C, Wu, blocks = geometry.kernel_geometry(n)
     A_pads, xb_pads, xbs = prepare(As)
@@ -119,15 +187,14 @@ def block_partials_cuda(A, *, dev_chunk_base: int = 0,
 def permanent_cuda(A, *, precision: str = "dq_acc", mode: str = "baseline",
                    geometry: Geometry | None = None, device=None):
     """perm(A) via the scalar kernel entry (full step space, one card);
-    a 0-d f64 tensor on ``device`` (default: the card)."""
-    A = as_matrix(A, device)
+    a 0-d f64 tensor on ``device`` (default: the card), complex128 for
+    complex input, which runs the split-plane kernel in ``batched`` mode."""
+    A = _as_input(A, device)
     n = A.shape[0]
     if A.ndim != 2 or A.shape[1] != n:
         raise ValueError(f"square matrix required, got {tuple(A.shape)}")
-    if n == 1:
-        return A[0, 0]
-    if n == 2:
-        return A[0, 0] * A[1, 1] + A[0, 1] * A[1, 0]
+    if n <= 2:
+        return _small_n(A[None])[0]
     return _cuda_values(A, batched=False, precision=precision, mode=mode,
                         geometry=geometry or DEFAULT_GEOMETRY)
 
@@ -136,14 +203,12 @@ def permanent_cuda_batched(As, *, precision: str = "dq_acc",
                            mode: str = "batched",
                            geometry: Geometry | None = None, device=None):
     """perms of a (B, n, n) stack via ONE batch-grid kernel launch; a (B,)
-    f64 tensor on ``device`` (default: the card)."""
-    As = as_matrix(As, device)
+    f64 tensor on ``device`` (default: the card), complex128 for complex
+    input."""
+    As = _as_input(As, device)
     if As.ndim != 3 or As.shape[1] != As.shape[2]:
         raise ValueError(f"(B, n, n) stack required, got {tuple(As.shape)}")
-    n = As.shape[1]
-    if n == 1:
-        return As[:, 0, 0]
-    if n == 2:
-        return As[:, 0, 0] * As[:, 1, 1] + As[:, 0, 1] * As[:, 1, 0]
+    if As.shape[1] <= 2:
+        return _small_n(As)
     return _cuda_values(As, batched=True, precision=precision, mode=mode,
                         geometry=geometry or DEFAULT_GEOMETRY)

@@ -40,8 +40,10 @@ __all__ = ["ryser_cuda_call", "ryser_cuda_call_batched",
 PRECISION_CODES = {"dd": 0, "qq": 0, "kahan": 1, "dq_acc": 2, "dq_fast": 3}
 _MODE_CODES = {"baseline": 0, "batched": 1}
 
+# one dict for every entry of the port, so one reset covers them all
 counters = {"ryser_dense_scalar": 0, "ryser_dense_batched": 0,
-            "block_partials_plain": 0}
+            "block_partials_plain": 0, "ryser_complex_scalar": 0,
+            "ryser_complex_batched": 0, "block_partials_plain_complex": 0}
 
 
 def reset_counters() -> None:
@@ -101,6 +103,72 @@ def _lane_tree(v: torch.Tensor, TB: int) -> torch.Tensor:
     return v[..., 0]
 
 
+def _accum(s, c, term, precision: str):
+    """``_accum_add``: one product term into the lane accumulator (s, c)."""
+    if precision == "kahan":
+        y = term - c
+        t = s + y
+        return t, (t - s) - y
+    if precision == "dq_acc":
+        hi = s + term
+        bp = hi - s
+        e = (s - (hi - bp)) + (term - bp)
+        return hi, c + e
+    if precision == "dq_fast":
+        hi = s + term
+        bp = hi - s
+        e = (s - (hi - bp)) + (term - bp) + c
+        s2 = hi + e
+        return s2, e - (s2 - hi)
+    return s + term, c                       # dd, qq
+
+
+def _block_sums(acc, TB: int, precision: str):
+    """(s, c) lane accumulators -> the per-block (hi, lo) lane-tree sums;
+    lo is zero unless the precision keeps an error limb."""
+    s, c = acc
+    lo = c if precision in ("dq_acc", "dq_fast") else torch.zeros_like(c)
+    return _lane_tree(s, TB), _lane_tree(lo, TB)
+
+
+def _lane_starts(chunk_base: int, L: int, k: int) -> np.ndarray:
+    """Host uint64 start step of each of the L lanes (exact up to n = 64)."""
+    return (np.uint64(chunk_base) + np.arange(L, dtype=np.uint64)) \
+        << np.uint64(k)
+
+
+def _init_state(A_pads, xb_pads, gbits, n: int):
+    """X = xb + sum_j A[:, j] * graybit_j in ascending j: (B, n_pad, L)."""
+    B, n_pad, _ = A_pads.shape
+    X = xb_pads.reshape(B, n_pad, 1).expand(B, n_pad, gbits.shape[-1])
+    for j in range(n):
+        X = X + A_pads[:, :, j:j + 1] * gbits[j]
+    return X
+
+
+def _window_states(A_pads, C0, kw: int):
+    """D = A @ cumsig (B, n_pad, Wu-1) as the kernel sums it: ascending
+    k < kw from zero (cumsig rows >= kw are zero, entries 0 or 1)."""
+    B, n_pad, _ = A_pads.shape
+    D = torch.zeros((B, n_pad, C0.shape[1]), dtype=A_pads.dtype,
+                    device=A_pads.device)
+    for kk in range(kw):
+        D = D + A_pads[:, :, kk:kk + 1] * C0[kk]
+    return D
+
+
+def _boundary(macro: np.ndarray, Wu: int, space: int, tensor):
+    """The boundary step w = Wu of each lane's window from ``macro``:
+    (column index jb as a tensor, signed live factor, live 0/1)."""
+    gb = macro + np.uint64(Wu)
+    jb = _ctz_u64(gb)
+    ggb = gb ^ (gb >> np.uint64(1))
+    sb = 2.0 * ((ggb >> jb.astype(np.uint64)) & np.uint64(1)) \
+        .astype(np.float64) - 1.0
+    live = tensor((gb <= np.uint64(space - 1)).astype(np.float64))
+    return tensor(jb).long(), tensor(sb) * live, live
+
+
 def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
                          TB: int, C: int, Wu: int, num_blocks: int,
                          precision: str = "dq_acc",
@@ -115,16 +183,12 @@ def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
     B, n_pad, _ = A_pads.shape
     dev, dt = A_pads.device, A_pads.dtype
     k, kw, M = int(math.log2(C)), int(math.log2(Wu)), C // Wu
-    space = 1 << (n - 1)
     L = num_blocks * TB
     tensor = lambda a: torch.as_tensor(a, dtype=dt, device=dev)  # noqa: E731
 
-    starts = (np.uint64(chunk_base) + np.arange(L, dtype=np.uint64)) \
-        << np.uint64(k)
-    gbits = tensor(G.gray_bits_matrix(starts, n))              # (n, L)
-    X = xb_pads.reshape(B, n_pad, 1).expand(B, n_pad, L)
-    for j in range(n):
-        X = X + A_pads[:, :, j:j + 1] * gbits[j]
+    starts = _lane_starts(chunk_base, L, k)
+    X = _init_state(A_pads, xb_pads, tensor(G.gray_bits_matrix(starts, n)),
+                    n)
 
     def prod(S):
         p = S[:, 0]
@@ -132,38 +196,13 @@ def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
             p = p * S[:, i]
         return p
 
-    s_acc = torch.zeros((B, L), dtype=dt, device=dev)
-    c_acc = torch.zeros_like(s_acc)
-
-    def accum(term):
-        nonlocal s_acc, c_acc
-        s, c = s_acc, c_acc
-        if precision == "kahan":
-            y = term - c
-            t = s + y
-            s_acc, c_acc = t, (t - s) - y
-        elif precision == "dq_acc":
-            hi = s + term
-            bp = hi - s
-            e = (s - (hi - bp)) + (term - bp)
-            s_acc, c_acc = hi, c + e
-        elif precision == "dq_fast":
-            hi = s + term
-            bp = hi - s
-            e = (s - (hi - bp)) + (term - bp) + c
-            s2 = hi + e
-            s_acc, c_acc = s2, e - (s2 - hi)
-        else:                                # dd, qq
-            s_acc = s + term
-
+    z = torch.zeros((B, L), dtype=dt, device=dev)
+    acc = (z, z)
     sched = _signed_const_schedule(Wu)
     mid_idx = Wu // 2 - 1
     col_mid = A_pads[:, :, kw - 1:kw]                          # (B, n_pad, 1)
     if mode == "batched":
-        C0 = tensor(_cumsig_host(sched, n_pad))
-        D = torch.zeros((B, n_pad, Wu - 1), dtype=dt, device=dev)
-        for kk in range(kw):                 # cumsig rows >= kw are zero
-            D = D + A_pads[:, :, kk:kk + 1] * C0[kk]
+        D = _window_states(A_pads, tensor(_cumsig_host(sched, n_pad)), kw)
     elif mode != "baseline":
         raise ValueError(f"mode must be baseline|batched, got {mode!r}")
 
@@ -177,7 +216,7 @@ def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
                 sl = mid_flip if is_mid else float(s)
                 X = X + A_pads[:, :, j:j + 1] * sl
                 p = prod(X)
-                accum(-p if parity else p)
+                acc = _accum(*acc, -p if parity else p, precision)
         else:
             corr = col_mid * (-2.0 * bitk)
             for idx, (_j, _s, _is_mid, parity) in enumerate(sched):
@@ -185,26 +224,15 @@ def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
                 if idx >= mid_idx:
                     st = st + corr
                 p = prod(st)
-                accum(-p if parity else p)
+                acc = _accum(*acc, -p if parity else p, precision)
             X = X + D[:, :, Wu - 2:Wu - 1]
             X = X + corr
 
-        gb = macro + np.uint64(Wu)
-        jb = _ctz_u64(gb)
-        ggb = gb ^ (gb >> np.uint64(1))
-        sb = 2.0 * ((ggb >> jb.astype(np.uint64)) & np.uint64(1)) \
-            .astype(np.float64) - 1.0
-        live_np = (gb <= np.uint64(space - 1)).astype(np.float64)
-        live = tensor(live_np)
-        f = tensor(sb) * live
-        colb = A_pads[:, :, torch.as_tensor(jb, device=dev)]   # (B, n_pad, L)
-        X = X + colb * f
-        p = prod(X)
-        accum(p * live)
+        jb, f, live = _boundary(macro, Wu, 1 << (n - 1), tensor)
+        X = X + A_pads[:, :, jb] * f                           # (B, n_pad, L)
+        acc = _accum(*acc, prod(X) * live, precision)
 
-    lo = c_acc if precision in ("dq_acc", "dq_fast") \
-        else torch.zeros_like(c_acc)
-    return torch.stack([_lane_tree(s_acc, TB), _lane_tree(lo, TB)], dim=-1)
+    return torch.stack(_block_sums(acc, TB, precision), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +265,13 @@ def _check(A, xb, *, n: int, TB: int, C: int, Wu: int, num_blocks: int,
         raise ValueError(f"unknown precision {precision!r}")
     if mode not in _MODE_CODES:
         raise ValueError(f"mode must be baseline|batched, got {mode!r}")
+
+
+def _check_range(base: int, num_blocks: int, TB: int, C: int,
+                 n: int) -> None:
+    if base < 0 or (base + num_blocks * TB) * C > (1 << (n - 1)):
+        raise ValueError(f"chunk range [{base}, +{num_blocks * TB}) exceeds "
+                         f"the 2^{n - 1} step space")
 
 
 @functools.lru_cache(maxsize=64)
@@ -274,9 +309,7 @@ def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
     _check(A_pad, x_base_pad, n=n, TB=TB, C=C, Wu=Wu, num_blocks=num_blocks,
            precision=precision, mode=mode, batched=False)
     base = int(dev_chunk_base)
-    if base < 0 or (base + num_blocks * TB) * C > (1 << (n - 1)):
-        raise ValueError(f"chunk range [{base}, +{num_blocks * TB}) exceeds "
-                         f"the 2^{n - 1} step space")
+    _check_range(base, num_blocks, TB, C, n)
     if A_pad.device.type == "cpu":
         return block_partials_plain(A_pad[None], x_base_pad[None], base,
                                     n=n, TB=TB, C=C, Wu=Wu,
@@ -306,8 +339,7 @@ def ryser_cuda_call_batched(A_pads, x_base_pads, *, n: int, TB: int, C: int,
     _check(A_pads, x_base_pads, n=n, TB=TB, C=C, Wu=Wu,
            num_blocks=num_blocks, precision=precision, mode=mode,
            batched=True)
-    if num_blocks * TB * C > (1 << (n - 1)):
-        raise ValueError("blocks exceed the step space")
+    _check_range(0, num_blocks, TB, C, n)
     if A_pads.device.type == "cpu":
         return block_partials_plain(A_pads, x_base_pads, 0, n=n, TB=TB, C=C,
                                     Wu=Wu, num_blocks=num_blocks,

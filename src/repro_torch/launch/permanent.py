@@ -3,11 +3,12 @@
     python -m repro_torch.launch.permanent --n 30            # U(-1, 1), seed 0
     python -m repro_torch.launch.permanent --family allones --n 20 --value 0.5
     python -m repro_torch.launch.permanent --n 10 --device cpu --backend torch
+    python -m repro_torch.launch.permanent --matrix m.npy   # real or complex
 
 Runs from the repository root with ``PYTHONPATH=src``.  Prints the
 ``ExecutionPlan`` summary before dispatching (``--plan-json`` dumps the
-whole plan), then ``perm(A) = %+.17e``, and ``rel.err`` against the closed
-form for ``--family allones``.
+whole plan), then ``perm(A) = %+.17e`` (``%+.17e %+.17ej`` for a complex matrix), and
+``rel.err`` against the closed form for ``--family allones``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ __all__ = ["permanent_main"]
 
 
 def _load_matrix(args) -> np.ndarray:
+    if args.matrix:
+        return np.load(args.matrix)
     if args.family == "allones":
         return np.full((args.n, args.n), args.value)
     rng = np.random.default_rng(args.seed)
@@ -32,6 +35,8 @@ def _load_matrix(args) -> np.ndarray:
 
 def permanent_main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--matrix", help=".npy file with a square real or "
+                    "complex matrix")
     ap.add_argument("--n", type=int, default=16)
     ap.add_argument("--family", choices=("allones",),
                     help="known-permanent family (default: U(-1, 1))")
@@ -66,7 +71,11 @@ def permanent_main(argv=None) -> int:
         print(plan.json(indent=2))
     val, report = solver.execute(plan, return_report=True)
     dt = time.perf_counter() - t0
-    print(f"[superman] perm(A) = {val:+.17e}   ({dt:.2f}s)")
+    if isinstance(val, complex):
+        print(f"[superman] perm(A) = {val.real:+.17e} {val.imag:+.17e}j"
+              f"   ({dt:.2f}s)")
+    else:
+        print(f"[superman] perm(A) = {val:+.17e}   ({dt:.2f}s)")
     print(f"[superman] dm_removed={report.dm_removed} "
           f"fm_leaves={report.fm_leaves} dispatch={report.dispatch[:6]}")
     if args.family == "allones":
