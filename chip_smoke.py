@@ -4,16 +4,18 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc.  It
 builds the kernels from ``src/repro_torch/kernels/csrc`` (the dense real
-kernel and the split-plane complex one), holds every kernel against its
-plain PyTorch version on the card (block windows, and the full grids of
-the main path's shapes), drives the main path for real and for complex
-input (``repro_torch.permanent`` at n = 30, ``permanent_batch`` buckets at
-n = 22 and n = 24) with the launch counters reset just before and read
-just after each path, checks the values (closed forms at full width, the
-torch engine on a bucket, a scalar leaf against the same leaf in a
-bucket), splits each call's host time into planning and execution, and
-times each kernel beside its bound.  A summary goes to
-``chiprun_out/chip_smoke.json``.
+kernel, the split-plane complex one and the padded-CCS sparse pair), holds
+every kernel against its plain PyTorch version on the card (block windows,
+and the full grids of the main path's shapes), drives the main path for
+real and for complex input, dense (``repro_torch.permanent`` at n = 30,
+``permanent_batch`` buckets at n = 22 and n = 24) and sparse (n = 32 and
+buckets of n = 22 and n = 24 below density 0.30), with the launch counters
+reset just before and read just after each path, checks the values
+(closed forms at full width, Fibonacci on the sparse route, the dense
+kernel and the torch engine against the sparse route, a scalar leaf
+against the same leaf in a bucket), splits each call's host time into
+planning and execution, and times each kernel beside its bound.  A
+summary goes to ``chiprun_out/chip_smoke.json``.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before it is
@@ -41,6 +43,11 @@ N_MAIN = 30              # the largest dense leaf the main path serves
 N_BUCKET, B_BUCKET = 22, 16
 N_THRU, B_THRU = 24, 256
 WINDOW_NS = (4, 13, N_BUCKET, N_THRU, N_MAIN, 40, 64)
+# the sparse route: n = 32 is its largest leaf under campaign_threshold =
+# 2^34 at degree 7 (cost 32 * 2^31 * 7/32); the buckets are degree 5
+N_SPARSE, SPARSE_DEGREE, BUCKET_DEGREE = 32, 7, 5
+SPARSE_WINDOW_NS = (4, 13, 16, N_BUCKET, N_THRU, N_SPARSE, 40, 64)
+PLAIN_WINDOWS = 8        # the n = 32 plain pass runs in this many slices
 PRECISIONS = ("dd", "dq_fast", "dq_acc", "qq", "kahan")
 RTOL_KERNEL, ATOL_KERNEL = 1e-12, 1e-15
 MAIN_REPS = 3
@@ -62,6 +69,20 @@ def complex_ryser_ops(n: int) -> float:
     step 2n adds for the two column updates and 6(n - 1) for the complex
     product (rounded up to 8n), over 2^(n-1) steps."""
     return 8.0 * n * 2.0 ** (n - 1)
+
+
+def sparse_ryser_ops(rows, n: int, cplx: bool) -> float:
+    """FP64 operations SpaRyser needs for the matrices whose padded CCS rows
+    are ``rows`` (B, n, maxdeg), counted from their column degrees: Gray
+    step g changes column j = ctz(g), which 2^(n-2-j) of the 2^(n-1) - 1
+    steps do (j <= n - 2), and costs deg(j) adds for that column's nonzeros
+    and n - 1 multiplies for the product; complex 2 deg(j) adds and
+    6 (n - 1) for the complex product."""
+    deg = (np.asarray(rows) < n).sum(axis=-1)[..., :n - 1]     # (B, n - 1)
+    flips = 2.0 ** (n - 2 - np.arange(n - 1))
+    adds, prod = (2, 6 * (n - 1)) if cplx else (1, n - 1)
+    return float(adds * (deg * flips).sum()
+                 + deg.shape[0] * (2.0 ** (n - 1) - 1) * prod)
 
 
 class Smoke:
@@ -96,16 +117,24 @@ def _ulp_gap(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.max(gap)) if gap.size else 0.0
 
 
+KERNELS = ("dense", "complex", "sparse", "sparse_cx")
+
+
 def _ptxas_summary(log: str) -> list[dict]:
     """(kernel, npad, precision code, registers, spill bytes) per kernel
-    instantiation of ryser_dense.cu and ryser_complex.cu."""
+    instantiation: ryser_kernel<NPAD, P, SPARSE> ("dense" in
+    ryser_dense.cu, "sparse" in ryser_sparse.cu) and ryser_cx_kernel
+    ("complex" in ryser_complex.cu, "sparse_cx" in ryser_sparse.cu)."""
+    names = {("", "0"): "dense", ("", "1"): "sparse",
+             ("cx_", "0"): "complex", ("cx_", "1"): "sparse_cx"}
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"ryser_(dense|complex)_kernelILi(\d+)ELi(\d+)E",
+            t = re.search(r"ryser_(cx_)?kernelILi(\d+)ELi(\d+)ELb([01])E",
                           m.group(1))
-            cur = {"kernel": t.group(1), "npad": int(t.group(2)),
+            cur = {"kernel": names[(t.group(1) or "", t.group(4))],
+                   "npad": int(t.group(2)),
                    "prec": int(t.group(3))} if t else None
             continue
         if cur is None:
@@ -145,11 +174,11 @@ def phase_build(smoke: Smoke) -> None:
     smoke.summary["build_s"] = dt
     smoke.summary["ptxas"] = regs
     for r in regs:
-        print(f"  ptxas {r['kernel']:7s} npad={r['npad']:2d} "
+        print(f"  ptxas {r['kernel']:9s} npad={r['npad']:2d} "
               f"prec={r['prec']} registers={r['registers']} "
               f"spill={r.get('spill_stores', 0)}"
               f"/{r.get('spill_loads', 0)} B")
-    for kernel in ("dense", "complex"):
+    for kernel in KERNELS:
         k = [r for r in regs if r["kernel"] == kernel]
         smoke.check(len(k) == 32, f"32 {kernel} kernel instantiations built "
                                   f"({len(k)})")
@@ -483,6 +512,271 @@ def phase_values_complex(smoke: Smoke, torch, mp: dict) -> None:
                                        bool(vb[0] == mp["v30"])}
 
 
+def _circulant_sparse(rng, n: int, degree: int, cplx: bool = False,
+                      extra: int = 0):
+    """A random row and column permutation of the ``degree``-diagonal
+    circulant pattern: every row and column holds ``degree`` nonzeros, each
+    entry lies on a perfect matching, so DM and FM (degree > 4) leave the
+    matrix whole.  U(0.5, 1.5) values, complex Gaussian for complex.
+    ``extra`` adds that many entries to one column (a larger maxdeg)."""
+    i, j = np.indices((n, n))
+    mask = (j - i) % n < degree
+    if extra:
+        free = np.flatnonzero(~mask[:, 0])
+        mask[rng.choice(free, size=extra, replace=False), 0] = True
+    mask = mask[rng.permutation(n)][:, rng.permutation(n)]
+    vals = _cgauss(rng, (n, n)) if cplx else rng.uniform(0.5, 1.5, (n, n))
+    return np.where(mask, vals, 0)
+
+
+def _uneven_sparse(rng, n: int, cplx: bool, extra: int):
+    """Density about 0.2 with a full diagonal and ``extra`` more nonzeros in
+    column 0: uneven column degrees for the kernel windows."""
+    A = rng.uniform(0.5, 1.5, (n, n)) * (rng.uniform(0, 1, (n, n)) < 0.2)
+    np.fill_diagonal(A, 1.0)
+    A[rng.choice(n, size=min(extra, n), replace=False), 0] = 1.25
+    return A * np.exp(1j * rng.uniform(-np.pi, np.pi, (n, n))) if cplx else A
+
+
+def _sparse_inputs(torch, mats, cplx: bool):
+    """Kernel inputs of a sparse stack on the card, packed to the
+    bucket-wide maxdeg: the real ``(A_pads, rows, vals, xb_pads)`` or the
+    complex ``(Ar, Ai, rows, vals_r, vals_i, xbr, xbi)``."""
+    from repro_torch.core.sparyser import SparseMatrix, pack_padded_ccs
+    from repro_torch.kernels import ops
+    A_np, rows_np, vals_np = pack_padded_ccs(
+        [SparseMatrix.from_dense(A) for A in mats])
+    As = torch.as_tensor(A_np, device="cuda")
+    rows = torch.as_tensor(rows_np, device="cuda")
+    vals = torch.as_tensor(vals_np, device="cuda")
+    if cplx:
+        Ar, Ai, xbr, xbi, _ = ops.prepare_complex(As)
+        return (Ar, Ai, rows, vals.real.contiguous(), vals.imag.contiguous(),
+                xbr, xbi)
+    A_pads, xb_pads, _ = ops.prepare(As)
+    return A_pads, rows, vals, xb_pads
+
+
+def _sparse_calls(cplx: bool):
+    """(scalar entry, batched entry, plain version) of the sparse kernels."""
+    from repro_torch.kernels import ryser_sparse_cuda as RS
+    if cplx:
+        return (RS.ryser_sparse_cuda_call_complex,
+                RS.ryser_sparse_cuda_call_complex_batched,
+                RS.block_partials_plain_sparse_complex)
+    return (RS.ryser_sparse_cuda_call, RS.ryser_sparse_cuda_call_batched,
+            RS.block_partials_plain_sparse)
+
+
+def _dense_batched_mode(ins, cplx: bool, **geo):
+    """The dense kernel's batched mode (real) or the dense split-plane
+    kernel (complex) on the dense planes of sparse kernel inputs."""
+    from repro_torch.kernels import ryser_complex_cuda as RX
+    from repro_torch.kernels import ryser_cuda as RC
+    if cplx:
+        return RX.ryser_cuda_call_complex_batched(ins[0], ins[1], ins[5],
+                                                  ins[6], **geo)
+    return RC.ryser_cuda_call_batched(ins[0], ins[3], mode="batched", **geo)
+
+
+def phase_kernel_vs_plain_sparse(smoke: Smoke, torch) -> dict:
+    """The four sparse entries against their plain versions on the card,
+    bit for bit: 8-block windows (the first and the last) for every n of
+    SPARSE_WINDOW_NS x 5 precisions, matrices of uneven column degrees
+    (n == n_pad at 16, 24, 32, 40, 64); the batched entries at B = 3 with
+    a bucket-wide maxdeg above each member's own; and the full grid of
+    16 x n = 22 (the timing phase holds 256 x n = 24).  Every batched
+    result is also held against the dense batched mode on the same
+    matrices, bit for bit: the scattered low CCS columns equal A's own."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
+    rng = np.random.default_rng(SEED + 20)
+    err = {k: 0.0 for k in ("ryser_sparse_scalar", "ryser_sparse_batched",
+                            "ryser_sparse_complex_scalar",
+                            "ryser_sparse_complex_batched")}
+    worst_ulp, ok, equal, as_dense = 0.0, True, True, True
+
+    def hold(got, want, entry):
+        nonlocal ok, worst_ulp, equal
+        ok &= _agree(got, want, err, entry)
+        equal &= bool(torch.equal(got, want))
+        worst_ulp = max(worst_ulp, _ulp_gap(got.cpu().numpy(),
+                                            want.cpu().numpy()))
+
+    for cplx in (False, True):
+        kind = "sparse_complex" if cplx else "sparse"
+        scalar, batched, plain = _sparse_calls(cplx)
+        for n in SPARSE_WINDOW_NS:
+            geom = DEFAULT_GEOMETRY if n >= N_BUCKET else Geometry(8, 8, 4)
+            TB, C, Wu, blocks = geom.kernel_geometry(n)
+            nb = min(8, blocks)
+            ins = _sparse_inputs(torch, [_uneven_sparse(rng, n, cplx, e)
+                                         for e in (0, 2, n // 3)], cplx)
+            geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+            for prec in PRECISIONS:
+                for base in sorted({0, blocks * TB - nb * TB}):
+                    got = scalar(*(t[0] for t in ins), base, precision=prec,
+                                 **geo)
+                    want = plain(*(t[:1] for t in ins), base, precision=prec,
+                                 **geo)[0]
+                    hold(got, want, f"ryser_{kind}_scalar")
+                got = batched(*ins, precision=prec, **geo)
+                hold(got, plain(*ins, 0, precision=prec, **geo),
+                     f"ryser_{kind}_batched")
+                as_dense &= bool(torch.equal(got, _dense_batched_mode(
+                    ins, cplx, precision=prec, **geo)))
+            torch.cuda.synchronize()
+        TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(N_BUCKET)
+        ins = _sparse_inputs(torch, [
+            _circulant_sparse(rng, N_BUCKET, BUCKET_DEGREE, cplx, extra=b % 3)
+            for b in range(B_BUCKET)], cplx)
+        geo = dict(n=N_BUCKET, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+                   precision="dq_acc")
+        got = batched(*ins, **geo)
+        hold(got, plain(*ins, 0, **geo), f"ryser_{kind}_batched")
+        as_dense &= bool(torch.equal(got, _dense_batched_mode(ins, cplx,
+                                                              **geo)))
+    print(f"sparse kernels vs plain: worst ulp gap {worst_ulp:g}, max abs "
+          f"err {err}, bit for bit {equal}; equal to the dense batched "
+          f"mode {as_dense}")
+    smoke.check(ok and equal, f"sparse kernels (real, complex) equal their "
+                              f"plain versions bit for bit for n in "
+                              f"{SPARSE_WINDOW_NS}, {len(PRECISIONS)} "
+                              f"precisions, scalar windows incl. the top of "
+                              f"the space, batched B=3 with uneven maxdeg, "
+                              f"full grid {B_BUCKET} x n={N_BUCKET}")
+    smoke.check(as_dense, f"sparse batched kernels (real, complex) equal "
+                          f"the dense batched mode bit for bit on the same "
+                          f"matrices (every window and the {B_BUCKET} x "
+                          f"n={N_BUCKET} grid)")
+    smoke.summary["kernel_vs_plain_sparse"] = {"worst_ulp": worst_ulp,
+                                               "bit_for_bit": equal,
+                                               "equals_dense_batched":
+                                               as_dense, **err}
+    return err
+
+
+def phase_main_path_sparse(smoke: Smoke, torch, cplx: bool) -> dict:
+    """The sparse main path through the user entry points: ``permanent`` of
+    a degree-7 n = 32 matrix (density 0.22) and ``permanent_batch`` of
+    degree-5 buckets, counters 0 before each path and read right after.
+    Only the sparse kernels may launch: plain 0, dense kernels 0."""
+    import repro_torch
+    from repro_torch.kernels import ryser_cuda as RC
+    kind = "sparse_complex" if cplx else "sparse"
+    label = "complex sparse" if cplx else "sparse"
+    rng = np.random.default_rng(SEED + (31 if cplx else 21))
+    A32 = _circulant_sparse(rng, N_SPARSE, SPARSE_DEGREE, cplx)
+    bucket = np.stack([_circulant_sparse(rng, N_BUCKET, BUCKET_DEGREE, cplx)
+                       for _ in range(B_BUCKET)])
+    thru = np.stack([_circulant_sparse(rng, N_THRU, BUCKET_DEGREE, cplx)
+                     for _ in range(B_THRU)])
+    torch.cuda.synchronize()
+
+    RC.reset_counters()
+    t_scalar = []
+    for _ in range(MAIN_REPS):
+        t0 = time.perf_counter()
+        v32, rep = repro_torch.permanent(A32, return_report=True)
+        t_scalar.append(time.perf_counter() - t0)
+    counts_scalar = dict(RC.counters)
+
+    RC.reset_counters()
+    vb, reps_b = repro_torch.permanent_batch(bucket, return_report=True)
+    t_thru = []
+    for _ in range(MAIN_REPS):
+        t0 = time.perf_counter()
+        vt, reps_t = repro_torch.permanent_batch(thru, return_report=True)
+        t_thru.append(time.perf_counter() - t0)
+    counts_batch = dict(RC.counters)
+
+    print(f"{label} main path scalar: perm(A32) = {v32}, host seconds "
+          f"{t_scalar} = {1 / min(t_scalar):.1f} perms/s (best), dispatch "
+          f"{rep.dispatch}, counters {counts_scalar}")
+    print(f"{label} main path buckets: {reps_b[0].dispatch}, "
+          f"{reps_t[0].dispatch}; {B_THRU} x n={N_THRU} host seconds "
+          f"{t_thru} = {B_THRU / min(t_thru):.1f} perms/s (best), counters "
+          f"{counts_batch}")
+    others = lambda c, k: sum(v for key, v in c.items() if key != k)  # noqa: E731
+    smoke.check(counts_scalar[f"ryser_{kind}_scalar"] > 0
+                and others(counts_scalar, f"ryser_{kind}_scalar") == 0
+                and rep.dispatch == [f"sparse(n={N_SPARSE},cuda)"],
+                f"{label} scalar main path launched ryser_{kind}_scalar "
+                f"only (plain 0, dense kernels 0), dispatch {rep.dispatch}")
+    smoke.check(counts_batch[f"ryser_{kind}_batched"] > 0
+                and others(counts_batch, f"ryser_{kind}_batched") == 0
+                and reps_b[0].dispatch == [
+                    f"sparse_batch(n={N_BUCKET},b={B_BUCKET})"]
+                and reps_t[0].dispatch == [
+                    f"sparse_batch(n={N_THRU},b={B_THRU})"],
+                f"{label} bucket main path launched ryser_{kind}_batched "
+                f"only (plain 0, dense kernels 0), dispatch "
+                f"{reps_b[0].dispatch}")
+    smoke.check((isinstance(v32, complex) if cplx else isinstance(v32, float))
+                and bool(np.isfinite(v32)) and vb.shape == (B_BUCKET,)
+                and vt.shape == (B_THRU,) and bool(np.all(np.isfinite(vt))),
+                f"{label} main-path values are finite of the expected type "
+                f"and shape")
+    smoke.summary[f"main_path_{kind}"] = {
+        "perm_A32": [v32.real, v32.imag] if cplx else v32,
+        "scalar_s": t_scalar, "thru_s": t_thru,
+        "thru_perms_per_s": B_THRU / min(t_thru),
+        "launches_scalar": counts_scalar, "launches_batch": counts_batch}
+    return {"A32": A32, "v32": v32, "bucket": bucket, "vb": vb,
+            "thru": thru, "cplx": cplx,
+            "launches": {f"ryser_{kind}_scalar":
+                         counts_scalar[f"ryser_{kind}_scalar"],
+                         f"ryser_{kind}_batched":
+                         counts_batch[f"ryser_{kind}_batched"]}}
+
+
+def phase_values_sparse(smoke: Smoke, torch, mp: dict) -> None:
+    """Values of the sparse route: Fibonacci n = 32 against F_33 (real
+    only), the same n = 32 matrix through the dense kernel, the 16 x 22
+    bucket against the torch sparse engine on the card, and a scalar leaf
+    against its entry in a bucket whose maxdeg exceeds its own."""
+    import repro_torch
+    from repro_torch.kernels import ops
+    cplx = mp["cplx"]
+    label = "complex sparse" if cplx else "sparse"
+    out = {}
+    if not cplx:
+        i, j = np.indices((N_SPARSE, N_SPARSE))
+        fib = (np.abs(i - j) <= 1).astype(np.float64)
+        got, rep = repro_torch.permanent(fib, preprocess=False,
+                                         return_report=True)
+        f = [1, 1]                                   # f[k] == F(k + 1)
+        for _ in range(N_SPARSE):
+            f.append(f[-1] + f[-2])
+        rel = abs(got - f[N_SPARSE]) / f[N_SPARSE]
+        print(f"fibonacci n={N_SPARSE}: {got!r} vs F_{N_SPARSE + 1} = "
+              f"{f[N_SPARSE]}, rel {rel:.3e}, dispatch {rep.dispatch}")
+        smoke.check(rel <= 1e-12 and rep.dispatch == [
+            f"sparse(n={N_SPARSE},cuda)"],
+            f"tridiagonal 0/1 n={N_SPARSE} on the sparse route = F_"
+            f"{N_SPARSE + 1} within rel {rel:.3e} <= 1e-12")
+        out["fibonacci_rel"] = rel
+    dense = complex(ops.permanent_cuda(mp["A32"]))
+    rel = abs(mp["v32"] - dense) / abs(dense)
+    smoke.check(rel <= 1e-9, f"{label} n={N_SPARSE} sparse route vs the "
+                             f"dense kernel rel {rel:.3e} <= 1e-9")
+    out["vs_dense_kernel"] = rel
+    ref = repro_torch.permanent_batch(mp["bucket"], backend="torch")
+    rel = float(np.max(np.abs(mp["vb"] - ref) / np.abs(ref)))
+    smoke.check(rel <= 1e-9, f"{label} bucket {B_BUCKET} x n={N_BUCKET} vs "
+                             f"the torch sparse engine max rel {rel:.3e} "
+                             f"<= 1e-9")
+    out["bucket_vs_torch"] = rel
+    rng = np.random.default_rng(SEED + (32 if cplx else 22))
+    other = _circulant_sparse(rng, N_SPARSE, SPARSE_DEGREE, cplx, extra=2)
+    vb = repro_torch.permanent_batch([mp["A32"], other], preprocess=False)
+    same = bool(vb[0] == mp["v32"])
+    smoke.check(same, f"{label} n={N_SPARSE} scalar leaf equals its entry "
+                      f"in a bucket of larger maxdeg bit for bit "
+                      f"({mp['v32']} vs {vb[0]})")
+    out["scalar_vs_bucket_equal"] = same
+    smoke.summary[f"values_{'sparse_complex' if cplx else 'sparse'}"] = out
+
+
 def _timed_inputs(torch, rng, entry: str, n: int, B: int):
     """(kernel call, plain call, input bytes, operation count, mode) of one
     kernel entry at a main-path shape."""
@@ -518,15 +812,90 @@ def _timed_inputs(torch, rng, entry: str, n: int, B: int):
     return kern, plain, nbytes, B * ryser_flops(n), mode
 
 
+def _timed_inputs_sparse(torch, rng, entry: str, n: int, B: int):
+    """(kernel call, plain call, input bytes, operation count, mode) of one
+    sparse entry at a main-path shape: the scalar entry on a degree-7
+    matrix, its plain version over the full grid in PLAIN_WINDOWS slices
+    (one pass would hold tens of GB at n = 32); the batched entry on a
+    degree-5 bucket.  Bytes count each input once (rows as int32) and the
+    partials written; operations are what SpaRyser needs for these
+    matrices' column degrees (``sparse_ryser_ops``)."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY
+    cplx = "complex" in entry
+    scalar_call, batched_call, plain_call = _sparse_calls(cplx)
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, precision="dq_acc")
+    degree = SPARSE_DEGREE if B == 1 else BUCKET_DEGREE
+    ins = _sparse_inputs(torch, [_circulant_sparse(rng, n, degree, cplx)
+                                 for _ in range(B)], cplx)
+    if B == 1:
+        step = blocks // PLAIN_WINDOWS
+        kern = lambda: scalar_call(*(t[0] for t in ins), 0,  # noqa: E731
+                                   num_blocks=blocks, **geo)
+        plain = lambda: torch.cat([plain_call(  # noqa: E731
+            *(t[:1] for t in ins), w * step * TB, num_blocks=step, **geo)
+            for w in range(PLAIN_WINDOWS)], dim=1)
+    else:
+        kern = lambda: batched_call(*ins, num_blocks=blocks,  # noqa: E731
+                                    **geo)
+        plain = lambda: plain_call(*ins, 0, num_blocks=blocks,  # noqa: E731
+                                   **geo)
+    nbytes = sum(t.numel() * t.element_size() for t in ins) \
+        + 8 * B * blocks * (4 if cplx else 2)
+    ops_count = sparse_ryser_ops(ins[2 if cplx else 1].cpu().numpy(), n,
+                                 cplx)
+    return kern, plain, nbytes, ops_count, "batched"
+
+
+def _dense_at_sparse_shape(smoke: Smoke, torch, msp: dict,
+                           mspc: dict) -> dict:
+    """The sparse scalar kernels and the dense kernels on the sparse main
+    path's n = 32 matrices in one call (ms per call by CUDA events, beside
+    which PERF.md puts them): the real dense entry in both modes, the dense
+    complex entry.  Over this full grid each sparse kernel must equal the
+    dense batched mode bit for bit."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY
+    from repro_torch.kernels import ryser_complex_cuda as RX
+    from repro_torch.kernels import ryser_cuda as RC
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(N_SPARSE)
+    geo = dict(n=N_SPARSE, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+               precision="dq_acc")
+    out, same = {}, True
+    for m, cplx in ((msp, False), (mspc, True)):
+        ins = [t[0] for t in _sparse_inputs(torch, [m["A32"]], cplx)]
+        kind = "sparse_complex" if cplx else "sparse"
+        out[f"ryser_{kind}_scalar"], got = _time_ms(
+            torch, lambda: _sparse_calls(cplx)[0](*ins, 0, **geo), reps=3)
+        if cplx:
+            out["ryser_complex_scalar"], want = _time_ms(
+                torch, lambda: RX.ryser_cuda_call_complex(
+                    ins[0], ins[1], ins[5], ins[6], 0, **geo), reps=3)
+        else:
+            for mode in ("baseline", "batched"):
+                out[f"ryser_dense_scalar_{mode}"], want = _time_ms(
+                    torch, lambda mode=mode: RC.ryser_cuda_call(
+                        ins[0], ins[3], 0, mode=mode, **geo), reps=3)
+        same &= bool(torch.equal(got, want))
+    print(f"sparse and dense kernels at the sparse shape n={N_SPARSE} (ms): "
+          f"{out}; sparse == dense batched mode over the full grid: {same}")
+    smoke.check(same, f"sparse scalar kernels (real, complex) equal the "
+                      f"dense batched mode bit for bit over the full n="
+                      f"{N_SPARSE} grid of the main path's matrices")
+    out["equals_dense_batched"] = same
+    return out
+
+
 def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
                  window_err: dict) -> list:
     """Kernel, plain and bound at the main path's shapes, each kernel held
-    against its plain version over the full grid of the timed shape."""
+    against its plain version over the full grid of the timed shape (bit
+    for bit for the sparse kernels)."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     sku, fp64, bw = _sku(card["name"])
     rng = np.random.default_rng(SEED + 3)
     full_err = {}
     rows = []
+    sp = "src/repro/kernels/ryser_sparse.py"
     for entry, n, B, replaces, source in (
             ("ryser_dense_scalar", N_MAIN, 1,
              "src/repro/kernels/ryser_pallas.py:305", "ryser_dense.cu"),
@@ -535,19 +904,32 @@ def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
             ("ryser_complex_scalar", N_MAIN, 1,
              "src/repro/kernels/ryser_complex.py:181", "ryser_complex.cu"),
             ("ryser_complex_batched", N_THRU, B_THRU,
-             "src/repro/kernels/ryser_complex.py:216", "ryser_complex.cu")):
+             "src/repro/kernels/ryser_complex.py:216", "ryser_complex.cu"),
+            ("ryser_sparse_scalar", N_SPARSE, 1, f"{sp}:331",
+             "ryser_sparse.cu"),
+            ("ryser_sparse_batched", N_THRU, B_THRU, f"{sp}:367",
+             "ryser_sparse.cu"),
+            ("ryser_sparse_complex_scalar", N_SPARSE, 1, f"{sp}:400",
+             "ryser_sparse.cu"),
+            ("ryser_sparse_complex_batched", N_THRU, B_THRU, f"{sp}:436",
+             "ryser_sparse.cu")):
         blocks = DEFAULT_GEOMETRY.kernel_geometry(n)[3]
-        kern, plain, nbytes, ops_count, mode = _timed_inputs(
+        sparse = "sparse" in entry
+        kern, plain, nbytes, ops_count, mode = (
+            _timed_inputs_sparse if sparse else _timed_inputs)(
             torch, rng, entry, n, B)
         ms, got = _time_ms(torch, kern, reps=5)
         plain_ms, want = _time_ms(torch, plain, reps=1)
         if entry.endswith("_scalar"):
             want = want[0]
         full_err[entry] = 0.0
-        smoke.check(_agree(got, want, full_err, entry),
-                    f"{entry} agrees with its plain version over the full "
-                    f"grid of {B} x n={n} ({blocks} blocks, {mode}, dq_acc): "
-                    f"max abs err {full_err[entry]:g}")
+        ok = _agree(got, want, full_err, entry)
+        if sparse:
+            ok &= bool(torch.equal(got, want))
+        smoke.check(ok, f"{entry} {'equals' if sparse else 'agrees with'} "
+                        f"its plain version over the full grid of {B} x "
+                        f"n={n} ({blocks} blocks, {mode}, dq_acc): max abs "
+                        f"err {full_err[entry]:g}")
         del kern, plain, got, want
         torch.cuda.empty_cache()
         t_ops, t_bytes = ops_count / (fp64 / 2) * 1e3, nbytes / bw * 1e3
@@ -567,13 +949,18 @@ def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
     return rows
 
 
-def _main_calls(mp: dict, mpc: dict) -> list:
+def _main_calls(mp: dict, mpc: dict, msp: dict, mspc: dict) -> list:
     """(label, batched, data) of the main-path calls the profile and the
-    host split read: n = 30 and 256 x n = 24, real and complex."""
+    host split read: dense n = 30, sparse n = 32 and both 256 x n = 24
+    buckets, real and complex."""
+    dense = (("", mp), ("complex ", mpc))
+    sparse = (("sparse ", msp), ("complex sparse ", mspc))
     return [(f"{kind}permanent n={N_MAIN}", False, m["A30"])
-            for kind, m in (("", mp), ("complex ", mpc))] + \
+            for kind, m in dense] + \
+        [(f"{kind}permanent n={N_SPARSE}", False, m["A32"])
+         for kind, m in sparse] + \
         [(f"{kind}permanent_batch {B_THRU} x n={N_THRU}", True, m["thru"])
-         for kind, m in (("", mp), ("complex ", mpc))]
+         for kind, m in dense + sparse]
 
 
 def phase_host_split(smoke: Smoke, torch, calls: list) -> None:
@@ -660,11 +1047,19 @@ def main() -> int:
     phase_values(smoke, torch, mp)
     mpc = phase_main_path_complex(smoke, torch)
     phase_values_complex(smoke, torch, mpc)
-    calls = _main_calls(mp, mpc)
+    window_err.update(phase_kernel_vs_plain_sparse(smoke, torch))
+    msp = phase_main_path_sparse(smoke, torch, cplx=False)
+    phase_values_sparse(smoke, torch, msp)
+    mspc = phase_main_path_sparse(smoke, torch, cplx=True)
+    phase_values_sparse(smoke, torch, mspc)
+    calls = _main_calls(mp, mpc, msp, mspc)
     phase_profile(smoke, torch, calls)
     phase_host_split(smoke, torch, calls)
     rows = phase_timing(smoke, torch, card,
-                        {**mp["launches"], **mpc["launches"]}, window_err)
+                        {**mp["launches"], **mpc["launches"],
+                         **msp["launches"], **mspc["launches"]}, window_err)
+    smoke.summary["dense_at_sparse_shape"] = _dense_at_sparse_shape(
+        smoke, torch, msp, mspc)
     smoke.summary.update(card=card, kernels=rows,
                          seconds=time.perf_counter() - t_start,
                          failures=smoke.failures)

@@ -45,8 +45,9 @@ def permanent(A, *, precision: str = "dq_acc", preprocess: bool = True,
       precision: one of ``dd | dq_fast | dq_acc | qq | kahan`` (Table 3).
       preprocess / dm / fm: DM + FM preprocessing switches (Sec. 4).
       num_chunks: chunk count of the ``torch`` engine (Alg. 3's tau).
-      backend: ``cuda`` (the kernel; the default) or ``torch`` (the
-        chunked engine).
+      backend: ``cuda`` (the kernels; the default) or ``torch`` (the
+        chunked engines).  Leaves below density 0.30 take the sparse
+        route (SpaRyser), the others the dense one.
       device: None (the card) or ``"cpu"``.
       return_report: also return a PermanentReport.
     """
@@ -68,9 +69,10 @@ def permanent_batch(As, *, precision: str = "dq_acc", preprocess: bool = True,
     """perm(A) for a stack of real or complex matrices in bucketed
     batches.
 
-    Each matrix is DM/FM-preprocessed; same-size leaves share one bucket
-    program (``cuda``: one batch-grid kernel launch), single-leaf buckets
-    take the scalar path.  ``As`` is (B, n, n) or a sequence of square
+    Each matrix is DM/FM-preprocessed; same-size leaves of one route
+    (dense, or sparse below density 0.30) share one bucket program
+    (``cuda``: one batch-grid launch of the dense or the SpaRyser kernel),
+    single-leaf buckets take the scalar path.  ``As`` is (B, n, n) or a sequence of square
     matrices of any sizes; arguments as in ``permanent``.  Returns a (B,)
     float64 array (complex128 when any matrix is complex), with
     ``return_report`` a ``(values, reports)`` tuple.

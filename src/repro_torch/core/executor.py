@@ -1,30 +1,35 @@
 """Execute side of the plan/execute split: backend registry + dispatcher.
 
 The port of the reference package's ``core/executor.py`` for the dense
-route, real and complex.  Each :class:`Backend` runs one dense leaf and
-(optionally) a whole same-size bucket; ``register_backend`` adds
-strategies without touching the dispatcher.  Two register at import:
+and sparse routes, real and complex.  Each :class:`Backend` runs one leaf
+and (optionally) a whole same-size bucket of either route;
+``register_backend`` adds strategies without touching the dispatcher.  Two
+register at import:
 
-* ``torch`` -- the chunked torch engine (``core/ryser.py``), the
-  counterpart of the reference's ``jnp``;
-* ``cuda``  -- the dense CUDA kernels (``kernels/ops.py``), the
-  counterpart of ``pallas``: real scalar leaves run the scalar entry
+* ``torch`` -- the chunked torch engines (``core/ryser.py``, sparse
+  ``core/sparyser.py``), the counterpart of the reference's ``jnp``;
+* ``cuda``  -- the CUDA kernels (``kernels/ops.py``), the counterpart of
+  ``pallas``: real dense scalar leaves run the dense scalar entry
   (``baseline``), buckets the batch-grid entry (``batched``); complex
-  leaves and buckets run the split-plane kernel's two entries; n < 4 runs
-  the torch engine, as ``PallasBackend._kernel_ok`` sends n < 4 to
-  ``jnp``.
+  leaves and buckets run the split-plane kernel's two entries; sparse
+  leaves and buckets (density < 0.30) the SpaRyser kernel's scalar and
+  batched entries, real or complex; n < 4 runs the torch engine, as
+  ``PallasBackend._kernel_ok`` sends n < 4 to ``jnp``.
 
-Both run on ``SolverConfig.device`` (None = the card).  The sparse route
-(real or complex) and campaign (``step_sharded``) leaves are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item; they
-never run on another engine.  A complex ``qq`` plan runs as ``kahan`` and
-says so with a ``precision(qq->kahan)`` tag on every report.
+Both run on ``SolverConfig.device`` (None = the card).  Campaign
+(``step_sharded``) leaves are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item; they never run on
+another engine.  A complex ``qq`` plan runs as ``kahan`` and says so with
+a ``precision(qq->kahan)`` tag on every report.  Scalar sparse tags name
+the value's producer, ``sparse(n=..,cuda)``, with a ``cuda->torch`` suffix
+when the torch engine serves an n < 4 leaf.
 
 **Batch contract.**  ``dense_batch(stack, *, precision, num_chunks,
-geometry, device)`` runs one same-size bucket as a single device program
-and returns a (B,) ndarray, or ``None`` for "unsupported for this bucket":
-the dispatcher then re-runs it on ``torch`` and tags the downgrade
-``dense_batch(n=..,b=..,cuda->torch)``.  ``value_backend`` names the
+geometry, device)`` and ``sparse_batch(stack, ...)`` run one same-size
+bucket as a single device program and return a (B,) ndarray, or ``None`` for
+"unsupported for this bucket": the dispatcher then re-runs it on ``torch``
+and tags the downgrade ``dense_batch(n=..,b=..,cuda->torch)`` (or
+``sparse_batch(...)``).  ``value_backend`` names the
 strategy whose numerics produce a leaf's value; the result cache keys on
 THAT name, so a torch-computed downgrade never satisfies a kernel lookup.
 
@@ -40,6 +45,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from . import ryser as R
+from . import sparyser as S
 from .cache import ResultCache
 from .planner import (ROUTE_CAMPAIGN, ROUTE_DENSE, ROUTE_INLINE,
                       ROUTE_SPARSE, ExecutionPlan, LeafTask, PermanentReport)
@@ -48,9 +54,6 @@ __all__ = ["Backend", "TorchBackend", "CudaBackend", "register_backend",
            "get_backend", "available_backends", "ExecStats", "LeafTiming",
            "execute_plan"]
 
-_SPARSE_TODO = ("the sparse route is not ported yet (ROADMAP.md, modules "
-                "queue: 'Sparse'); pass preprocess/dense input or a "
-                "matrix with density >= 0.30")
 _CAMPAIGN_TODO = ("step_sharded (campaign) leaves are not ported yet "
                   "(ROADMAP.md, modules queue: 'Campaign on one GPU'); "
                   "the largest dense leaf served is n = 30")
@@ -118,10 +121,14 @@ class ExecStats:
 # ---------------------------------------------------------------------------
 
 class Backend:
-    """One execution strategy for dense permanent leaves.
+    """One execution strategy for dense and sparse permanent leaves.
 
-    ``dense`` runs a single leaf and returns a Python scalar;
-    ``dense_batch`` follows the batch contract in the module docstring.
+    ``dense`` / ``sparse`` run a single leaf and return a Python scalar;
+    ``dense_batch`` / ``sparse_batch`` follow the batch contract in the
+    module docstring.  Every strategy gets the leaf's dense matrix (a
+    stack for a bucket); a sparse strategy builds the padded CCS arrays it
+    needs from it (``sparyser.padded_ccs``), so nothing is rebuilt from
+    CRS.
     ``geometry`` is the leaf's resolved kernel geometry (None = kernel
     defaults); the torch engine ignores it.  Times are host wall-clock
     around work that ends in a copy to the host, so they include the
@@ -134,9 +141,18 @@ class Backend:
               geometry=None, device=None) -> complex | float:
         raise NotImplementedError
 
+    def sparse(self, M: np.ndarray, *, precision: str, num_chunks: int,
+               geometry=None, device=None) -> complex | float:
+        raise NotImplementedError
+
     def dense_batch(self, stack: np.ndarray, *, precision: str,
                     num_chunks: int, geometry=None,
                     device=None) -> np.ndarray | None:
+        return None
+
+    def sparse_batch(self, stack: np.ndarray, *, precision: str,
+                     num_chunks: int, geometry=None,
+                     device=None) -> np.ndarray | None:
         return None
 
     def value_backend(self, route: str, n: int, *, batched: bool) -> str:
@@ -155,16 +171,29 @@ class TorchBackend(Backend):
                                             precision=precision,
                                             device=device))
 
+    def sparse(self, M, *, precision, num_chunks, geometry=None,
+               device=None):
+        stack = M[None]              # a one-matrix bucket, as the reference
+        return _scalar(S.sparse_values(stack, *S.padded_ccs(stack),
+                                       num_chunks, precision,
+                                       device=device)[0])
+
     def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
                     device=None):
         return _host(R.perm_ryser_batched(stack, num_chunks=num_chunks,
                                           precision=precision, device=device))
 
+    def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
+                     device=None):
+        return _host(S.sparse_values(stack, *S.padded_ccs(stack), num_chunks,
+                                     precision, device=device))
+
 
 class CudaBackend(TorchBackend):
-    """Dense CUDA kernels, real or complex, n >= 4 (scalar entry for
-    leaves, batch-grid entry for buckets); n < 4 runs the torch engine
-    (scalar silently, buckets with a ``cuda->torch`` downgrade tag)."""
+    """CUDA kernels, dense or sparse, real or complex, n >= 4 (scalar entry
+    for leaves, batch-grid entry for buckets); n < 4 runs the torch engine
+    (dense scalar silently, sparse scalar with a ``sparse(n=..,cuda->torch)``
+    tag, buckets with a ``cuda->torch`` downgrade tag)."""
 
     name = "cuda"
 
@@ -181,6 +210,17 @@ class CudaBackend(TorchBackend):
         return super().dense(M, precision=precision, num_chunks=num_chunks,
                              device=device)
 
+    def sparse(self, M, *, precision, num_chunks, geometry=None,
+               device=None):
+        if self._kernel_ok(M.shape[-1]):
+            from ..kernels import ops as K
+            return _scalar(K.sparse_value_cuda(M, *S.padded_ccs(M),
+                                               precision=precision,
+                                               geometry=geometry,
+                                               device=device))
+        return super().sparse(M, precision=precision, num_chunks=num_chunks,
+                              device=device)
+
     def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
                     device=None):
         if self._kernel_ok(stack.shape[-1]):
@@ -190,7 +230,17 @@ class CudaBackend(TorchBackend):
                 device=device))
         return None                  # dispatcher falls back + tags downgrade
 
+    def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
+                     device=None):
+        if self._kernel_ok(stack.shape[-1]):
+            from ..kernels import ops as K
+            return _host(K.sparse_batched_values_cuda(
+                stack, *S.padded_ccs(stack), precision=precision,
+                geometry=geometry, device=device))
+        return None                  # tiny bucket: torch fallback, tagged
+
     def value_backend(self, route, n, *, batched):
+        # dense and sparse kernels alike; below the floor the torch engines
         return self.name if self._kernel_ok(n) else "torch"
 
 
@@ -245,24 +295,35 @@ def _cache_key(leaf: LeafTask, plan: ExecutionPlan, produced_by: str) -> tuple:
 def _check_ported(plan: ExecutionPlan) -> None:
     """Refuse what the port does not run yet, before any device work."""
     for leaf in plan.leaves:
-        if leaf.route == ROUTE_SPARSE:
-            raise NotImplementedError(_SPARSE_TODO)
         if leaf.route == ROUTE_CAMPAIGN:
             raise NotImplementedError(_CAMPAIGN_TODO)
 
 
 def _run_leaf(leaf: LeafTask, plan: ExecutionPlan, backend: Backend,
               report: PermanentReport, stats: ExecStats) -> complex | float:
-    """One dense leaf through the scalar strategy path."""
+    """One dense or sparse leaf through the scalar strategy path.  Sparse
+    tags name the value's producer, ``sparse(n=..,<backend>)``, with a
+    ``cfg->produced`` suffix when another strategy serves the leaf."""
     n = leaf.n
     cfg = plan.config
-    produced = backend.value_backend(ROUTE_DENSE, n, batched=False)
-    report.dispatch.append(f"dense(n={n})")
-    t0 = time.perf_counter()
-    val = backend.dense(leaf.matrix, precision=plan.precision,
-                        num_chunks=cfg.num_chunks, geometry=leaf.geometry,
-                        device=cfg.device)
-    stats.record_time(f"dense(n={n},{produced})", time.perf_counter() - t0)
+    produced = backend.value_backend(leaf.route, n, batched=False)
+    kw = dict(precision=plan.precision, num_chunks=cfg.num_chunks,
+              geometry=leaf.geometry, device=cfg.device)
+    if leaf.route == ROUTE_SPARSE:
+        if produced == cfg.backend:
+            tag = f"sparse(n={n},{produced})"
+        else:
+            tag = f"sparse(n={n},{cfg.backend}->{produced})"
+            stats.downgrades.append(tag)
+        report.dispatch.append(tag)
+        t0 = time.perf_counter()
+        val = backend.sparse(leaf.matrix, **kw)
+    else:
+        report.dispatch.append(f"dense(n={n})")
+        t0 = time.perf_counter()
+        val = backend.dense(leaf.matrix, **kw)
+    stats.record_time(f"{leaf.route}(n={n},{produced})",
+                      time.perf_counter() - t0)
     stats.device_dispatches += 1
     stats.scalar_leaves += 1
     return val
@@ -379,13 +440,17 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
             tag = f"{route}_batch(n={n},b={len(leaves)})"
             t_bucket = time.perf_counter()
             stack = np.stack([l.matrix for l in leaves])
-            vals = backend.dense_batch(stack, precision=plan.precision,
-                                       num_chunks=cfg.num_chunks,
-                                       geometry=geometry, device=cfg.device)
+            run, run_fallback = (
+                (backend.dense_batch, fallback.dense_batch)
+                if route == ROUTE_DENSE else
+                (backend.sparse_batch, fallback.sparse_batch))
+            vals = run(stack, precision=plan.precision,
+                       num_chunks=cfg.num_chunks, geometry=geometry,
+                       device=cfg.device)
             if vals is None:             # tiny bucket under cuda
-                vals = fallback.dense_batch(stack, precision=plan.precision,
-                                            num_chunks=cfg.num_chunks,
-                                            device=cfg.device)
+                vals = run_fallback(stack, precision=plan.precision,
+                                    num_chunks=cfg.num_chunks,
+                                    device=cfg.device)
                 tag = f"{route}_batch(n={n},b={len(leaves)}," \
                       f"{cfg.backend}->{_FALLBACK})"
                 stats.downgrades.append(tag)

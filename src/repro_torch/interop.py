@@ -1,19 +1,24 @@
-"""Carry a reference ``SolverConfig`` across to the port.
+"""Carry a reference ``SolverConfig`` or ``SparseMatrix`` across to the
+port.
 
-The reference package's configuration travels as plain data -- its
-``dataclasses.asdict`` and ``Geometry.tag()`` strings -- so the port never
-imports the reference.  Backend names map ``jnp -> torch`` and
-``pallas -> cuda``.
+The reference package's state travels as plain data -- its
+``dataclasses.asdict`` (numpy fields) and ``Geometry.tag()`` strings -- so
+the port never imports the reference.  Backend names map ``jnp -> torch``
+and ``pallas -> cuda``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from .core.planner import SolverConfig
+from .core.sparyser import SparseMatrix
 from .core.stepspace import Geometry
 
-__all__ = ["BACKEND_NAMES", "config_from_reference", "geometry_from_tag"]
+__all__ = ["BACKEND_NAMES", "config_from_reference", "geometry_from_tag",
+           "sparse_from_reference"]
 
 BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda"}
 # Reference fields the port does not carry until the campaign slice; they
@@ -58,3 +63,14 @@ def config_from_reference(d: dict) -> SolverConfig:
     if unknown:
         raise ValueError(f"reference fields without a port: {sorted(unknown)}")
     return SolverConfig(**d)
+
+
+def sparse_from_reference(d: dict) -> SparseMatrix:
+    """The port's SparseMatrix for a reference one given as
+    ``dataclasses.asdict(sp)``: the same CRS + CCS arrays, copied."""
+    fields = {f.name for f in dataclasses.fields(SparseMatrix)}
+    if set(d) != fields:
+        raise ValueError(f"SparseMatrix fields {sorted(d)} != "
+                         f"{sorted(fields)}")
+    return SparseMatrix(n=int(d["n"]), **{
+        k: np.array(v) for k, v in d.items() if k != "n"})

@@ -2,9 +2,10 @@
 
 The sources under ``kernels/csrc/`` have a plain C interface, so they are
 compiled by ``nvcc`` alone (no PyTorch headers, a few seconds a unit) and
-loaded with ``ctypes``.  Each source (``ryser_dense.cu``, real, and
-``ryser_complex.cu``, split-plane complex; both include
-``ryser_common.cuh``) is compiled as one unit per padded matrix size
+loaded with ``ctypes``.  Each source (``ryser_dense.cu``, real;
+``ryser_complex.cu``, split-plane complex; ``ryser_sparse.cu``, padded-CCS
+sparse, real and complex) instantiates the block bodies of
+``ryser_kernels.cuh`` and is compiled as one unit per padded matrix size
 (``-DRYSER_NPAD=k``) plus one unit for its C entry points, every unit in
 its own ``nvcc`` process, all started together; ``nvcc -shared`` then
 links them into one library.
@@ -30,8 +31,8 @@ __all__ = ["CSRC", "NPADS", "build_dir", "find_nvcc", "load_library",
            "ptxas_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ryser_dense.cu", "ryser_complex.cu")
-HEADERS = ("ryser_common.cuh",)
+SOURCES = ("ryser_dense.cu", "ryser_complex.cu", "ryser_sparse.cu")
+HEADERS = ("ryser_common.cuh", "ryser_kernels.cuh")
 NPADS = (8, 16, 24, 32, 40, 48, 56, 64)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -137,6 +138,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ryser_complex_batched.argtypes = [P, P, P, P, P, P, I, I, I, I, I,
                                           I, I, I, P]
     lib.ryser_complex_batched.restype = I
+    lib.ryser_sparse_scalar.argtypes = [P, P, P, P, P, P, ctypes.c_uint64,
+                                        I, I, I, I, I, I, I, I, P]
+    lib.ryser_sparse_scalar.restype = I
+    lib.ryser_sparse_batched.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
+                                         I, I, I, P]
+    lib.ryser_sparse_batched.restype = I
+    lib.ryser_sparse_complex_scalar.argtypes = [P] * 9 + [
+        ctypes.c_uint64, I, I, I, I, I, I, I, I, P]
+    lib.ryser_sparse_complex_scalar.restype = I
+    lib.ryser_sparse_complex_batched.argtypes = [P] * 9 + [I] * 9 + [P]
+    lib.ryser_sparse_complex_batched.restype = I
     lib.ryser_error_string.argtypes = [I]
     lib.ryser_error_string.restype = ctypes.c_char_p
     return lib

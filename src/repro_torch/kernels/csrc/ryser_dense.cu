@@ -7,7 +7,8 @@
 // entry points: ryser_dense_scalar launches grid (num_blocks, 1) from a
 // uint64_t chunk base, ryser_dense_batched grid (num_blocks, B) from 0.
 // Blocks stay on gridDim.x: n = 30 has 65 536 of them and gridDim.y stops
-// at 65 535.
+// at 65 535.  The body is ryser_kernels.cuh's ryser_kernel<NPAD, P, false>,
+// which ryser_sparse.cu instantiates with SPARSE = true.
 //
 // Design (the paper's GPU layout, not the Pallas block layout):
 //   * one thread per chunk: TB = Geometry.lanes threads per CTA, each runs
@@ -42,154 +43,9 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "ryser_common.cuh"
+#include "ryser_kernels.cuh"
 
 namespace {
-
-enum Mode { M_BASELINE = 0, M_BATCHED = 1 };
-
-// Sequential product over the n live rows; padded rows are exactly 1.
-template <int NPAD>
-__device__ __forceinline__ double chain_prod(const double (&X)[NPAD], int n) {
-  double p = X[0];
-#pragma unroll
-  for (int i = 1; i < NPAD; ++i) {
-    if (i < n) p = p * X[i];
-  }
-  return p;
-}
-
-template <int NPAD, int P>
-__global__ void __launch_bounds__(kMaxThreads)
-ryser_dense_kernel(const double* __restrict__ A, const double* __restrict__ xb,
-                   const double* __restrict__ c0, double* __restrict__ out,
-                   uint64_t chunk_base, int n, int C_log2, int Wu_log2,
-                   int num_blocks, int mode) {
-  extern __shared__ double smem[];
-  const int TB = blockDim.x;
-  const int lane = threadIdx.x;
-  const int Wu = 1 << Wu_log2;
-  const int kw = Wu_log2;
-  const int M = 1 << (C_log2 - Wu_log2);
-  const uint64_t space = 1ull << (n - 1);
-
-  double* As = smem;                                   // NPAD * NPAD
-  double* Ds = As + NPAD * NPAD;                       // NPAD * (Wu - 1)
-  double* red = Ds + (mode == M_BATCHED ? NPAD * (Wu - 1) : 0);  // 2 * TB
-
-  const int b = blockIdx.y;
-  const double* Ab = A + (size_t)b * NPAD * NPAD;
-  const double* xbb = xb + (size_t)b * NPAD;
-  for (int t = lane; t < NPAD * NPAD; t += TB) {
-    const int i = t / NPAD, j = t % NPAD;
-    As[j * NPAD + i] = Ab[t];
-  }
-  if (mode == M_BATCHED) {
-    __syncthreads();
-    // D = A @ cumsig, once per CTA.  cumsig rows >= kw are zero, and its
-    // entries are 0 or 1, so each fma adds an exact product.
-    for (int t = lane; t < NPAD * (Wu - 1); t += TB) {
-      const int idx = t / NPAD, i = t % NPAD;
-      double acc = 0.0;
-      for (int k = 0; k < kw; ++k)
-        acc = __fma_rn(As[k * NPAD + i], c0[k * (Wu - 1) + idx], acc);
-      Ds[idx * NPAD + i] = acc;
-    }
-  }
-  __syncthreads();
-
-  // ---- chunk id, start step, init X = xb + sum_j A[:, j] * graybit_j ----
-  const uint64_t chunk = chunk_base + (uint64_t)blockIdx.x * TB + lane;
-  const uint64_t start = chunk << C_log2;
-  const uint64_t gs = start ^ (start >> 1);
-  double X[NPAD];
-#pragma unroll
-  for (int i = 0; i < NPAD; ++i) X[i] = xbb[i];
-  for (int j = 0; j < n; ++j) {
-    const double bit = (double)((gs >> j) & 1ull);
-    const double* col = As + j * NPAD;
-#pragma unroll
-    for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(col[i], bit, X[i]);  // exact: bit is 0 or 1
-  }
-
-  const double* col_mid = As + (kw - 1) * NPAD;
-  const int mid_idx = Wu / 2 - 1;
-  double s_acc = 0.0, c_acc = 0.0;
-  for (int m = 0; m < M; ++m) {
-    const uint64_t macro = start + ((uint64_t)m << Wu_log2);
-    const double bitk = (double)((macro >> kw) & 1ull);
-    if (mode == M_BASELINE) {
-      const double mid_flip = 1.0 - 2.0 * bitk;
-      for (int w = 1; w < Wu; ++w) {
-        const int j = __ffs(w) - 1;
-        // host-constant sign, except the mid step's per-lane flip
-        const double s = (j + 1 < kw)
-            ? (double)(2 * (((w >> j) ^ (w >> (j + 1))) & 1) - 1)
-            : mid_flip;
-        const double* col = As + j * NPAD;
-#pragma unroll
-        for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(col[i], s, X[i]);  // exact: s is +-1
-        const double prod = chain_prod<NPAD>(X, n);
-        accum_add<P>(s_acc, c_acc, (w & 1) ? -prod : prod);
-      }
-    } else {
-      // states (X + D[:, idx]) + corr, corr = col_mid * (-2 * bitk) from the
-      // mid step on; X itself is advanced once per window
-      const double cm = -2.0 * bitk;
-      for (int idx = 0; idx < Wu - 1; ++idx) {
-        const double* Dc = Ds + idx * NPAD;
-        const bool after_mid = idx >= mid_idx;
-        double p = 1.0;
-#pragma unroll
-        for (int i = 0; i < NPAD; ++i) {
-          if (i < n) {
-            double st = X[i] + Dc[i];
-            if (after_mid) st = __fma_rn(col_mid[i], cm, st);  // exact: cm is 0 or -2
-            p = (i == 0) ? st : p * st;
-          }
-        }
-        accum_add<P>(s_acc, c_acc, ((idx + 1) & 1) ? -p : p);
-      }
-      const double* Dl = Ds + (Wu - 2) * NPAD;
-#pragma unroll
-      for (int i = 0; i < NPAD; ++i) {
-        X[i] = X[i] + Dl[i];
-        X[i] = __fma_rn(col_mid[i], cm, X[i]);
-      }
-    }
-
-    // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
-    const uint64_t gb = macro + (uint64_t)Wu;
-    const int jb = __ffsll((long long)gb) - 1;
-    const uint64_t ggb = gb ^ (gb >> 1);
-    const double sb = (double)(2 * (int)((ggb >> jb) & 1ull) - 1);
-    const double live = (gb <= space - 1) ? 1.0 : 0.0;
-    const double f = sb * live;
-    const double* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
-#pragma unroll
-    for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
-    const double prod = chain_prod<NPAD>(X, n);
-    accum_add<P>(s_acc, c_acc, prod * live);
-  }
-
-  // ---- fixed-order lane tree over hi and lo (no atomics) ----
-  const bool two_limb = (P == P_DQ_ACC || P == P_DQ_FAST);
-  red[lane] = s_acc;
-  red[TB + lane] = two_limb ? c_acc : 0.0;
-  __syncthreads();
-  for (int stride = TB / 2; stride > 0; stride >>= 1) {
-    if (lane < stride) {
-      red[lane] = red[lane] + red[lane + stride];
-      red[TB + lane] = red[TB + lane] + red[TB + lane + stride];
-    }
-    __syncthreads();
-  }
-  if (lane == 0) {
-    const size_t o = ((size_t)b * num_blocks + blockIdx.x) * 2;
-    out[o] = red[0];
-    out[o + 1] = red[TB];
-  }
-}
 
 template <int NPAD, int P>
 int launch(const double* A, const double* xb, const double* c0, double* out,
@@ -199,15 +55,10 @@ int launch(const double* A, const double* xb, const double* c0, double* out,
   const size_t smem = sizeof(double) *
       ((size_t)NPAD * NPAD + (mode == M_BATCHED ? (size_t)NPAD * (Wu - 1) : 0) +
        2 * (size_t)TB);
-  auto kern = ryser_dense_kernel<NPAD, P>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<dim3((unsigned)num_blocks, (unsigned)B), TB, smem, stream>>>(
-      A, xb, c0, out, base, n, C_log2, Wu_log2, num_blocks, mode);
-  return (int)cudaGetLastError();
+  return launch_kernel(ryser_kernel<NPAD, P, false>, smem, num_blocks, B, TB,
+                       stream, A, (const int*)nullptr, (const double*)nullptr,
+                       xb, c0, out, base, n, 0, C_log2, Wu_log2, num_blocks,
+                       mode);
 }
 
 }  // namespace

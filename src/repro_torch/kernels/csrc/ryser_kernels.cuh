@@ -1,0 +1,411 @@
+// The two Gray-code Ryser block bodies every kernel source instantiates:
+// ryser_kernel (real f64) and ryser_cx_kernel (split-plane complex f64).
+// ryser_dense.cu and ryser_complex.cu instantiate them with SPARSE = false,
+// ryser_sparse.cu with SPARSE = true.
+//
+// SPARSE says where the kw = log2(Wu) low columns come from, the columns the
+// window states D = low @ cumsig[:kw] and the mid correction read:
+//   * false: the matrix's own columns in shared memory, A[:, :kw];
+//   * true: the padded-CCS arrays (rows, vals; leading dimension n, runtime
+//     maxdeg), densified once per CTA into shared U[NPAD][kw] as the TPU
+//     sparse body _ryser_block_sp(_cx) does (_scatter_low_columns).
+// Everything else -- the init from dense A, the inner window steps, the
+// boundary column, the lane tree -- is one code path.  Within a CCS column
+// the live rows are distinct, so every live U entry is one exact add to 0
+// and U equals A[:, :kw]: a sparse kernel equals the dense batched mode bit
+// for bit on the same matrix, and does the same work.
+//
+// Layout (the paper's GPU layout, not the Pallas block layout): one thread
+// per chunk, TB threads per CTA, each running C Gray steps as M = C / Wu
+// windows; A column-major in shared memory; the row sums X[NPAD] (complex:
+// Xr, Xi) in registers, indexed only by a compile-time i inside #pragma
+// unroll loops; native uint64_t step indices (`live`, g <= 2^(n-1) - 1, is
+// exact up to n = 64); a fixed shared-memory lane tree, no atomics.
+// Built with --fmad=false; the only __fma_rn sites multiply an entry of A
+// by 0, +-1 or -2, where the product is exact.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "ryser_common.cuh"
+
+namespace {
+
+enum Mode { M_BASELINE = 0, M_BATCHED = 1 };
+
+// U[j * npad + r] += vals[j][d] over d in order, one thread per column
+// j < kw, no atomics.  Padded entries carry row n: with n < npad they add 0
+// to a padded row, which stays 0; with n == npad they lie past U and are
+// skipped.
+__device__ __forceinline__ void scatter_low_columns(
+    double* Us, const int* rows, const double* vals, int kw, int maxdeg,
+    int npad, int lane, int TB) {
+  for (int j = lane; j < kw; j += TB) {
+    for (int d = 0; d < maxdeg; ++d) {
+      const int r = rows[j * maxdeg + d];
+      if ((unsigned)r < (unsigned)npad) Us[j * npad + r] += vals[j * maxdeg + d];
+    }
+  }
+}
+
+// Ds[idx][i] = sum_{k < kw} low[k][i] * cumsig[k][idx] in ascending k from
+// 0, once per CTA.  cumsig rows >= kw are zero and its entries are 0 or 1,
+// so each fma adds an exact product.
+template <int NPAD>
+__device__ __forceinline__ void window_states(double* Ds, const double* low,
+                                              const double* c0, int kw,
+                                              int Wu, int lane, int TB) {
+  for (int t = lane; t < NPAD * (Wu - 1); t += TB) {
+    const int idx = t / NPAD, i = t % NPAD;
+    double acc = 0.0;
+    for (int k = 0; k < kw; ++k)
+      acc = __fma_rn(low[k * NPAD + i], c0[k * (Wu - 1) + idx], acc);
+    Ds[idx * NPAD + i] = acc;
+  }
+}
+
+template <int NPAD, int P, bool SPARSE>
+__global__ void __launch_bounds__(kMaxThreads)
+ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
+             const double* __restrict__ vals, const double* __restrict__ xb,
+             const double* __restrict__ c0, double* __restrict__ out,
+             uint64_t chunk_base, int n, int maxdeg, int C_log2, int Wu_log2,
+             int num_blocks, int mode) {
+  extern __shared__ double smem[];
+  const int TB = blockDim.x;
+  const int lane = threadIdx.x;
+  const int Wu = 1 << Wu_log2;
+  const int kw = Wu_log2;
+  const int M = 1 << (C_log2 - Wu_log2);
+  const uint64_t space = 1ull << (n - 1);
+  const bool batched = SPARSE || mode == M_BATCHED;    // sparse: batched only
+
+  double* As = smem;                                   // NPAD * NPAD
+  double* Us = As + NPAD * NPAD;                       // NPAD * kw if SPARSE
+  double* Ds = Us + (SPARSE ? NPAD * kw : 0);          // NPAD * (Wu - 1)
+  double* red = Ds + (batched ? NPAD * (Wu - 1) : 0);  // 2 * TB
+  const double* low = SPARSE ? Us : As;                // the kw low columns
+
+  const int b = blockIdx.y;
+  const double* Ab = A + (size_t)b * NPAD * NPAD;
+  const double* xbb = xb + (size_t)b * NPAD;
+  for (int t = lane; t < NPAD * NPAD; t += TB) {
+    const int i = t / NPAD, j = t % NPAD;
+    As[j * NPAD + i] = Ab[t];
+  }
+  if constexpr (SPARSE) {
+    for (int t = lane; t < NPAD * kw; t += TB) Us[t] = 0.0;
+    __syncthreads();
+    scatter_low_columns(Us, rows + (size_t)b * n * maxdeg,
+                        vals + (size_t)b * n * maxdeg, kw, maxdeg, NPAD, lane,
+                        TB);
+  }
+  if (batched) {
+    __syncthreads();
+    window_states<NPAD>(Ds, low, c0, kw, Wu, lane, TB);
+  }
+  __syncthreads();
+
+  // ---- chunk id, start step, init X = xb + sum_j A[:, j] * graybit_j ----
+  const uint64_t chunk = chunk_base + (uint64_t)blockIdx.x * TB + lane;
+  const uint64_t start = chunk << C_log2;
+  const uint64_t gs = start ^ (start >> 1);
+  double X[NPAD];
+#pragma unroll
+  for (int i = 0; i < NPAD; ++i) X[i] = xbb[i];
+  for (int j = 0; j < n; ++j) {
+    const double bit = (double)((gs >> j) & 1ull);
+    const double* col = As + j * NPAD;
+#pragma unroll
+    for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(col[i], bit, X[i]);  // exact: bit is 0 or 1
+  }
+
+  const double* col_mid = low + (kw - 1) * NPAD;
+  const int mid_idx = Wu / 2 - 1;
+  double s_acc = 0.0, c_acc = 0.0;
+  for (int m = 0; m < M; ++m) {
+    if constexpr (SPARSE) {
+      // With the mode fixed at compile time the compiler hoists the
+      // window-invariant columns col_mid and D[:, Wu-2] out of this loop
+      // into 4 NPAD more registers (232 at NPAD 32, spills from NPAD 40);
+      // the barrier keeps the dense kernel's reload from shared memory.
+      asm volatile("" ::: "memory");
+    }
+    const uint64_t macro = start + ((uint64_t)m << Wu_log2);
+    const double bitk = (double)((macro >> kw) & 1ull);
+    if (!batched) {
+      const double mid_flip = 1.0 - 2.0 * bitk;
+      for (int w = 1; w < Wu; ++w) {
+        const int j = __ffs(w) - 1;
+        // host-constant sign, except the mid step's per-lane flip
+        const double s = (j + 1 < kw)
+            ? (double)(2 * (((w >> j) ^ (w >> (j + 1))) & 1) - 1)
+            : mid_flip;
+        const double* col = As + j * NPAD;
+#pragma unroll
+        for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(col[i], s, X[i]);  // exact: s is +-1
+        const double prod = chain_prod<NPAD>(X, n);
+        accum_add<P>(s_acc, c_acc, (w & 1) ? -prod : prod);
+      }
+    } else {
+      // states (X + D[:, idx]) + corr, corr = col_mid * (-2 * bitk) from the
+      // mid step on; X itself is advanced once per window
+      const double cm = -2.0 * bitk;
+      for (int idx = 0; idx < Wu - 1; ++idx) {
+        const double* Dc = Ds + idx * NPAD;
+        const bool after_mid = idx >= mid_idx;
+        double p = 1.0;
+#pragma unroll
+        for (int i = 0; i < NPAD; ++i) {
+          if (i < n) {
+            double st = X[i] + Dc[i];
+            if (after_mid) st = __fma_rn(col_mid[i], cm, st);  // exact: cm is 0 or -2
+            p = (i == 0) ? st : p * st;
+          }
+        }
+        accum_add<P>(s_acc, c_acc, ((idx + 1) & 1) ? -p : p);
+      }
+      const double* Dl = Ds + (Wu - 2) * NPAD;
+#pragma unroll
+      for (int i = 0; i < NPAD; ++i) {
+        X[i] = X[i] + Dl[i];
+        X[i] = __fma_rn(col_mid[i], cm, X[i]);
+      }
+    }
+
+    // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
+    const uint64_t gb = macro + (uint64_t)Wu;
+    const int jb = __ffsll((long long)gb) - 1;
+    const uint64_t ggb = gb ^ (gb >> 1);
+    const double sb = (double)(2 * (int)((ggb >> jb) & 1ull) - 1);
+    const double live = (gb <= space - 1) ? 1.0 : 0.0;
+    const double f = sb * live;
+    const double* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
+#pragma unroll
+    for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
+    const double prod = chain_prod<NPAD>(X, n);
+    accum_add<P>(s_acc, c_acc, prod * live);
+  }
+
+  // ---- fixed-order lane tree over hi and lo (no atomics) ----
+  const bool two_limb = (P == P_DQ_ACC || P == P_DQ_FAST);
+  red[lane] = s_acc;
+  red[TB + lane] = two_limb ? c_acc : 0.0;
+  __syncthreads();
+  for (int stride = TB / 2; stride > 0; stride >>= 1) {
+    if (lane < stride) {
+      red[lane] = red[lane] + red[lane + stride];
+      red[TB + lane] = red[TB + lane] + red[TB + lane + stride];
+    }
+    __syncthreads();
+  }
+  if (lane == 0) {
+    const size_t o = ((size_t)b * num_blocks + blockIdx.x) * 2;
+    out[o] = red[0];
+    out[o + 1] = red[TB];
+  }
+}
+
+// The split-plane body runs the window-batched mode only, as the Pallas
+// complex kernels do.  An inner step streams the product row by row from
+// Xr[i] + Dr[i][idx] (+ cm_r[i] * corr), never materialising the state.
+template <int NPAD, int P, bool SPARSE>
+__global__ void __launch_bounds__(kMaxThreads)
+ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
+                const int* __restrict__ rows,
+                const double* __restrict__ vals_r,
+                const double* __restrict__ vals_i,
+                const double* __restrict__ xbr,
+                const double* __restrict__ xbi,
+                const double* __restrict__ c0, double* __restrict__ out,
+                uint64_t chunk_base, int n, int maxdeg, int C_log2,
+                int Wu_log2, int num_blocks) {
+  extern __shared__ double smem[];
+  const int TB = blockDim.x;
+  const int lane = threadIdx.x;
+  const int Wu = 1 << Wu_log2;
+  const int kw = Wu_log2;
+  const int M = 1 << (C_log2 - Wu_log2);
+  const uint64_t space = 1ull << (n - 1);
+
+  double* Ars = smem;                                  // NPAD * NPAD
+  double* Ais = Ars + NPAD * NPAD;                     // NPAD * NPAD
+  double* Urs = Ais + NPAD * NPAD;                     // NPAD * kw if SPARSE
+  double* Uis = Urs + (SPARSE ? NPAD * kw : 0);        // NPAD * kw if SPARSE
+  double* Drs = Uis + (SPARSE ? NPAD * kw : 0);        // NPAD * (Wu - 1)
+  double* Dis = Drs + NPAD * (Wu - 1);                 // NPAD * (Wu - 1)
+  double* red = Dis + NPAD * (Wu - 1);                 // 4 * TB
+  const double* low_r = SPARSE ? Urs : Ars;            // the kw low columns
+  const double* low_i = SPARSE ? Uis : Ais;
+
+  const int b = blockIdx.y;
+  const double* Arb = Ar + (size_t)b * NPAD * NPAD;
+  const double* Aib = Ai + (size_t)b * NPAD * NPAD;
+  const int* rb = rows + (size_t)b * n * maxdeg;       // maxdeg 0 if dense
+  const double* vrb = vals_r + (size_t)b * n * maxdeg;
+  const double* vib = vals_i + (size_t)b * n * maxdeg;
+  const double* xbrb = xbr + (size_t)b * NPAD;
+  const double* xbib = xbi + (size_t)b * NPAD;
+  for (int t = lane; t < NPAD * NPAD; t += TB) {
+    const int i = t / NPAD, j = t % NPAD;
+    Ars[j * NPAD + i] = Arb[t];
+    Ais[j * NPAD + i] = Aib[t];
+  }
+  if constexpr (SPARSE) {
+    for (int t = lane; t < NPAD * kw; t += TB) {
+      Urs[t] = 0.0;
+      Uis[t] = 0.0;
+    }
+    __syncthreads();
+    scatter_low_columns(Urs, rb, vrb, kw, maxdeg, NPAD, lane, TB);
+    scatter_low_columns(Uis, rb, vib, kw, maxdeg, NPAD, lane, TB);
+  }
+  __syncthreads();
+  // D = low @ cumsig per plane.  The sparse instantiation keeps one helper
+  // pass per plane: with the dense instantiation's fused pass ptxas spills
+  // it at NPAD 8 (dq_fast) and NPAD 48.
+  if constexpr (SPARSE) {
+    window_states<NPAD>(Drs, low_r, c0, kw, Wu, lane, TB);
+    window_states<NPAD>(Dis, low_i, c0, kw, Wu, lane, TB);
+  } else {
+    for (int t = lane; t < NPAD * (Wu - 1); t += TB) {
+      const int idx = t / NPAD, i = t % NPAD;
+      double dr = 0.0, di = 0.0;
+      for (int k = 0; k < kw; ++k) {
+        const double c = c0[k * (Wu - 1) + idx];
+        dr = __fma_rn(low_r[k * NPAD + i], c, dr);
+        di = __fma_rn(low_i[k * NPAD + i], c, di);
+      }
+      Drs[idx * NPAD + i] = dr;
+      Dis[idx * NPAD + i] = di;
+    }
+  }
+  __syncthreads();
+
+  // ---- chunk id, start step, init X = xb + sum_j A[:, j] * graybit_j ----
+  const uint64_t chunk = chunk_base + (uint64_t)blockIdx.x * TB + lane;
+  const uint64_t start = chunk << C_log2;
+  const uint64_t gs = start ^ (start >> 1);
+  double Xr[NPAD], Xi[NPAD];
+#pragma unroll
+  for (int i = 0; i < NPAD; ++i) {
+    Xr[i] = xbrb[i];
+    Xi[i] = xbib[i];
+  }
+  for (int j = 0; j < n; ++j) {
+    const double bit = (double)((gs >> j) & 1ull);
+    const double* cr = Ars + j * NPAD;
+    const double* ci = Ais + j * NPAD;
+#pragma unroll
+    for (int i = 0; i < NPAD; ++i) {
+      Xr[i] = __fma_rn(cr[i], bit, Xr[i]);  // exact: bit is 0 or 1
+      Xi[i] = __fma_rn(ci[i], bit, Xi[i]);
+    }
+  }
+
+  const double* cmr = low_r + (kw - 1) * NPAD;
+  const double* cmi = low_i + (kw - 1) * NPAD;
+  const int mid_idx = Wu / 2 - 1;
+  double sr = 0.0, cr_acc = 0.0, si = 0.0, ci_acc = 0.0;
+  for (int m = 0; m < M; ++m) {
+    const uint64_t macro = start + ((uint64_t)m << Wu_log2);
+    // states (X + D[:, idx]) + corr, corr = cm_col * (-2 * bitk) from the mid
+    // step on; X itself is advanced once per window
+    const double cm = -2.0 * (double)((macro >> kw) & 1ull);
+    for (int idx = 0; idx < Wu - 1; ++idx) {
+      const double* Dr = Drs + idx * NPAD;
+      const double* Di = Dis + idx * NPAD;
+      const bool after_mid = idx >= mid_idx;
+      double pr = 0.0, pi = 0.0;
+#pragma unroll
+      for (int i = 0; i < NPAD; ++i) {
+        if (i < n) {
+          double xr = Xr[i] + Dr[i];
+          double xi = Xi[i] + Di[i];
+          if (after_mid) {
+            xr = __fma_rn(cmr[i], cm, xr);  // exact: cm is 0 or -2
+            xi = __fma_rn(cmi[i], cm, xi);
+          }
+          if (i == 0) {
+            pr = xr;
+            pi = xi;
+          } else {
+            const double r = pr * xr - pi * xi;
+            const double q = pr * xi + pi * xr;
+            pr = r;
+            pi = q;
+          }
+        }
+      }
+      const bool neg = ((idx + 1) & 1) != 0;
+      accum_add<P>(sr, cr_acc, neg ? -pr : pr);
+      accum_add<P>(si, ci_acc, neg ? -pi : pi);
+    }
+    const double* Drl = Drs + (Wu - 2) * NPAD;
+    const double* Dil = Dis + (Wu - 2) * NPAD;
+#pragma unroll
+    for (int i = 0; i < NPAD; ++i) {
+      Xr[i] = Xr[i] + Drl[i];
+      Xr[i] = __fma_rn(cmr[i], cm, Xr[i]);
+      Xi[i] = Xi[i] + Dil[i];
+      Xi[i] = __fma_rn(cmi[i], cm, Xi[i]);
+    }
+
+    // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
+    const uint64_t gb = macro + (uint64_t)Wu;
+    const int jb = __ffsll((long long)gb) - 1;
+    const uint64_t ggb = gb ^ (gb >> 1);
+    const double sb = (double)(2 * (int)((ggb >> jb) & 1ull) - 1);
+    const double live = (gb <= space - 1) ? 1.0 : 0.0;
+    const double f = sb * live;
+    const double* cbr = Ars + jb * NPAD;  // jb <= n - 1 < NPAD
+    const double* cbi = Ais + jb * NPAD;
+#pragma unroll
+    for (int i = 0; i < NPAD; ++i) {
+      Xr[i] = __fma_rn(cbr[i], f, Xr[i]);  // exact: f is 0 or +-1
+      Xi[i] = __fma_rn(cbi[i], f, Xi[i]);
+    }
+    double pr, pi;
+    chain_prod_cx<NPAD>(Xr, Xi, n, pr, pi);
+    accum_add<P>(sr, cr_acc, pr * live);
+    accum_add<P>(si, ci_acc, pi * live);
+  }
+
+  // ---- fixed-order lane tree over the four sums (no atomics) ----
+  const bool two_limb = (P == P_DQ_ACC || P == P_DQ_FAST);
+  red[lane] = sr;
+  red[TB + lane] = two_limb ? cr_acc : 0.0;
+  red[2 * TB + lane] = si;
+  red[3 * TB + lane] = two_limb ? ci_acc : 0.0;
+  __syncthreads();
+  for (int stride = TB / 2; stride > 0; stride >>= 1) {
+    if (lane < stride) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        red[q * TB + lane] = red[q * TB + lane] + red[q * TB + lane + stride];
+    }
+    __syncthreads();
+  }
+  if (lane == 0) {
+    const size_t o = ((size_t)b * num_blocks + blockIdx.x) * 4;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[o + q] = red[q * TB];
+  }
+}
+
+// Opt in above 48 KB of dynamic shared memory, then launch grid
+// (num_blocks, B) of TB threads.
+template <typename Kernel, typename... Args>
+int launch_kernel(Kernel kern, size_t smem, int num_blocks, int B, int TB,
+                  cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<dim3((unsigned)num_blocks, (unsigned)B), TB, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -1,0 +1,244 @@
+// SpaRyser (padded-CCS sparse) f64 Gray-code Ryser block partials for Hopper
+// (sm_90a), real and split-plane complex.
+//
+// Replaces the four TPU kernels of kernels/ryser_sparse.py:
+//   * ryser_sparse_pallas_call (_ryser_sp_kernel -> _ryser_block_sp, grid over
+//     blocks, u64 chunk base) and ryser_sparse_pallas_call_batched
+//     (_ryser_sp_kernel_batched, grid over (batch, block), chunk base 0):
+//     ryser_kernel<NPAD, P, true>, entries ryser_sparse_scalar /
+//     ryser_sparse_batched;
+//   * ryser_sparse_pallas_call_complex (_ryser_sp_kernel_cx ->
+//     _ryser_block_sp_cx) and ryser_sparse_pallas_call_complex_batched:
+//     ryser_cx_kernel<NPAD, P, true>, entries ryser_sparse_complex_scalar /
+//     ryser_sparse_complex_batched.
+// A scalar entry launches grid (num_blocks, 1) from a uint64_t chunk base, a
+// batched entry grid (num_blocks, B) from 0; both run one body, so a scalar
+// leaf equals its bucket entry bit for bit.
+//
+// The bodies are ryser_kernels.cuh's, shared with the dense kernels: what
+// the TPU sparse body computes is the dense batched mode with the window
+// states taken from the kw = log2(Wu) low CCS columns, densified once per CTA
+// into shared U[NPAD][kw] (one thread per column, entries in order, no
+// atomics; entries at row n == NPAD skipped), while dense A stays in shared
+// memory for the chunk init and the boundary column.  rows/vals have leading
+// dimension n (not NPAD); maxdeg is a runtime argument (in a bucket the
+// bucket-wide maximum, whose extra padding is inert).  X[NPAD] lives in
+// registers, indexed only by a compile-time i: the paper's Alg. 2 scatter by
+// a runtime row would push X into local memory, so the column updates are
+// folded into D as on the TPU.
+//
+// Numerics mirror _ryser_block_sp(_cx) step for step and the plain PyTorch
+// versions kernels/ryser_sparse_cuda.py::block_partials_plain_sparse(_complex)
+// op for op.  U equals A[:, :kw] exactly, so these kernels also equal the
+// dense batched mode (ryser_dense.cu, ryser_complex.cu) bit for bit.
+//
+// Bound: FP64 instruction throughput over the work SpaRyser needs, which the
+// data sets: per Gray step deg(j) adds for the changed column j and n - 1
+// multiplies for the product (complex: 2 deg(j) + 6 (n - 1)).  This design
+// does the dense kernel's n adds per step whatever the density, so it sits
+// further from that bound than the dense kernel from its own.  Not done: a
+// sparse-aware step (only deg(j) rows change) needs X in shared memory or a
+// runtime-indexed update.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "ryser_kernels.cuh"
+
+namespace {
+
+template <int NPAD, int P>
+int launch_real(const double* A, const int* rows, const double* vals,
+                const double* xb, const double* c0, double* out, uint64_t base,
+                int n, int maxdeg, int TB, int C_log2, int Wu_log2,
+                int num_blocks, int B, cudaStream_t stream) {
+  const size_t Wu = (size_t)1 << Wu_log2;
+  const size_t smem = sizeof(double) *
+      ((size_t)NPAD * NPAD + (size_t)NPAD * Wu_log2 + (size_t)NPAD * (Wu - 1) +
+       2 * (size_t)TB);
+  return launch_kernel(ryser_kernel<NPAD, P, true>, smem, num_blocks, B, TB,
+                       stream, A, rows, vals, xb, c0, out, base, n, maxdeg,
+                       C_log2, Wu_log2, num_blocks, (int)M_BATCHED);
+}
+
+template <int NPAD, int P>
+int launch_cx(const double* Ar, const double* Ai, const int* rows,
+              const double* vr, const double* vi, const double* xbr,
+              const double* xbi, const double* c0, double* out, uint64_t base,
+              int n, int maxdeg, int TB, int C_log2, int Wu_log2,
+              int num_blocks, int B, cudaStream_t stream) {
+  const size_t Wu = (size_t)1 << Wu_log2;
+  const size_t smem = sizeof(double) *
+      (2 * (size_t)NPAD * NPAD + 2 * (size_t)NPAD * Wu_log2 +
+       2 * (size_t)NPAD * (Wu - 1) + 4 * (size_t)TB);
+  return launch_kernel(ryser_cx_kernel<NPAD, P, true>, smem, num_blocks, B,
+                       TB, stream, Ar, Ai, rows, vr, vi, xbr, xbi, c0, out,
+                       base, n, maxdeg, C_log2, Wu_log2, num_blocks);
+}
+
+}  // namespace
+
+// One launcher pair per NPAD, compiled as in ryser_dense.cu: one nvcc process
+// per -DRYSER_NPAD=k and one more for the C entry points (-DRYSER_API_ONLY).
+#if defined(RYSER_NPAD) == defined(RYSER_API_ONLY)
+#error "define exactly one of RYSER_NPAD=k and RYSER_API_ONLY"
+#endif
+
+#define RYSER_SP_LAUNCHER_SIG(K)                                               \
+  extern "C" int ryser_sp_launch_npad_##K(                                     \
+      const double* A, const int* rows, const double* vals, const double* xb, \
+      const double* c0, double* out, uint64_t base, int n, int maxdeg,        \
+      int TB, int C_log2, int Wu_log2, int num_blocks, int B, int precision,  \
+      cudaStream_t stream)
+
+#define RYSER_SPX_LAUNCHER_SIG(K)                                              \
+  extern "C" int ryser_spx_launch_npad_##K(                                    \
+      const double* Ar, const double* Ai, const int* rows, const double* vr,  \
+      const double* vi, const double* xbr, const double* xbi,                 \
+      const double* c0, double* out, uint64_t base, int n, int maxdeg,        \
+      int TB, int C_log2, int Wu_log2, int num_blocks, int B, int precision,  \
+      cudaStream_t stream)
+
+#define RYSER_SP_CASE_P(K, PV)                                                 \
+  case PV:                                                                     \
+    return launch_real<K, PV>(A, rows, vals, xb, c0, out, base, n, maxdeg, TB, \
+                              C_log2, Wu_log2, num_blocks, B, stream);
+
+#define RYSER_SPX_CASE_P(K, PV)                                                \
+  case PV:                                                                     \
+    return launch_cx<K, PV>(Ar, Ai, rows, vr, vi, xbr, xbi, c0, out, base, n,  \
+                            maxdeg, TB, C_log2, Wu_log2, num_blocks, B,        \
+                            stream);
+
+#define RYSER_SP_DEFINE_LAUNCHERS(K)                                           \
+  RYSER_SP_LAUNCHER_SIG(K) {                                                   \
+    switch (precision) {                                                       \
+      RYSER_SP_CASE_P(K, P_DD)                                                 \
+      RYSER_SP_CASE_P(K, P_KAHAN)                                              \
+      RYSER_SP_CASE_P(K, P_DQ_ACC)                                             \
+      RYSER_SP_CASE_P(K, P_DQ_FAST)                                            \
+      default: return (int)cudaErrorInvalidValue;                              \
+    }                                                                          \
+  }                                                                            \
+  RYSER_SPX_LAUNCHER_SIG(K) {                                                  \
+    switch (precision) {                                                       \
+      RYSER_SPX_CASE_P(K, P_DD)                                                \
+      RYSER_SPX_CASE_P(K, P_KAHAN)                                             \
+      RYSER_SPX_CASE_P(K, P_DQ_ACC)                                            \
+      RYSER_SPX_CASE_P(K, P_DQ_FAST)                                           \
+      default: return (int)cudaErrorInvalidValue;                              \
+    }                                                                          \
+  }
+
+#define RYSER_SP_EXPAND(M, K) M(K)
+
+#if defined(RYSER_NPAD)
+RYSER_SP_EXPAND(RYSER_SP_DEFINE_LAUNCHERS, RYSER_NPAD)
+#else
+#define RYSER_SP_DECLARE(K) \
+  RYSER_SP_LAUNCHER_SIG(K); \
+  RYSER_SPX_LAUNCHER_SIG(K);
+RYSER_SP_DECLARE(8)
+RYSER_SP_DECLARE(16)
+RYSER_SP_DECLARE(24)
+RYSER_SP_DECLARE(32)
+RYSER_SP_DECLARE(40)
+RYSER_SP_DECLARE(48)
+RYSER_SP_DECLARE(56)
+RYSER_SP_DECLARE(64)
+
+namespace {
+
+bool bad_geometry(int n, int n_pad, int maxdeg, int TB, int C_log2,
+                  int Wu_log2, int num_blocks, int B) {
+  return n < 3 || n > 64 || n > n_pad || maxdeg < 1 || TB < 1 ||
+         TB > kMaxThreads || (TB & (TB - 1)) != 0 || Wu_log2 < 1 ||
+         Wu_log2 >= n || C_log2 < Wu_log2 || num_blocks < 1 || B < 1 ||
+         B > 65535;
+}
+
+int dispatch(const double* A, const int* rows, const double* vals,
+             const double* xb, const double* c0, double* out, uint64_t base,
+             int n, int n_pad, int maxdeg, int TB, int C_log2, int Wu_log2,
+             int num_blocks, int B, int precision, void* stream) {
+  if (bad_geometry(n, n_pad, maxdeg, TB, C_log2, Wu_log2, num_blocks, B))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RYSER_SP_CASE(K)                                                       \
+  case K:                                                                      \
+    return ryser_sp_launch_npad_##K(A, rows, vals, xb, c0, out, base, n,       \
+                                    maxdeg, TB, C_log2, Wu_log2, num_blocks,   \
+                                    B, precision, s);
+  switch (n_pad) {
+    RYSER_SP_CASE(8) RYSER_SP_CASE(16) RYSER_SP_CASE(24) RYSER_SP_CASE(32)
+    RYSER_SP_CASE(40) RYSER_SP_CASE(48) RYSER_SP_CASE(56) RYSER_SP_CASE(64)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RYSER_SP_CASE
+}
+
+int dispatch_cx(const double* Ar, const double* Ai, const int* rows,
+                const double* vr, const double* vi, const double* xbr,
+                const double* xbi, const double* c0, double* out,
+                uint64_t base, int n, int n_pad, int maxdeg, int TB,
+                int C_log2, int Wu_log2, int num_blocks, int B, int precision,
+                void* stream) {
+  if (bad_geometry(n, n_pad, maxdeg, TB, C_log2, Wu_log2, num_blocks, B))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RYSER_SPX_CASE(K)                                                      \
+  case K:                                                                      \
+    return ryser_spx_launch_npad_##K(Ar, Ai, rows, vr, vi, xbr, xbi, c0, out,  \
+                                     base, n, maxdeg, TB, C_log2, Wu_log2,     \
+                                     num_blocks, B, precision, s);
+  switch (n_pad) {
+    RYSER_SPX_CASE(8) RYSER_SPX_CASE(16) RYSER_SPX_CASE(24) RYSER_SPX_CASE(32)
+    RYSER_SPX_CASE(40) RYSER_SPX_CASE(48) RYSER_SPX_CASE(56) RYSER_SPX_CASE(64)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RYSER_SPX_CASE
+}
+
+}  // namespace
+
+extern "C" int ryser_sparse_scalar(const double* A, const int* rows,
+                                   const double* vals, const double* xb,
+                                   const double* c0, double* out,
+                                   uint64_t chunk_base, int n, int n_pad,
+                                   int maxdeg, int TB, int C_log2,
+                                   int Wu_log2, int num_blocks, int precision,
+                                   void* stream) {
+  return dispatch(A, rows, vals, xb, c0, out, chunk_base, n, n_pad, maxdeg,
+                  TB, C_log2, Wu_log2, num_blocks, 1, precision, stream);
+}
+
+extern "C" int ryser_sparse_batched(const double* A, const int* rows,
+                                    const double* vals, const double* xb,
+                                    const double* c0, double* out, int B,
+                                    int n, int n_pad, int maxdeg, int TB,
+                                    int C_log2, int Wu_log2, int num_blocks,
+                                    int precision, void* stream) {
+  return dispatch(A, rows, vals, xb, c0, out, 0, n, n_pad, maxdeg, TB, C_log2,
+                  Wu_log2, num_blocks, B, precision, stream);
+}
+
+extern "C" int ryser_sparse_complex_scalar(
+    const double* Ar, const double* Ai, const int* rows, const double* vr,
+    const double* vi, const double* xbr, const double* xbi, const double* c0,
+    double* out, uint64_t chunk_base, int n, int n_pad, int maxdeg, int TB,
+    int C_log2, int Wu_log2, int num_blocks, int precision, void* stream) {
+  return dispatch_cx(Ar, Ai, rows, vr, vi, xbr, xbi, c0, out, chunk_base, n,
+                     n_pad, maxdeg, TB, C_log2, Wu_log2, num_blocks, 1,
+                     precision, stream);
+}
+
+extern "C" int ryser_sparse_complex_batched(
+    const double* Ar, const double* Ai, const int* rows, const double* vr,
+    const double* vi, const double* xbr, const double* xbi, const double* c0,
+    double* out, int B, int n, int n_pad, int maxdeg, int TB, int C_log2,
+    int Wu_log2, int num_blocks, int precision, void* stream) {
+  return dispatch_cx(Ar, Ai, rows, vr, vi, xbr, xbi, c0, out, 0, n, n_pad,
+                     maxdeg, TB, C_log2, Wu_log2, num_blocks, B, precision,
+                     stream);
+}
+#endif

@@ -1,7 +1,8 @@
-"""Entry points around the dense CUDA Ryser kernels (real and complex).
+"""Entry points around the CUDA Ryser kernels: dense and sparse, real and
+complex.
 
 The port of the reference package's ``kernels/ops.py``.
-``permanent_cuda(A)`` computes perm(A) with the scalar kernel entry
+``permanent_cuda(A)`` computes perm(A) with the dense scalar kernel entry
 (``mode="baseline"``); ``permanent_cuda_batched(As)`` covers a same-size
 stack with one (block, batch)-grid launch (``mode="batched"``).  Both go
 through ``_cuda_values``: geometry, padding, NW base vectors and the
@@ -9,33 +10,50 @@ twofloat cross-block epilogue ``kernel_reduce`` are shared, only the
 kernel entry differs.  Real input launches ``ryser_dense.cu``; complex
 input launches the split-plane kernel ``ryser_complex.cu`` in its only
 mode, ``batched``, and ``kernel_reduce`` runs once per plane.
-``block_partials_cuda`` exposes the raw per-block real partials over any
-chunk window.
+
+The sparse arm has the same shape: ``sparse_value_cuda`` /
+``sparse_batched_values_cuda`` take dense forms with their padded CCS
+arrays (the executor's path), ``permanent_cuda_sparse(sp)`` /
+``permanent_cuda_sparse_batched(sps)`` take ``SparseMatrix`` input; all
+drive the padded-CCS SpaRyser kernels of ``ryser_sparse.cu`` through
+``_cuda_sparse_values``, sharing padding, the NW base vectors,
+``prepare``/``prepare_complex`` and ``kernel_reduce`` with the dense arm;
+the CCS ``rows`` travel as int32.  A scalar sparse leaf and its bucket
+entry run one kernel body from chunk 0, so they agree bit for bit.
+``block_partials_cuda`` exposes the raw per-block real dense partials over
+any chunk window.
 
 ``device=None`` means the card.  On a CPU tensor the kernel wrappers run
-their plain PyTorch versions instead (``block_partials_plain``,
-``block_partials_plain_complex``).  Sparse and f32 input are not ported
-yet.
+their plain PyTorch versions instead.  f32 input is not ported yet.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..core import precision as P
 from ..core.ryser import (_final_factor, _small_n, as_matrix, as_planes,
                           chain_prod, chain_prod_complex, is_complex,
-                          nw_base_vector)
+                          nw_base_vector, resolve_device)
+from ..core.sparyser import pack_padded_ccs
 from ..core.stepspace import DEFAULT_GEOMETRY, Geometry
 from .ryser_complex_cuda import (ryser_cuda_call_complex,
                                  ryser_cuda_call_complex_batched)
 from .ryser_cuda import ryser_cuda_call, ryser_cuda_call_batched
+from .ryser_sparse_cuda import (ryser_sparse_cuda_call,
+                                ryser_sparse_cuda_call_batched,
+                                ryser_sparse_cuda_call_complex,
+                                ryser_sparse_cuda_call_complex_batched)
 
 __all__ = ["Geometry", "DEFAULT_GEOMETRY", "permanent_cuda",
-           "permanent_cuda_batched", "block_partials_cuda", "kernel_reduce",
-           "pad_matrix", "pad_base_vector", "prepare", "prepare_complex",
+           "permanent_cuda_batched", "permanent_cuda_sparse",
+           "permanent_cuda_sparse_batched", "sparse_value_cuda",
+           "sparse_batched_values_cuda",
+           "block_partials_cuda", "kernel_reduce", "pad_matrix",
+           "pad_base_vector", "prepare", "prepare_complex",
            "split_matrix_planes", "split_base_planes", "tree_sum"]
 
 _PAD = 8  # the kernel is instantiated for n_pad in 8, 16, ..., 64
@@ -120,24 +138,19 @@ def _as_input(A, device):
         else as_matrix(A, device)
 
 
-def _complex_values(As, *, batched: bool, precision: str,
-                    geometry: Geometry):
-    """The complex arm of ``_cuda_values``: the split-plane kernel, then
-    ``kernel_reduce`` per plane.  The g = 0 term is ``chain_prod_complex``
-    over the base planes, where the reference takes a complex-dtype product
-    (``jnp.prod``); the contract forbids complex ``*`` here, and the two
-    differ at most in the last ulp of that one term, far inside the 1e-9
-    value bar."""
-    n = As.shape[-1]
-    TB, C, Wu, blocks = geometry.kernel_geometry(n)
-    Ar_pads, Ai_pads, xbr, xbi, xbs = prepare_complex(As)
-    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
-               precision=precision)
-    if batched:
-        out = ryser_cuda_call_complex_batched(Ar_pads, Ai_pads, xbr, xbi,
-                                              **geo)
-    else:
-        out = ryser_cuda_call_complex(Ar_pads, Ai_pads, xbr, xbi, 0, **geo)
+def _reduce_real(out, xbs, n: int):
+    """Epilogue over (..., blocks, 2) real partials: the g = 0 term is the
+    chain product of the NW base vector(s)."""
+    p0 = chain_prod(xbs[..., None])[..., 0]
+    return kernel_reduce(out[..., 0], out[..., 1], p0, n)
+
+
+def _reduce_complex(out, xbs, n: int):
+    """Per-plane epilogue over (..., blocks, 4) split-plane partials.  The
+    g = 0 term is ``chain_prod_complex`` over the base planes, where the
+    reference takes a complex-dtype product (``jnp.prod``); the contract
+    forbids complex ``*`` here, and the two differ at most in the last ulp
+    of that one term, far inside the 1e-9 value bar."""
     p0r, p0i = chain_prod_complex(xbs.real[..., None], xbs.imag[..., None])
     return torch.complex(kernel_reduce(out[..., 0], out[..., 1], p0r[..., 0],
                                        n),
@@ -149,22 +162,53 @@ def _cuda_values(As, *, batched: bool, precision: str, mode: str,
                  geometry: Geometry):
     """The body behind both dense entries: (n, n) -> 0-d, (B, n, n) -> (B,);
     complex input runs the split-plane kernel (window-batched only)."""
-    if As.is_complex():
-        return _complex_values(As, batched=batched, precision=precision,
-                               geometry=geometry)
     n = As.shape[-1]
     TB, C, Wu, blocks = geometry.kernel_geometry(n)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+               precision=precision)
+    if As.is_complex():
+        Ar_pads, Ai_pads, xbr, xbi, xbs = prepare_complex(As)
+        if batched:
+            out = ryser_cuda_call_complex_batched(Ar_pads, Ai_pads, xbr, xbi,
+                                                  **geo)
+        else:
+            out = ryser_cuda_call_complex(Ar_pads, Ai_pads, xbr, xbi, 0,
+                                          **geo)
+        return _reduce_complex(out, xbs, n)
     A_pads, xb_pads, xbs = prepare(As)
     if batched:
-        out = ryser_cuda_call_batched(A_pads, xb_pads, n=n, TB=TB, C=C,
-                                      Wu=Wu, num_blocks=blocks,
-                                      precision=precision, mode=mode)
+        out = ryser_cuda_call_batched(A_pads, xb_pads, mode=mode, **geo)
     else:
-        out = ryser_cuda_call(A_pads, xb_pads, 0, n=n, TB=TB, C=C, Wu=Wu,
-                              num_blocks=blocks, precision=precision,
-                              mode=mode)
-    p0 = chain_prod(xbs[..., None])[..., 0]
-    return kernel_reduce(out[..., 0], out[..., 1], p0, n)
+        out = ryser_cuda_call(A_pads, xb_pads, 0, mode=mode, **geo)
+    return _reduce_real(out, xbs, n)
+
+
+def _cuda_sparse_values(As, rows, vals, *, batched: bool, precision: str,
+                        geometry: Geometry):
+    """The sparse arm: ``As`` (n, n) / (B, n, n) is the dense form (init,
+    NW base vectors, boundary column), ``rows`` (int32) / ``vals`` the
+    (..., n, maxdeg) padded CCS arrays driving the window states.  Real
+    input launches the real sparse kernel, complex the split-plane one."""
+    n = As.shape[-1]
+    TB, C, Wu, blocks = geometry.kernel_geometry(n)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+               precision=precision)
+    if As.is_complex():
+        Ar_pads, Ai_pads, xbr, xbi, xbs = prepare_complex(As)
+        planes = (Ar_pads, Ai_pads, rows, vals.real.contiguous(),
+                  vals.imag.contiguous(), xbr, xbi)
+        if batched:
+            out = ryser_sparse_cuda_call_complex_batched(*planes, **geo)
+        else:
+            out = ryser_sparse_cuda_call_complex(*planes, 0, **geo)
+        return _reduce_complex(out, xbs, n)
+    A_pads, xb_pads, xbs = prepare(As)
+    if batched:
+        out = ryser_sparse_cuda_call_batched(A_pads, rows, vals, xb_pads,
+                                             **geo)
+    else:
+        out = ryser_sparse_cuda_call(A_pads, rows, vals, xb_pads, 0, **geo)
+    return _reduce_real(out, xbs, n)
 
 
 def block_partials_cuda(A, *, dev_chunk_base: int = 0,
@@ -212,3 +256,65 @@ def permanent_cuda_batched(As, *, precision: str = "dq_acc",
         return _small_n(As)
     return _cuda_values(As, batched=True, precision=precision, mode=mode,
                         geometry=geometry or DEFAULT_GEOMETRY)
+
+
+def _sparse_entry(A, rows, vals, *, batched: bool, precision: str,
+                  geometry: Geometry | None, device):
+    """The dense form(s) and padded CCS arrays to the card (f64 or
+    complex128 values, int32 rows), then the scalar or batched entry:
+    (n, n) -> 0-d, (B, n, n) -> (B,)."""
+    device = resolve_device(device)
+    dt = np.complex128 if np.iscomplexobj(vals) else np.float64
+    As = torch.as_tensor(np.asarray(A, dtype=dt), device=device)
+    rows = torch.as_tensor(np.asarray(rows, dtype=np.int32), device=device)
+    vals = torch.as_tensor(np.asarray(vals, dtype=dt), device=device)
+    if As.ndim != (3 if batched else 2) or As.shape[-1] != As.shape[-2]:
+        raise ValueError(f"{'(B, n, n) stack' if batched else 'square matrix'}"
+                         f" required, got {tuple(As.shape)}")
+    if As.shape[-1] <= 2:
+        return _small_n(As) if batched else _small_n(As[None])[0]
+    return _cuda_sparse_values(As, rows, vals, batched=batched,
+                               precision=precision,
+                               geometry=geometry or DEFAULT_GEOMETRY)
+
+
+def sparse_value_cuda(A, rows, vals, *, precision: str = "dq_acc",
+                      geometry: Geometry | None = None, device=None):
+    """perm of one matrix via the scalar SpaRyser entry from its dense form
+    ``A`` (init, NW base vector, boundary column) and its (n, maxdeg)
+    padded CCS arrays (window states); a 0-d tensor, complex128 for
+    complex input."""
+    return _sparse_entry(A, rows, vals, batched=False, precision=precision,
+                         geometry=geometry, device=device)
+
+
+def sparse_batched_values_cuda(A_stack, rows_stack, vals_stack, *,
+                               precision: str = "dq_acc",
+                               geometry: Geometry | None = None,
+                               device=None):
+    """(B,) sparse kernel values of a packed padded-CCS stack
+    (``sparyser.pack_padded_ccs`` or ``sparyser.padded_ccs``) in ONE
+    batch-grid launch."""
+    return _sparse_entry(A_stack, rows_stack, vals_stack, batched=True,
+                         precision=precision, geometry=geometry,
+                         device=device)
+
+
+def permanent_cuda_sparse(sp, *, precision: str = "dq_acc",
+                          geometry: Geometry | None = None, device=None):
+    """perm of one ``sparyser.SparseMatrix`` via the scalar SpaRyser kernel
+    entry; a 0-d f64 tensor (complex128 for complex input)."""
+    return sparse_value_cuda(sp.to_dense(), *sp.padded_columns(),
+                             precision=precision, geometry=geometry,
+                             device=device)
+
+
+def permanent_cuda_sparse_batched(sps, *, precision: str = "dq_acc",
+                                  geometry: Geometry | None = None,
+                                  device=None):
+    """perms of a same-size ``SparseMatrix`` bucket via ONE batch-grid
+    SpaRyser launch: the bucket is packed on the host to its bucket-wide
+    maxdeg (the extra padding is inert), and a (B,) tensor comes back."""
+    return sparse_batched_values_cuda(*pack_padded_ccs(sps),
+                                      precision=precision, geometry=geometry,
+                                      device=device)

@@ -29,9 +29,10 @@ import torch
 
 from ..core import gray as G
 from .ryser_cuda import (PRECISION_CODES, _accum, _block_sums, _boundary,
-                         _check, _check_range, _cumsig_device, _cumsig_host,
-                         _init_state, _lane_starts, _launch,
-                         _signed_const_schedule, _window_states, counters)
+                         _check, _check_batch, _check_range, _cumsig_device,
+                         _cumsig_host, _init_state, _lane_starts, _launch,
+                         _on_card, _signed_const_schedule, _window_states,
+                         counters)
 
 __all__ = ["ryser_cuda_call_complex", "ryser_cuda_call_complex_batched",
            "block_partials_plain_complex"]
@@ -55,6 +56,20 @@ def block_partials_plain_complex(Ar_pads, Ai_pads, xbr_pads, xbi_pads,
     for op the kernel's: same init order, same D sums, the product streamed
     row by row, the same lane tree."""
     counters["block_partials_plain_complex"] += 1
+    return _plain_partials_complex(Ar_pads, Ai_pads, xbr_pads, xbi_pads,
+                                   Ar_pads, Ai_pads, chunk_base, n=n, TB=TB,
+                                   C=C, Wu=Wu, num_blocks=num_blocks,
+                                   precision=precision)
+
+
+def _plain_partials_complex(Ar_pads, Ai_pads, xbr_pads, xbi_pads, low_r,
+                            low_i, chunk_base: int, *, n: int, TB: int,
+                            C: int, Wu: int, num_blocks: int,
+                            precision: str) -> torch.Tensor:
+    """The body of the complex plain versions: the window states and the
+    mid column come from the kw low columns of ``(low_r, low_i)`` (the
+    planes themselves, or the sparse kernel's scattered CCS columns); the
+    planes serve the init and the boundary column."""
     B, n_pad, _ = Ar_pads.shape
     dev, dt = Ar_pads.device, Ar_pads.dtype
     k, kw, M = int(math.log2(C)), int(math.log2(Wu)), C // Wu
@@ -68,8 +83,8 @@ def block_partials_plain_complex(Ar_pads, Ai_pads, xbr_pads, xbi_pads,
     del gbits
     sched = _signed_const_schedule(Wu)
     C0 = tensor(_cumsig_host(sched, n_pad))
-    Dr, Di = _window_states(Ar_pads, C0, kw), _window_states(Ai_pads, C0, kw)
-    cmr, cmi = Ar_pads[:, :, kw - 1], Ai_pads[:, :, kw - 1]    # (B, n_pad)
+    Dr, Di = _window_states(low_r, C0, kw), _window_states(low_i, C0, kw)
+    cmr, cmi = low_r[:, :, kw - 1], low_i[:, :, kw - 1]        # (B, n_pad)
     mid_idx = Wu // 2 - 1
     z = torch.zeros((B, L), dtype=dt, device=dev)
     acc_r = acc_i = (z, z)
@@ -129,8 +144,7 @@ def ryser_cuda_call_complex(Ar_pad, Ai_pad, xbr, xbi, dev_chunk_base: int, *,
     if Ar_pad.device.type == "cpu":
         return block_partials_plain_complex(
             Ar_pad[None], Ai_pad[None], xbr[None], xbi[None], base, **geo)[0]
-    if Ar_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {Ar_pad.device}")
+    _on_card(Ar_pad)
     Ar_pad, Ai_pad, xbr, xbi = (t.contiguous()
                                 for t in (Ar_pad, Ai_pad, xbr, xbi))
     n_pad = Ar_pad.shape[0]
@@ -159,11 +173,9 @@ def ryser_cuda_call_complex_batched(Ar_pads, Ai_pads, xbr_pads, xbi_pads, *,
     if Ar_pads.device.type == "cpu":
         return block_partials_plain_complex(Ar_pads, Ai_pads, xbr_pads,
                                             xbi_pads, 0, **geo)
-    if Ar_pads.device.type != "cuda":
-        raise ValueError(f"unsupported device {Ar_pads.device}")
+    _on_card(Ar_pads)
     B, n_pad = Ar_pads.shape[0], Ar_pads.shape[1]
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the grid's 65535 rows")
+    _check_batch(B)
     Ar_pads, Ai_pads, xbr_pads, xbi_pads = (
         t.contiguous() for t in (Ar_pads, Ai_pads, xbr_pads, xbi_pads))
     out = torch.empty((B, num_blocks, 4), dtype=torch.float64,

@@ -43,7 +43,12 @@ _MODE_CODES = {"baseline": 0, "batched": 1}
 # one dict for every entry of the port, so one reset covers them all
 counters = {"ryser_dense_scalar": 0, "ryser_dense_batched": 0,
             "block_partials_plain": 0, "ryser_complex_scalar": 0,
-            "ryser_complex_batched": 0, "block_partials_plain_complex": 0}
+            "ryser_complex_batched": 0, "block_partials_plain_complex": 0,
+            "ryser_sparse_scalar": 0, "ryser_sparse_batched": 0,
+            "ryser_sparse_complex_scalar": 0,
+            "ryser_sparse_complex_batched": 0,
+            "block_partials_plain_sparse": 0,
+            "block_partials_plain_sparse_complex": 0}
 
 
 def reset_counters() -> None:
@@ -148,7 +153,8 @@ def _init_state(A_pads, xb_pads, gbits, n: int):
 
 def _window_states(A_pads, C0, kw: int):
     """D = A @ cumsig (B, n_pad, Wu-1) as the kernel sums it: ascending
-    k < kw from zero (cumsig rows >= kw are zero, entries 0 or 1)."""
+    k < kw from zero (cumsig rows >= kw are zero, entries 0 or 1).  Only
+    the kw low columns of ``A_pads`` are read."""
     B, n_pad, _ = A_pads.shape
     D = torch.zeros((B, n_pad, C0.shape[1]), dtype=A_pads.dtype,
                     device=A_pads.device)
@@ -180,6 +186,21 @@ def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
     matrix arithmetic runs on the input's device.
     """
     counters["block_partials_plain"] += 1
+    if mode not in _MODE_CODES:
+        raise ValueError(f"mode must be baseline|batched, got {mode!r}")
+    low = A_pads if mode == "batched" else None
+    return _plain_partials(A_pads, xb_pads, low, chunk_base, n=n, TB=TB, C=C,
+                           Wu=Wu, num_blocks=num_blocks, precision=precision)
+
+
+def _plain_partials(A_pads, xb_pads, low, chunk_base: int, *, n: int,
+                    TB: int, C: int, Wu: int, num_blocks: int,
+                    precision: str) -> torch.Tensor:
+    """The body of the real plain versions.  ``low`` is None for the
+    baseline mode (sequential X updates); otherwise the window states and
+    the mid column come from its kw low columns: ``A_pads`` itself in the
+    dense batched mode, the scattered CCS columns U in the sparse kernel.
+    ``A_pads`` always serves the init and the boundary column."""
     B, n_pad, _ = A_pads.shape
     dev, dt = A_pads.device, A_pads.dtype
     k, kw, M = int(math.log2(C)), int(math.log2(Wu)), C // Wu
@@ -200,17 +221,15 @@ def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
     acc = (z, z)
     sched = _signed_const_schedule(Wu)
     mid_idx = Wu // 2 - 1
-    col_mid = A_pads[:, :, kw - 1:kw]                          # (B, n_pad, 1)
-    if mode == "batched":
-        D = _window_states(A_pads, tensor(_cumsig_host(sched, n_pad)), kw)
-    elif mode != "baseline":
-        raise ValueError(f"mode must be baseline|batched, got {mode!r}")
+    if low is not None:
+        col_mid = low[:, :, kw - 1:kw]                         # (B, n_pad, 1)
+        D = _window_states(low, tensor(_cumsig_host(sched, n_pad)), kw)
 
     for m in range(M):
         macro = starts + np.uint64(m * Wu)
         bitk = tensor(((macro >> np.uint64(kw)) & np.uint64(1))
                       .astype(np.float64))
-        if mode == "baseline":
+        if low is None:
             mid_flip = 1.0 - 2.0 * bitk
             for (j, s, is_mid, parity) in sched:
                 sl = mid_flip if is_mid else float(s)
@@ -267,6 +286,17 @@ def _check(A, xb, *, n: int, TB: int, C: int, Wu: int, num_blocks: int,
         raise ValueError(f"mode must be baseline|batched, got {mode!r}")
 
 
+def _on_card(t) -> None:
+    """A wrapper's input that is not on the CPU must be on the card."""
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+
+
+def _check_batch(B: int) -> None:
+    if B > 65535:
+        raise ValueError(f"batch {B} exceeds the grid's 65535 rows")
+
+
 def _check_range(base: int, num_blocks: int, TB: int, C: int,
                  n: int) -> None:
     if base < 0 or (base + num_blocks * TB) * C > (1 << (n - 1)):
@@ -315,8 +345,7 @@ def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
                                     n=n, TB=TB, C=C, Wu=Wu,
                                     num_blocks=num_blocks,
                                     precision=precision, mode=mode)[0]
-    if A_pad.device.type != "cuda":
-        raise ValueError(f"unsupported device {A_pad.device}")
+    _on_card(A_pad)
     A_pad, x_base_pad = A_pad.contiguous(), x_base_pad.contiguous()
     out = torch.empty((num_blocks, 2), dtype=torch.float64,
                       device=A_pad.device)
@@ -344,11 +373,9 @@ def ryser_cuda_call_batched(A_pads, x_base_pads, *, n: int, TB: int, C: int,
         return block_partials_plain(A_pads, x_base_pads, 0, n=n, TB=TB, C=C,
                                     Wu=Wu, num_blocks=num_blocks,
                                     precision=precision, mode=mode)
-    if A_pads.device.type != "cuda":
-        raise ValueError(f"unsupported device {A_pads.device}")
+    _on_card(A_pads)
     B = A_pads.shape[0]
-    if B > 65535:
-        raise ValueError(f"batch {B} exceeds the grid's 65535 rows")
+    _check_batch(B)
     A_pads, x_base_pads = A_pads.contiguous(), x_base_pads.contiguous()
     out = torch.empty((B, num_blocks, 2), dtype=torch.float64,
                       device=A_pads.device)

@@ -4,11 +4,19 @@
     python -m repro_torch.launch.permanent --family allones --n 20 --value 0.5
     python -m repro_torch.launch.permanent --n 10 --device cpu --backend torch
     python -m repro_torch.launch.permanent --matrix m.npy   # real or complex
+    python -m repro_torch.launch.permanent --sparse-n 12 --density 0.2
+    python -m repro_torch.launch.permanent --family fibonacci --n 32 \
+        --no-preprocess                                  # the sparse route
+
+Matrix sources: --matrix <.npy>, --n <random dense>, --sparse-n/--density
+(random sparse: U(0.5, 1.5) entries kept with probability --density),
+--family allones|fibonacci (known-permanent families).
 
 Runs from the repository root with ``PYTHONPATH=src``.  Prints the
 ``ExecutionPlan`` summary before dispatching (``--plan-json`` dumps the
-whole plan), then ``perm(A) = %+.17e`` (``%+.17e %+.17ej`` for a complex matrix), and
-``rel.err`` against the closed form for ``--family allones``.
+whole plan), then ``perm(A) = %+.17e`` (``%+.17e %+.17ej`` for a complex
+matrix), ``rel.err`` against the closed form for ``--family allones`` and
+``OK``/``MISMATCH`` against F(n+1) for ``--family fibonacci``.
 """
 
 from __future__ import annotations
@@ -25,11 +33,19 @@ __all__ = ["permanent_main"]
 
 
 def _load_matrix(args) -> np.ndarray:
+    rng = np.random.default_rng(args.seed)
     if args.matrix:
         return np.load(args.matrix)
     if args.family == "allones":
         return np.full((args.n, args.n), args.value)
-    rng = np.random.default_rng(args.seed)
+    if args.family == "fibonacci":
+        # tridiagonal 0/1 matrix: perm = Fibonacci(n+1)  (Kilic & Tasci)
+        i, j = np.indices((args.n, args.n))
+        return (np.abs(i - j) <= 1).astype(np.float64)
+    if args.sparse_n:
+        n = args.sparse_n
+        return rng.uniform(0.5, 1.5, (n, n)) \
+            * (rng.uniform(0, 1, (n, n)) < args.density)
     return rng.uniform(-1, 1, (args.n, args.n))
 
 
@@ -38,7 +54,11 @@ def permanent_main(argv=None) -> int:
     ap.add_argument("--matrix", help=".npy file with a square real or "
                     "complex matrix")
     ap.add_argument("--n", type=int, default=16)
-    ap.add_argument("--family", choices=("allones",),
+    ap.add_argument("--sparse-n", type=int, default=0,
+                    help="size of a random sparse matrix")
+    ap.add_argument("--density", type=float, default=0.3,
+                    help="nonzero probability of --sparse-n")
+    ap.add_argument("--family", choices=("allones", "fibonacci"),
                     help="known-permanent family (default: U(-1, 1))")
     ap.add_argument("--value", type=float, default=1.0,
                     help="entry of the allones family")
@@ -82,6 +102,13 @@ def permanent_main(argv=None) -> int:
         exact = all_ones_permanent(n, args.value)
         rel = abs(val - exact) / abs(exact)
         print(f"[superman] exact = {exact:+.17e}  rel.err = {rel:.2e}")
+    if args.family == "fibonacci":
+        fib = [1, 1]  # fib[k] == F(k+1)
+        for _ in range(n):
+            fib.append(fib[-1] + fib[-2])
+        status = "OK" if round(val) == fib[n] else "MISMATCH"
+        print(f"[superman] Fibonacci({n + 1}) = {fib[n]}  "
+              f"(got {val:.1f})  {status}")
     return 0
 
 

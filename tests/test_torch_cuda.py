@@ -1,6 +1,6 @@
-"""Tests that need the card: the CUDA kernels (dense real and split-plane
-complex) against their plain versions and the main path against the torch
-engine, on the device.  They skip where no
+"""Tests that need the card: the CUDA kernels (dense real, split-plane
+complex, and sparse real and complex) against their plain versions and the
+main path against the torch engines, on the device.  They skip where no
 card is present; on a machine with one run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -12,10 +12,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
+from repro_torch.core.sparyser import SparseMatrix, pack_padded_ccs  # noqa: E402
 from repro_torch.core.stepspace import DEFAULT_GEOMETRY  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ryser_complex_cuda as RX  # noqa: E402
 from repro_torch.kernels import ryser_cuda as RC  # noqa: E402
+from repro_torch.kernels import ryser_sparse_cuda as RS  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +96,112 @@ def test_complex_main_path_on_card_matches_torch_engine(card):
     want = repro_torch.permanent_batch(mats, backend="torch")
     np.testing.assert_allclose(got, want, rtol=1e-9)
     np.testing.assert_allclose(one, want[0], rtol=1e-9)
+
+
+def _sparse(rng, n, cplx=False, extra=0, density=0.2):
+    """A sparse matrix with a full diagonal, random nonzeros at ``density``
+    and ``extra`` more nonzeros in column 0 (uneven column degrees)."""
+    A = rng.uniform(0.5, 1.5, (n, n)) * (rng.uniform(0, 1, (n, n)) < density)
+    np.fill_diagonal(A, 1.0)
+    A[rng.choice(n, size=extra, replace=False), 0] = 1.25
+    if cplx:
+        A = A * np.exp(1j * rng.uniform(-np.pi, np.pi, (n, n)))
+    return A
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("n", [5, 13, 16, 24, 32, 64])
+def test_sparse_kernel_matches_plain_on_card(card, n, cplx):
+    """Windows at the top of the step space (scalar) and a B = 3 bucket
+    whose maxdeg exceeds each member's own (batched), bit for bit."""
+    rng = np.random.default_rng(200 + n)
+    mats = [_sparse(rng, n, cplx, extra) for extra in (0, 2, n // 3)]
+    A_np, rows_np, vals_np = pack_padded_ccs(
+        [SparseMatrix.from_dense(A) for A in mats])
+    As = torch.as_tensor(A_np, device=card)
+    rows = torch.as_tensor(rows_np, device=card)
+    vals = torch.as_tensor(vals_np, device=card)
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    nb = min(4, blocks)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+    top = blocks * TB - nb * TB
+    if cplx:
+        Ar, Ai, xbr, xbi, _ = ops.prepare_complex(As)
+        vr, vi = vals.real.contiguous(), vals.imag.contiguous()
+        got = RS.ryser_sparse_cuda_call_complex(
+            Ar[0], Ai[0], rows[0], vr[0], vi[0], xbr[0], xbi[0], top, **geo)
+        want = RS.block_partials_plain_sparse_complex(
+            Ar[:1], Ai[:1], rows[:1], vr[:1], vi[:1], xbr[:1], xbi[:1], top,
+            **geo)[0]
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        got = RS.ryser_sparse_cuda_call_complex_batched(
+            Ar, Ai, rows, vr, vi, xbr, xbi, **geo)
+        want = RS.block_partials_plain_sparse_complex(
+            Ar, Ai, rows, vr, vi, xbr, xbi, 0, **geo)
+    else:
+        A_pads, xb_pads, _ = ops.prepare(As)
+        got = RS.ryser_sparse_cuda_call(A_pads[0], rows[0], vals[0],
+                                        xb_pads[0], top, **geo)
+        want = RS.block_partials_plain_sparse(A_pads[:1], rows[:1],
+                                              vals[:1], xb_pads[:1], top,
+                                              **geo)[0]
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        got = RS.ryser_sparse_cuda_call_batched(A_pads, rows, vals, xb_pads,
+                                                **geo)
+        want = RS.block_partials_plain_sparse(A_pads, rows, vals, xb_pads, 0,
+                                              **geo)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+@pytest.mark.parametrize("n", [13, 24, 32])
+def test_sparse_kernel_equals_dense_batched_mode_on_card(card, n, cplx):
+    """The scattered low CCS columns equal A's own, so the sparse kernel
+    and the dense kernel's batched mode agree bit for bit."""
+    rng = np.random.default_rng(300 + n)
+    mats = [_sparse(rng, n, cplx, extra) for extra in (0, n // 3)]
+    A_np, rows_np, vals_np = pack_padded_ccs(
+        [SparseMatrix.from_dense(A) for A in mats])
+    As = torch.as_tensor(A_np, device=card)
+    rows = torch.as_tensor(rows_np, device=card)
+    vals = torch.as_tensor(vals_np, device=card)
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=min(16, blocks))
+    if cplx:
+        Ar, Ai, xbr, xbi, _ = ops.prepare_complex(As)
+        got = RS.ryser_sparse_cuda_call_complex_batched(
+            Ar, Ai, rows, vals.real.contiguous(), vals.imag.contiguous(),
+            xbr, xbi, **geo)
+        want = RX.ryser_cuda_call_complex_batched(Ar, Ai, xbr, xbi, **geo)
+    else:
+        A_pads, xb_pads, _ = ops.prepare(As)
+        got = RS.ryser_sparse_cuda_call_batched(A_pads, rows, vals, xb_pads,
+                                                **geo)
+        want = RC.ryser_cuda_call_batched(A_pads, xb_pads, mode="batched",
+                                          **geo)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_sparse_main_path_on_card(card, cplx):
+    """The sparse route through the entry points launches only the sparse
+    kernels, matches the torch engine, and a scalar leaf equals its bucket
+    entry bit for bit (the bucket's maxdeg is larger than its own)."""
+    rng = np.random.default_rng(5 + cplx)
+    mats = [_sparse(rng, 14, cplx, extra, density=0.1)
+            for extra in (0, 3, 1, 2)]
+    RC.reset_counters()
+    got, reps = repro_torch.permanent_batch(mats, preprocess=False,
+                                            return_report=True)
+    one, rep = repro_torch.permanent(mats[0], preprocess=False,
+                                     return_report=True)
+    kind = "sparse_complex" if cplx else "sparse"
+    assert RC.counters[f"ryser_{kind}_batched"] == 1
+    assert RC.counters[f"ryser_{kind}_scalar"] == 1
+    assert sum(RC.counters.values()) == 2
+    assert reps[0].dispatch == ["sparse_batch(n=14,b=4)"]
+    assert rep.dispatch == ["sparse(n=14,cuda)"]
+    assert one == got[0]
+    want = repro_torch.permanent_batch(mats, preprocess=False,
+                                       backend="torch")
+    np.testing.assert_allclose(got, want, rtol=1e-9)

@@ -1,7 +1,7 @@
 """The port stands alone and never falls back: it imports neither jax nor
-the reference package, a card that is asked for and missing raises, and
-the routes not ported yet (sparse, real or complex; campaign; tuning)
-raise ``NotImplementedError``."""
+the reference package, a card that is asked for and missing raises, the
+sparse route runs (real and complex), and the routes not ported yet
+(campaign, tuning) raise ``NotImplementedError``."""
 
 import os
 import subprocess
@@ -13,6 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
+from repro_torch.core import oracle  # noqa: E402
 from repro_torch.core.solver import PermanentSolver  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import ryser_cuda as RC  # noqa: E402
@@ -23,7 +24,8 @@ _PROBE = """
 import sys
 import repro_torch, repro_torch.core.engine, repro_torch.kernels.ops
 import repro_torch.kernels.build, repro_torch.launch.permanent
-import repro_torch.interop
+import repro_torch.interop, repro_torch.core.sparyser
+import repro_torch.kernels.ryser_sparse_cuda
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -67,18 +69,27 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     assert not (tmp_path / "kernels").exists()
 
 
-def test_unported_routes_raise():
+def test_sparse_input_runs_and_matches_oracle():
     rng = np.random.default_rng(1)
     sparse = rng.uniform(0.5, 1.5, (8, 8)) * (rng.uniform(0, 1, (8, 8)) < 0.2)
     np.fill_diagonal(sparse, 1.0)
-    with pytest.raises(NotImplementedError, match="sparse"):
-        repro_torch.permanent(sparse, preprocess=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        repro_torch.permanent(sparse * (1 + 1j), preprocess=False,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="sparse"):
-        repro_torch.permanent_batch([sparse * 1j] * 2, preprocess=False,
-                                    device="cpu")
+    for A in (sparse, sparse * (1 + 1j)):
+        want = oracle.perm_ryser_exact(A)
+        got, rep = repro_torch.permanent(A, preprocess=False, device="cpu",
+                                         return_report=True)
+        assert rep.dispatch[-1] == "sparse(n=8,cuda)"
+        assert abs(got - want) <= 1e-9 * abs(want)
+    vals, reps = repro_torch.permanent_batch([sparse * 1j] * 2 + [sparse.T],
+                                             preprocess=False, device="cpu",
+                                             return_report=True)
+    assert reps[0].dispatch == ["sparse_batch(n=8,b=3)"]
+    want = oracle.perm_ryser_exact(sparse)
+    np.testing.assert_allclose(vals, [want * 1j ** 8] * 2 + [want],
+                               rtol=1e-9)
+
+
+def test_unported_routes_raise():
+    rng = np.random.default_rng(1)
     solver = PermanentSolver(device="cpu", campaign_threshold=-1.0)
     with pytest.raises(NotImplementedError, match="campaign"):
         solver.execute(solver.plan(rng.uniform(-1, 1, (6, 6))))
