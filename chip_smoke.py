@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--time-only]
 
 Run from the repository root on a machine with a CUDA card and nvcc.  It
 builds the kernels from ``src/repro_torch/kernels/csrc`` (the dense real
@@ -16,6 +16,15 @@ kernel and the torch engine against the sparse route, a scalar leaf
 against the same leaf in a bucket), splits each call's host time into
 planning and execution, and times each kernel beside its bound.  A
 summary goes to ``chiprun_out/chip_smoke.json``.
+
+The build report gives each kernel instantiation's registers, spills and
+warps per SM, and the SASS instruction mix of the complex body's hot
+loop.  The kernels are timed in rounds taken in turns before any plain
+pass, with the card's SM clock, power and temperature read around each
+window; ``--time-only`` stops after those rounds (no plain pass, no value
+check, no result line) and appends them to
+``chiprun_out/chip_smoke_timing.json``, to compare versions of a kernel
+source on one card in one call.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before it is
@@ -166,26 +175,98 @@ def phase_card(smoke: Smoke, torch) -> dict:
 
 def phase_build(smoke: Smoke) -> None:
     from repro_torch.kernels import build
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     t0 = time.perf_counter()
     build.load_library()
     dt = time.perf_counter() - t0
     print(f"build: {dt:.1f} s -> {build.build_dir()}")
     regs = _ptxas_summary(build.ptxas_log())
+    TB = DEFAULT_GEOMETRY.lanes
+    for r in regs:
+        r["warps_per_sm"] = build.warps_per_sm(r["registers"], TB)
     smoke.summary["build_s"] = dt
     smoke.summary["ptxas"] = regs
     for r in regs:
         print(f"  ptxas {r['kernel']:9s} npad={r['npad']:2d} "
               f"prec={r['prec']} registers={r['registers']} "
               f"spill={r.get('spill_stores', 0)}"
-              f"/{r.get('spill_loads', 0)} B")
+              f"/{r.get('spill_loads', 0)} B warps/SM={r['warps_per_sm']} "
+              f"(TB={TB})")
     for kernel in KERNELS:
         k = [r for r in regs if r["kernel"] == kernel]
         smoke.check(len(k) == 32, f"32 {kernel} kernel instantiations built "
                                   f"({len(k)})")
     spills = [(r["kernel"], r["npad"], r["prec"]) for r in regs
-              if r["npad"] <= 32 and (r.get("spill_stores", 0)
+              if r["npad"] <= 48 and (r.get("spill_stores", 0)
                                       or r.get("spill_loads", 0))]
-    smoke.check(not spills, f"no spills at NPAD <= 32 ({spills})")
+    smoke.check(not spills, f"no spills at NPAD <= 48 ({spills})")
+    smoke.summary["sass"] = mix = _sass_mix(build)
+    for name, m in mix.items():
+        print(f"  sass {name}: hot loop {m['loop']}, {m['rows']:g} rows: "
+              f"{m['counts']}; per row {m['per_row']}; other {m['other']}")
+
+
+def _sass_mix(build, npad: int = 32, prec: int = 2) -> dict:
+    """Instruction classes of the complex body's hot loop at NPAD ``npad``,
+    precision code ``prec`` (2 = dq_acc), dense and sparse instantiation,
+    from ``cuobjdump -sass`` of the built objects.  The hot loop is the
+    innermost loop (a backward branch with no other inside it) holding the
+    most DMUL; its rows are DMUL / 4 (the complex product's four
+    multiplies), and ``per_row`` divides each class by them."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    out = {}
+    if not os.path.exists(tool):
+        print(f"  sass: no {tool}, instruction mix not measured")
+        return out
+    for kernel, obj, sparse in (("complex", "ryser_complex", 0),
+                                ("sparse_cx", "ryser_sparse", 1)):
+        sass = subprocess.run(
+            [tool, "-sass", str(build.build_dir() / f"{obj}_n{npad}.o")],
+            capture_output=True, text=True, timeout=120).stdout
+        want = f"ryser_cx_kernelILi{npad}ELi{prec}ELb{sparse}E"
+        body = next((b for b in sass.split("Function : ")[1:]
+                     if b.split(None, 1)[0].find(want) >= 0), "")
+        out[kernel] = _loop_mix(body)
+    return out
+
+
+def _loop_mix(body: str) -> dict:
+    """Class counts of the innermost loop with the most DMUL in one
+    function's SASS (see ``_sass_mix``)."""
+    ins, loops = [], []
+    for line in body.splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)(.*)", line)
+        if not m:
+            continue
+        addr, op = int(m.group(1), 16), m.group(2).split(".")[0]
+        ins.append((addr, op))
+        t = re.match(r"\s+(0x[0-9a-f]+)", m.group(3))
+        if op == "BRA" and t and int(t.group(1), 16) <= addr:
+            loops.append((int(t.group(1), 16), addr))
+    leaves = [lp for lp in loops if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    if not leaves:
+        return {"loop": None, "rows": 0, "counts": {}, "per_row": {},
+                "other": {}}
+
+    def ops_in(lp):
+        return [op for a, op in ins if lp[0] <= a <= lp[1]]
+    hot = max(leaves, key=lambda lp: ops_in(lp).count("DMUL"))
+    ops = ops_in(hot)
+    classes = ("DADD", "DMUL", "DFMA", "LDS", "SHFL")
+    counts = {c: ops.count(c) for c in classes}
+    counts["other"] = len(ops) - sum(counts.values())
+    rows = counts["DMUL"] / 4
+    others: dict = {}
+    for op in ops:
+        if op not in classes:
+            others[op] = others.get(op, 0) + 1
+    return {"loop": [hex(hot[0]), hex(hot[1])], "rows": rows,
+            "counts": counts,
+            "per_row": {c: round(v / rows, 2) if rows else None
+                        for c, v in counts.items()},
+            "other": dict(sorted(others.items(), key=lambda kv: -kv[1])[:6])}
 
 
 def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
@@ -273,9 +354,9 @@ def _cgauss(rng, shape):
 
 def phase_kernel_vs_plain_complex(smoke: Smoke, torch) -> dict:
     """Both complex entries against block_partials_plain_complex on the
-    card: windows of up to 8 blocks, the first and the last, all
-    precisions; the batched entry at B = 3; and the complex bucket of the
-    main path (16 x n = 22, dq_acc) over its full grid."""
+    card, bit for bit: windows of up to 8 blocks, the first and the last,
+    all precisions; the batched entry at B = 3; and the complex bucket of
+    the main path (16 x n = 22, dq_acc) over its full grid."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
     from repro_torch.kernels import ops
     from repro_torch.kernels import ryser_complex_cuda as RX
@@ -286,7 +367,7 @@ def phase_kernel_vs_plain_complex(smoke: Smoke, torch) -> dict:
 
     def hold(got, want, entry):
         nonlocal ok, worst_ulp
-        ok &= _agree(got, want, err, entry)
+        ok &= _agree(got, want, err, entry) and bool(torch.equal(got, want))
         worst_ulp = max(worst_ulp, _ulp_gap(got.cpu().numpy(),
                                             want.cpu().numpy()))
 
@@ -322,9 +403,8 @@ def phase_kernel_vs_plain_complex(smoke: Smoke, torch) -> dict:
          "ryser_complex_batched")
     print(f"complex kernel vs plain: worst ulp gap {worst_ulp:g}, max abs "
           f"err {err}")
-    smoke.check(ok, f"complex kernels agree with their plain versions for "
-                    f"n in {WINDOW_NS} (rtol {RTOL_KERNEL:g}, atol "
-                    f"{ATOL_KERNEL:g} per component), {len(PRECISIONS)} "
+    smoke.check(ok, f"complex kernels equal their plain versions bit for "
+                    f"bit for n in {WINDOW_NS}, {len(PRECISIONS)} "
                     f"precisions, scalar windows incl. the top of the space, "
                     f"batched B=3, full grid {B_BUCKET} x n={N_BUCKET} "
                     f"({blocks} blocks)")
@@ -885,67 +965,144 @@ def _dense_at_sparse_shape(smoke: Smoke, torch, msp: dict,
     return out
 
 
-def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
-                 window_err: dict) -> list:
-    """Kernel, plain and bound at the main path's shapes, each kernel held
-    against its plain version over the full grid of the timed shape (bit
-    for bit for the sparse kernels)."""
-    from repro_torch.core.stepspace import DEFAULT_GEOMETRY
+# (entry, n, B, TPU kernel it replaces, source) of the eight timed entries
+_SP = "src/repro/kernels/ryser_sparse.py"
+TIMED = (
+    ("ryser_dense_scalar", N_MAIN, 1,
+     "src/repro/kernels/ryser_pallas.py:305", "ryser_dense.cu"),
+    ("ryser_dense_batched", N_THRU, B_THRU,
+     "src/repro/kernels/ryser_pallas.py:342", "ryser_dense.cu"),
+    ("ryser_complex_scalar", N_MAIN, 1,
+     "src/repro/kernels/ryser_complex.py:181", "ryser_complex.cu"),
+    ("ryser_complex_batched", N_THRU, B_THRU,
+     "src/repro/kernels/ryser_complex.py:216", "ryser_complex.cu"),
+    ("ryser_sparse_scalar", N_SPARSE, 1, f"{_SP}:331", "ryser_sparse.cu"),
+    ("ryser_sparse_batched", N_THRU, B_THRU, f"{_SP}:367", "ryser_sparse.cu"),
+    ("ryser_sparse_complex_scalar", N_SPARSE, 1, f"{_SP}:400",
+     "ryser_sparse.cu"),
+    ("ryser_sparse_complex_batched", N_THRU, B_THRU, f"{_SP}:436",
+     "ryser_sparse.cu"))
+ROUNDS, REPS = 3, 5
+
+
+def _clocks() -> dict:
+    """SM clock (MHz), power draw (W) and temperature (C) of card 0."""
+    q = subprocess.run(["nvidia-smi", "-i", "0",
+                        "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60)
+    vals = q.stdout.strip().split(",") if q.returncode == 0 else []
+    try:
+        sm, power, temp = (float(v) for v in vals)
+    except ValueError:
+        return {}
+    return {"sm_mhz": sm, "power_w": power, "temp_c": temp}
+
+
+def _time_rounds(torch, kernels: dict) -> dict:
+    """Each kernel of ``kernels`` (name -> call) warmed up once, then timed
+    in ROUNDS rounds taken in turns (every kernel once a round), each window
+    REPS calls by CUDA events, with the card's clocks read just before and
+    just after it.  Per kernel: the per-round ms, their median and spread
+    ((max - min) / median), the clocks of each window, the last result."""
+    for fn in kernels.values():
+        fn()
+    torch.cuda.synchronize()
+    out = {k: {"rounds_ms": [], "clocks": []} for k in kernels}
+    for _ in range(ROUNDS):
+        for name, fn in kernels.items():
+            before = _clocks()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(REPS):
+                got = fn()
+            end.record()
+            torch.cuda.synchronize()
+            out[name]["rounds_ms"].append(start.elapsed_time(end) / REPS)
+            out[name]["clocks"].append([before, _clocks()])
+            out[name]["got"] = got
+    for t in out.values():
+        ms = sorted(t["rounds_ms"])
+        t["ms"] = ms[len(ms) // 2]
+        t["spread"] = (ms[-1] - ms[0]) / t["ms"]
+    return out
+
+
+def _print_rounds(timed: dict, bounds: dict) -> None:
+    for name, t in timed.items():
+        sm = [c.get("sm_mhz") for w in t["clocks"] for c in w]
+        temp = [c.get("temp_c") for w in t["clocks"] for c in w]
+        power = [c.get("power_w") for w in t["clocks"] for c in w]
+        print(f"{name}: median {t['ms']:.4f} ms, spread {t['spread']:.4f}, "
+              f"rounds {[round(v, 4) for v in t['rounds_ms']]}, "
+              f"{t['ms'] / bounds[name]:.2f}x the bound "
+              f"{bounds[name]:.4f} ms; sm MHz {sm}, W {power}, C {temp}")
+
+
+def _timed_entries(torch, card: dict) -> dict:
+    """name -> (kernel call, plain call, bound ms, bound_by, n, B, mode) of
+    the eight entries at the main path's shapes, inputs from one seed."""
     sku, fp64, bw = _sku(card["name"])
     rng = np.random.default_rng(SEED + 3)
+    entries = {}
+    for entry, n, B, _replaces, _source in TIMED:
+        kern, plain, nbytes, ops_count, mode = (
+            _timed_inputs_sparse if "sparse" in entry else _timed_inputs)(
+            torch, rng, entry, n, B)
+        t_ops, t_bytes = ops_count / (fp64 / 2) * 1e3, nbytes / bw * 1e3
+        entries[entry] = (kern, plain, max(t_ops, t_bytes),
+                          "operations" if t_ops >= t_bytes else "bytes", n,
+                          B, mode)
+    print(f"bounds from {sku}: FP64 {fp64 / 1e12:g} TFLOP/s / 2, "
+          f"{bw / 1e12:g} TB/s")
+    return entries
+
+
+def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
+                 window_err: dict) -> list:
+    """Kernel, plain and bound at the main path's shapes.  The kernels are
+    timed first, in rounds taken in turns (``_time_rounds``), before any
+    plain pass heats the card; then each kernel's last result is held
+    against its plain version over the full grid of the timed shape (bit
+    for bit for the complex and the sparse kernels)."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY
+    entries = _timed_entries(torch, card)
+    timed = _time_rounds(torch, {k: e[0] for k, e in entries.items()})
+    _print_rounds(timed, {k: e[2] for k, e in entries.items()})
     full_err = {}
     rows = []
-    sp = "src/repro/kernels/ryser_sparse.py"
-    for entry, n, B, replaces, source in (
-            ("ryser_dense_scalar", N_MAIN, 1,
-             "src/repro/kernels/ryser_pallas.py:305", "ryser_dense.cu"),
-            ("ryser_dense_batched", N_THRU, B_THRU,
-             "src/repro/kernels/ryser_pallas.py:342", "ryser_dense.cu"),
-            ("ryser_complex_scalar", N_MAIN, 1,
-             "src/repro/kernels/ryser_complex.py:181", "ryser_complex.cu"),
-            ("ryser_complex_batched", N_THRU, B_THRU,
-             "src/repro/kernels/ryser_complex.py:216", "ryser_complex.cu"),
-            ("ryser_sparse_scalar", N_SPARSE, 1, f"{sp}:331",
-             "ryser_sparse.cu"),
-            ("ryser_sparse_batched", N_THRU, B_THRU, f"{sp}:367",
-             "ryser_sparse.cu"),
-            ("ryser_sparse_complex_scalar", N_SPARSE, 1, f"{sp}:400",
-             "ryser_sparse.cu"),
-            ("ryser_sparse_complex_batched", N_THRU, B_THRU, f"{sp}:436",
-             "ryser_sparse.cu")):
+    for entry, n, B, replaces, source in TIMED:
+        _kern, plain, bound, bound_by, _n, _B, mode = entries.pop(entry)
         blocks = DEFAULT_GEOMETRY.kernel_geometry(n)[3]
-        sparse = "sparse" in entry
-        kern, plain, nbytes, ops_count, mode = (
-            _timed_inputs_sparse if sparse else _timed_inputs)(
-            torch, rng, entry, n, B)
-        ms, got = _time_ms(torch, kern, reps=5)
+        bitwise = "sparse" in entry or "complex" in entry
+        got = timed[entry].pop("got")
         plain_ms, want = _time_ms(torch, plain, reps=1)
         if entry.endswith("_scalar"):
             want = want[0]
         full_err[entry] = 0.0
         ok = _agree(got, want, full_err, entry)
-        if sparse:
+        if bitwise:
             ok &= bool(torch.equal(got, want))
-        smoke.check(ok, f"{entry} {'equals' if sparse else 'agrees with'} "
+        smoke.check(ok, f"{entry} {'equals' if bitwise else 'agrees with'} "
                         f"its plain version over the full grid of {B} x "
                         f"n={n} ({blocks} blocks, {mode}, dq_acc): max abs "
                         f"err {full_err[entry]:g}")
-        del kern, plain, got, want
+        del plain, got, want
         torch.cuda.empty_cache()
-        t_ops, t_bytes = ops_count / (fp64 / 2) * 1e3, nbytes / bw * 1e3
+        ms = timed[entry]["ms"]
         rows.append({
             "name": entry, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[entry],
             "max_abs_err": max(full_err[entry], window_err[entry]),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None})
-        print(f"{entry}: {B} x n={n} {mode} dq_acc: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.2f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-              f"({sku}: FP64 {fp64 / 1e12:g} TFLOP/s / 2), "
-              f"{ms / max(t_ops, t_bytes):.2f}x the bound")
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": None})
+        print(f"{entry}: {B} x n={n} {mode} dq_acc: kernel {ms:.4f} ms "
+              f"(median of {ROUNDS}), plain {plain_ms:.2f} ms, bound "
+              f"{bound:.4f} ms, {ms / bound:.2f}x the bound")
     smoke.summary["kernel_vs_plain_full_grid"] = full_err
+    smoke.summary["timing_rounds"] = timed
     return rows
 
 
@@ -1027,6 +1184,23 @@ def phase_profile(smoke: Smoke, torch, calls: list) -> None:
     smoke.summary["profile"] = out
 
 
+def time_only(smoke: Smoke, torch, card: dict) -> int:
+    """``--time-only``: after the build, only the timing rounds of the eight
+    entries (no plain pass, no value check, no result line), for comparing
+    versions of a kernel source on one card in one call."""
+    entries = _timed_entries(torch, card)
+    timed = _time_rounds(torch, {k: e[0] for k, e in entries.items()})
+    _print_rounds(timed, {k: e[2] for k, e in entries.items()})
+    for t in timed.values():
+        del t["got"]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_timing.json"),
+              "a") as f:
+        f.write(json.dumps({"card": card, "ptxas": smoke.summary["ptxas"],
+                            "timing_rounds": timed}) + "\n")
+    return 1 if smoke.failures else 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1041,6 +1215,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_card(smoke, torch)
     phase_build(smoke)
+    if "--time-only" in sys.argv[1:]:
+        return time_only(smoke, torch, card)
     window_err = {**phase_kernel_vs_plain(smoke, torch),
                   **phase_kernel_vs_plain_complex(smoke, torch)}
     mp = phase_main_path(smoke, torch)

@@ -28,7 +28,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["CSRC", "NPADS", "build_dir", "find_nvcc", "load_library",
-           "ptxas_log"]
+           "ptxas_log", "warps_per_sm"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ryser_dense.cu", "ryser_complex.cu", "ryser_sparse.cu")
@@ -74,6 +74,18 @@ def ptxas_log() -> str:
     """The ptxas report of the current build ('' before the first build)."""
     path = build_dir() / "ptxas.log"
     return path.read_text() if path.exists() else ""
+
+
+def warps_per_sm(registers: int, threads_per_cta: int) -> int:
+    """Warps one H100 SM holds at once as the registers allow: 65,536
+    registers, allocated per thread in units of 8, at most 64 warps and
+    32 CTAs an SM (shared memory not counted).  224 registers x 128
+    threads -> 8 warps; 128 x 256 -> 16."""
+    regs = -(-registers // 8) * 8
+    warps_per_cta = -(-threads_per_cta // 32)
+    ctas = min(32, 65536 // (regs * 32) // warps_per_cta,
+               64 // warps_per_cta)
+    return ctas * warps_per_cta
 
 
 def _units(src: Path):

@@ -1,6 +1,6 @@
 // What the Ryser kernels share: accumulator codes, the block size cap,
 // _accum_add (kernels/ryser_pallas.py), one product term into a lane's
-// (s, c) accumulator, and the row products over a register state.
+// (s, c) accumulator, and the real row product over a register state.
 // Included by ryser_kernels.cuh, the block bodies every source instantiates.
 #pragma once
 
@@ -44,25 +44,6 @@ __device__ __forceinline__ double chain_prod(const double (&X)[NPAD], int n) {
     if (i < n) p = p * X[i];
   }
   return p;
-}
-
-// Complex product over the n live rows of (Xr, Xi):
-// (pr, pi) <- (pr*xr - pi*xi, pr*xi + pi*xr) from row 0.
-template <int NPAD>
-__device__ __forceinline__ void chain_prod_cx(const double (&Xr)[NPAD],
-                                              const double (&Xi)[NPAD], int n,
-                                              double& pr, double& pi) {
-  pr = Xr[0];
-  pi = Xi[0];
-#pragma unroll
-  for (int i = 1; i < NPAD; ++i) {
-    if (i < n) {
-      const double r = pr * Xr[i] - pi * Xi[i];
-      const double m = pr * Xi[i] + pi * Xr[i];
-      pr = r;
-      pi = m;
-    }
-  }
 }
 
 }  // namespace

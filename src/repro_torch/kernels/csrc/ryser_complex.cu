@@ -19,7 +19,8 @@
 //   * the row-sum planes live in registers as double Xr[NPAD], Xi[NPAD],
 //     indexed only by a compile-time i inside #pragma unroll loops;
 //   * an inner step streams the product row by row from
-//     Xr[i] + Dr[i][idx] (+ cm_r[i] * corr), never materialising the state;
+//     Xr[i] + Dr[i][idx] (+ cm_r[i] * corr), never materialising the state,
+//     with no branch between the rows at NPAD 16-32 (cx_chain);
 //   * the boundary step reads the per-lane column jb straight from shared
 //     memory (the Pallas one-hot matmul is exact, so nothing changes).
 //
@@ -34,11 +35,12 @@
 // Bound: FP64 instruction throughput.  A complex step is about 8n FP64
 // instructions (2n adds for the two column updates, 6(n - 1) for the complex
 // product) with nothing to fuse, over half the data-sheet FP64 FLOP/s.  What
-// the design does about it: no global memory traffic inside the step loop
-// and one instruction per operation.  Not done yet: at NPAD 32 the two
-// planes take 128 of the registers, so occupancy is low and the serial
-// product chain is latency-bound; NPAD >= 48 spills (4 * NPAD registers for
-// X alone), which only the campaign sizes reach.
+// the design does about it: no global memory traffic inside the step loop,
+// one instruction per operation, and rows free of branches so that loads
+// and states overlap the product chain (the note at the top of
+// ryser_kernels.cuh).  Not done: at NPAD 32 the two planes take 128 of the
+// registers, so an SM holds 8 warps; NPAD >= 56 spills (4 * NPAD registers
+// for X alone), which only the campaign sizes reach.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -23,6 +23,21 @@
 // exact up to n = 64); a fixed shared-memory lane tree, no atomics.
 // Built with --fmad=false; the only __fma_rn sites multiply an entry of A
 // by 0, +-1 or -2, where the product is exact.
+//
+// What bounds the complex body on the H100, and what its design does about
+// it.  The work is FP64 instructions: per live row and step 2 adds for the
+// state, 4 multiplies and 2 adds for the product, and the mid correction's
+// 2 fused ops on half the steps.  The product chain serialises the rows,
+// two dependent FP64 latencies a row, and at NPAD 32 the two X planes leave
+// room for 8 warps an SM: too few to hide that unless each warp has other
+// work ready, the next rows' shared loads and states.  A branch a row
+// (i < n) makes every row a block of its own and serialises those too: the
+// FP64 pipe then runs at about a third of its rate.  cx_chain runs the rows
+// without a branch, dropping the rows past n by a select, so the compiler
+// issues the loads (paired into 16-byte loads) and the states ahead of the
+// chain.  Splitting a chunk's rows over a lagged thread pair, for 16 warps
+// at 128 registers, costs more in selects, unpaired loads and per-step work
+// than the extra warps win, so a chunk stays on one thread.
 #pragma once
 
 #include <cstdint>
@@ -207,6 +222,75 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   }
 }
 
+// Where the state of row i of a complex step comes from: X[i] + D[i][idx]
+// before the window's mid step, plus the mid correction cm_col[i] * cm from
+// it on, or X[i] itself at the boundary step (X advanced beforehand).
+enum CxState { CX_WINDOW = 0, CX_WINDOW_CORR = 1, CX_X = 2 };
+
+// One complex product over rows 0..n-1 of a step's states:
+// (pr, pi) = row 0's state, then (pr, pi) <- (pr*xr - pi*xi, pr*xi + pi*xr).
+// No branch splits the rows (ROW_BRANCHES false), so the compiler runs
+// their loads and states ahead of the chain: rows below LIVE_FROM are live
+// (i < n) by the caller's promise, and a later row past n has its product
+// computed and dropped by select -- never a multiply by a padded row's
+// 1 + 0i, which could flip the sign of a zero.  With ROW_BRANCHES each row
+// sits behind its own i < n branch, which keeps every row's loads and
+// states in place: fewer registers, no overlap.
+template <int NPAD, int STATE, int LIVE_FROM, bool ROW_BRANCHES>
+__device__ __forceinline__ void cx_chain(
+    const double (&Xr)[NPAD], const double (&Xi)[NPAD], const double* Dr,
+    const double* Di, const double* cmr, const double* cmi, double cm, int n,
+    double& pr, double& pi) {
+  if constexpr (NPAD == 8) {
+    // keeps the step's loads after the previous step's accumulation: with
+    // them hoisted, ptxas fits the sparse instantiation into 128 registers
+    // and spills 48-60 B; fenced, it takes 79 and none
+    asm volatile("" ::: "memory");
+  }
+#pragma unroll
+  for (int i = 0; i < NPAD; ++i) {
+    if (ROW_BRANCHES && i >= n) continue;
+    double xr = Xr[i], xi = Xi[i];
+    if (STATE != CX_X) {
+      xr = xr + Dr[i];
+      xi = xi + Di[i];
+    }
+    if (STATE == CX_WINDOW_CORR) {
+      xr = __fma_rn(cmr[i], cm, xr);  // exact: cm is 0 or -2
+      xi = __fma_rn(cmi[i], cm, xi);
+    }
+    if (i == 0) {
+      pr = xr;
+      pi = xi;
+      continue;
+    }
+    const double r = pr * xr - pi * xi;
+    const double q = pr * xi + pi * xr;
+    const bool live = ROW_BRANCHES || i < LIVE_FROM || i < n;
+    pr = live ? r : pr;
+    pi = live ? q : pi;
+  }
+}
+
+// cx_chain for any n.  Up to NPAD 32 (the main path's sizes) the rows run
+// branch-free, those below NPAD - 8 unconditional when n > NPAD - 8 (n_pad
+// the least multiple of 8 >= n, as every caller pads).  Above NPAD 32
+// (campaign sizes, where X alone takes 4 NPAD registers and rows run ahead
+// would spill) each row keeps its branch.
+template <int NPAD, int STATE>
+__device__ __forceinline__ void cx_chain_rows(
+    const double (&Xr)[NPAD], const double (&Xi)[NPAD], const double* Dr,
+    const double* Di, const double* cmr, const double* cmi, double cm, int n,
+    double& pr, double& pi) {
+  if constexpr (NPAD > 32)
+    cx_chain<NPAD, STATE, 0, true>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr, pi);
+  else if (n > NPAD - 8)
+    cx_chain<NPAD, STATE, NPAD - 8, false>(Xr, Xi, Dr, Di, cmr, cmi, cm, n,
+                                           pr, pi);
+  else
+    cx_chain<NPAD, STATE, 0, false>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr, pi);
+}
+
 // The split-plane body runs the window-batched mode only, as the Pallas
 // complex kernels do.  An inner step streams the product row by row from
 // Xr[i] + Dr[i][idx] (+ cm_r[i] * corr), never materialising the state.
@@ -316,28 +400,13 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
     for (int idx = 0; idx < Wu - 1; ++idx) {
       const double* Dr = Drs + idx * NPAD;
       const double* Di = Dis + idx * NPAD;
-      const bool after_mid = idx >= mid_idx;
-      double pr = 0.0, pi = 0.0;
-#pragma unroll
-      for (int i = 0; i < NPAD; ++i) {
-        if (i < n) {
-          double xr = Xr[i] + Dr[i];
-          double xi = Xi[i] + Di[i];
-          if (after_mid) {
-            xr = __fma_rn(cmr[i], cm, xr);  // exact: cm is 0 or -2
-            xi = __fma_rn(cmi[i], cm, xi);
-          }
-          if (i == 0) {
-            pr = xr;
-            pi = xi;
-          } else {
-            const double r = pr * xr - pi * xi;
-            const double q = pr * xi + pi * xr;
-            pr = r;
-            pi = q;
-          }
-        }
-      }
+      double pr, pi;
+      if (idx >= mid_idx)
+        cx_chain_rows<NPAD, CX_WINDOW_CORR>(Xr, Xi, Dr, Di, cmr, cmi, cm, n,
+                                            pr, pi);
+      else
+        cx_chain_rows<NPAD, CX_WINDOW>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr,
+                                       pi);
       const bool neg = ((idx + 1) & 1) != 0;
       accum_add<P>(sr, cr_acc, neg ? -pr : pr);
       accum_add<P>(si, ci_acc, neg ? -pi : pi);
@@ -367,7 +436,8 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
       Xi[i] = __fma_rn(cbi[i], f, Xi[i]);
     }
     double pr, pi;
-    chain_prod_cx<NPAD>(Xr, Xi, n, pr, pi);
+    cx_chain_rows<NPAD, CX_X>(Xr, Xi, nullptr, nullptr, nullptr, nullptr, 0.0,
+                              n, pr, pi);
     accum_add<P>(sr, cr_acc, pr * live);
     accum_add<P>(si, ci_acc, pi * live);
   }

@@ -66,8 +66,13 @@ def _cgauss(rng, shape):
     return (rng.normal(size=shape) + 1j * rng.normal(size=shape)) / np.sqrt(2)
 
 
-@pytest.mark.parametrize("n", [5, 13, 30, 64])
+# n = 4, 5 (NPAD 8), 13 (NPAD 16), 17 (NPAD 24) and 30 (NPAD 32) leave rows
+# past n in the branch-free chain's select region (its last 8 rows),
+# n = 16, 24, 32 none; n = 64 takes the chain with a branch a row
+@pytest.mark.parametrize("n", [4, 5, 13, 16, 17, 24, 30, 32, 64])
 def test_complex_kernel_matches_plain_on_card(card, n):
+    """The split-plane kernel repeats its plain version's arithmetic op for
+    op, so both entries equal it bit for bit."""
     rng = np.random.default_rng(100 + n)
     As = torch.as_tensor(_cgauss(rng, (2, n, n)), device=card)
     planes = ops.prepare_complex(As)[:4]
@@ -78,10 +83,27 @@ def test_complex_kernel_matches_plain_on_card(card, n):
     got = RX.ryser_cuda_call_complex(*(p[0] for p in planes), top, **geo)
     want = RX.block_partials_plain_complex(*(p[:1] for p in planes), top,
                                            **geo)[0]
-    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-15)
+    assert torch.equal(got, want)
     got = RX.ryser_cuda_call_complex_batched(*planes, **geo)
     want = RX.block_partials_plain_complex(*planes, 0, **geo)
-    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-15)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n, n_pad", [(9, 24), (20, 32), (30, 48)])
+def test_complex_kernel_over_padded_matches_plain_on_card(card, n, n_pad):
+    """n_pad past the least multiple of 8 >= n: the chain's rows all go
+    through the select, bit for bit as the plain version."""
+    rng = np.random.default_rng(400 + n)
+    As = torch.as_tensor(_cgauss(rng, (2, n, n)), device=card)
+    xbs = torch.complex(ops.nw_base_vector(As.real),
+                        ops.nw_base_vector(As.imag))
+    planes = (ops.pad_matrix(As.real, n_pad), ops.pad_matrix(As.imag, n_pad),
+              *ops.split_base_planes(xbs, n_pad))
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=min(4, blocks))
+    got = RX.ryser_cuda_call_complex_batched(*planes, **geo)
+    want = RX.block_partials_plain_complex(*planes, 0, **geo)
+    assert torch.equal(got, want)
 
 
 def test_complex_main_path_on_card_matches_torch_engine(card):
@@ -110,7 +132,7 @@ def _sparse(rng, n, cplx=False, extra=0, density=0.2):
 
 
 @pytest.mark.parametrize("cplx", [False, True])
-@pytest.mark.parametrize("n", [5, 13, 16, 24, 32, 64])
+@pytest.mark.parametrize("n", [4, 5, 13, 16, 17, 24, 32, 64])
 def test_sparse_kernel_matches_plain_on_card(card, n, cplx):
     """Windows at the top of the step space (scalar) and a B = 3 bucket
     whose maxdeg exceeds each member's own (batched), bit for bit."""
@@ -154,7 +176,7 @@ def test_sparse_kernel_matches_plain_on_card(card, n, cplx):
 
 
 @pytest.mark.parametrize("cplx", [False, True])
-@pytest.mark.parametrize("n", [13, 24, 32])
+@pytest.mark.parametrize("n", [4, 13, 16, 17, 24, 32])
 def test_sparse_kernel_equals_dense_batched_mode_on_card(card, n, cplx):
     """The scattered low CCS columns equal A's own, so the sparse kernel
     and the dense kernel's batched mode agree bit for bit."""

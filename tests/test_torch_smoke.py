@@ -1,0 +1,62 @@
+"""The pure helpers behind the chip smoke's build report, on the CPU: warps
+per SM from ptxas registers (``kernels/build.py::warps_per_sm``) and the
+SASS hot-loop instruction mix (``chip_smoke._loop_mix``)."""
+
+import os
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+import chip_smoke  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+
+
+@pytest.mark.parametrize("registers, threads, warps", [
+    (224, 128, 8),      # 2 CTAs of 4 warps
+    (206, 128, 8),
+    (150, 128, 12),     # 152 allocated: 3 CTAs
+    (128, 256, 16),     # 2 CTAs of 8 warps
+    (96, 256, 16),
+    (80, 256, 24),
+    (94, 128, 20),      # 96 allocated: 5 CTAs
+    (255, 256, 8),      # 256 allocated: one CTA
+    (32, 256, 64),      # the 64-warp limit
+    (16, 32, 32),       # the 32-CTA limit
+])
+def test_warps_per_sm(registers, threads, warps):
+    assert build.warps_per_sm(registers, threads) == warps
+
+
+def _sass(lines):
+    return "\n".join(f"        /*{a:04x}*/  {ins} ;  /* 0x0 */"
+                     for a, ins in lines)
+
+
+def test_loop_mix_counts_the_innermost_hot_loop():
+    inner = ["DMUL R4, R2, R6", "DMUL R8, R2, R10", "DMUL R12, R14, R6",
+             "DMUL R16, R14, R10", "DADD R4, R4, -R16", "DADD R8, R8, R12",
+             "LDS.64 R2, [R20]", "LDS.64 R14, [R20+0x8]",
+             "SHFL.BFLY PT, R3, R3, 0x1, 0x1f", "ISETP.GE.AND P0, PT, R1, R0"]
+    lines = [(0x00, "MOV R1, c[0x0][0x28]")]
+    lines += [(0x10 * (k + 1), op) for k, op in enumerate(inner)]
+    lines += [(0xb0, "@P0 BRA 0x10")]                       # inner loop
+    lines += [(0xc0, "DMUL R4, R2, R6"), (0xd0, "DMUL R4, R2, R6"),
+              (0xe0, "DMUL R4, R2, R6"), (0xf0, "DMUL R4, R2, R6"),
+              (0x100, "DFMA R4, R2, R6, R4"),
+              (0x110, "@!P1 BRA 0x10")]                     # outer loop
+    lines += [(0x120, "EXIT")]
+    mix = chip_smoke._loop_mix(_sass(lines))
+    assert mix["loop"] == ["0x10", "0xb0"]
+    assert mix["rows"] == 1
+    assert mix["counts"] == {"DADD": 2, "DMUL": 4, "DFMA": 0, "LDS": 2,
+                             "SHFL": 1, "other": 2}
+    assert mix["other"] == {"ISETP": 1, "BRA": 1}
+
+
+def test_loop_mix_without_a_loop():
+    mix = chip_smoke._loop_mix(_sass([(0, "DMUL R4, R2, R6"), (16, "EXIT")]))
+    assert mix["loop"] is None and mix["rows"] == 0
