@@ -19,7 +19,11 @@ summary goes to ``chiprun_out/chip_smoke.json``.
 
 The build report gives each kernel instantiation's registers, spills and
 warps per SM, and the SASS instruction mix of the complex body's hot
-loop.  The kernels are timed in rounds taken in turns before any plain
+loop and of the real body's window loops.  Real sparse leaves go to the
+kernels as the main path prepares them (``ops.prepare_sparse``: low
+columns that touch few rows, those rows first); the timing phase prints
+R, the rows the low columns touch, and RPAD, the window loop it runs.
+The kernels are timed in rounds taken in turns before any plain
 pass, with the card's SM clock, power and temperature read around each
 window; ``--time-only`` stops after those rounds (no plain pass, no value
 check, no result line) and appends them to
@@ -201,38 +205,56 @@ def phase_build(smoke: Smoke) -> None:
                                       or r.get("spill_loads", 0))]
     smoke.check(not spills, f"no spills at NPAD <= 48 ({spills})")
     smoke.summary["sass"] = mix = _sass_mix(build)
-    for name, m in mix.items():
-        print(f"  sass {name}: hot loop {m['loop']}, {m['rows']:g} rows: "
-              f"{m['counts']}; per row {m['per_row']}; other {m['other']}")
+    for name, ms in mix.items():
+        for m in (ms if isinstance(ms, list) else [ms]):
+            print(f"  sass {name}: loop {m['loop']}, {m['rows']:g} rows: "
+                  f"{m['counts']}; per row {m['per_row']}; other "
+                  f"{m['other']}")
 
 
-def _sass_mix(build, npad: int = 32, prec: int = 2) -> dict:
-    """Instruction classes of the complex body's hot loop at NPAD ``npad``,
-    precision code ``prec`` (2 = dq_acc), dense and sparse instantiation,
-    from ``cuobjdump -sass`` of the built objects.  The hot loop is the
-    innermost loop (a backward branch with no other inside it) holding the
-    most DMUL; its rows are DMUL / 4 (the complex product's four
-    multiplies), and ``per_row`` divides each class by them."""
+def _sass_mix(build, prec: int = 2) -> dict:
+    """Instruction classes of the Ryser bodies' hot loops at precision code
+    ``prec`` (2 = dq_acc), from ``cuobjdump -sass`` of the built objects.
+    Complex body (NPAD 32, dense and sparse instantiation): the innermost
+    loop (a backward branch with no other inside it) holding the most
+    DMUL, its rows DMUL / 4 (the complex product's four multiplies).  Real
+    body (NPAD 32 and 24, dense and sparse): every innermost loop with 8 or
+    more DMUL -- the modes' step loops, the sparse body's RPAD variants --
+    its rows the DMUL count (one multiply a row); a variant's DADD per row
+    says its RPAD.  ``per_row`` divides each class by the rows."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     out = {}
     if not os.path.exists(tool):
         print(f"  sass: no {tool}, instruction mix not measured")
         return out
-    for kernel, obj, sparse in (("complex", "ryser_complex", 0),
-                                ("sparse_cx", "ryser_sparse", 1)):
-        sass = subprocess.run(
-            [tool, "-sass", str(build.build_dir() / f"{obj}_n{npad}.o")],
-            capture_output=True, text=True, timeout=120).stdout
-        want = f"ryser_cx_kernelILi{npad}ELi{prec}ELb{sparse}E"
-        body = next((b for b in sass.split("Function : ")[1:]
+    sass = {}
+    for kernel, obj, fn, sparse, npad, per in (
+            ("complex", "ryser_complex", "ryser_cx_kernel", 0, 32, 4),
+            ("sparse_cx", "ryser_sparse", "ryser_cx_kernel", 1, 32, 4),
+            ("dense", "ryser_dense", "ryser_kernel", 0, 32, 1),
+            ("dense", "ryser_dense", "ryser_kernel", 0, 24, 1),
+            ("sparse", "ryser_sparse", "ryser_kernel", 1, 32, 1),
+            ("sparse", "ryser_sparse", "ryser_kernel", 1, 24, 1)):
+        path = str(build.build_dir() / f"{obj}_n{npad}.o")
+        if path not in sass:
+            sass[path] = subprocess.run([tool, "-sass", path],
+                                        capture_output=True, text=True,
+                                        timeout=120).stdout
+        want = f"{fn}ILi{npad}ELi{prec}ELb{sparse}E"
+        body = next((b for b in sass[path].split("Function : ")[1:]
                      if b.split(None, 1)[0].find(want) >= 0), "")
-        out[kernel] = _loop_mix(body)
+        if per == 4:
+            out[kernel] = _loop_mix(body)
+        else:
+            out[f"{kernel}_n{npad}"] = _loop_mix(body, per=1, min_dmul=8)
     return out
 
 
-def _loop_mix(body: str) -> dict:
+def _loop_mix(body: str, per: int = 4, min_dmul: int = 0):
     """Class counts of the innermost loop with the most DMUL in one
-    function's SASS (see ``_sass_mix``)."""
+    function's SASS, its rows DMUL / ``per``; with ``min_dmul``, a list of
+    every innermost loop holding at least that many DMUL, in address order
+    (see ``_sass_mix``)."""
     ins, loops = [], []
     for line in body.splitlines():
         m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?"
@@ -246,27 +268,33 @@ def _loop_mix(body: str) -> dict:
             loops.append((int(t.group(1), 16), addr))
     leaves = [lp for lp in loops if not any(
         o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
-    if not leaves:
-        return {"loop": None, "rows": 0, "counts": {}, "per_row": {},
-                "other": {}}
 
     def ops_in(lp):
         return [op for a, op in ins if lp[0] <= a <= lp[1]]
-    hot = max(leaves, key=lambda lp: ops_in(lp).count("DMUL"))
-    ops = ops_in(hot)
-    classes = ("DADD", "DMUL", "DFMA", "LDS", "SHFL")
-    counts = {c: ops.count(c) for c in classes}
-    counts["other"] = len(ops) - sum(counts.values())
-    rows = counts["DMUL"] / 4
-    others: dict = {}
-    for op in ops:
-        if op not in classes:
-            others[op] = others.get(op, 0) + 1
-    return {"loop": [hex(hot[0]), hex(hot[1])], "rows": rows,
-            "counts": counts,
-            "per_row": {c: round(v / rows, 2) if rows else None
-                        for c, v in counts.items()},
-            "other": dict(sorted(others.items(), key=lambda kv: -kv[1])[:6])}
+
+    def mix(lp):
+        ops = ops_in(lp)
+        classes = ("DADD", "DMUL", "DFMA", "LDS", "SHFL")
+        counts = {c: ops.count(c) for c in classes}
+        counts["other"] = len(ops) - sum(counts.values())
+        rows = counts["DMUL"] / per
+        others: dict = {}
+        for op in ops:
+            if op not in classes:
+                others[op] = others.get(op, 0) + 1
+        return {"loop": [hex(lp[0]), hex(lp[1])], "rows": rows,
+                "counts": counts,
+                "per_row": {c: round(v / rows, 2) if rows else None
+                            for c, v in counts.items()},
+                "other": dict(sorted(others.items(),
+                                     key=lambda kv: -kv[1])[:6])}
+    if min_dmul:
+        return [mix(lp) for lp in sorted(leaves)
+                if ops_in(lp).count("DMUL") >= min_dmul]
+    if not leaves:
+        return {"loop": None, "rows": 0, "counts": {}, "per_row": {},
+                "other": {}}
+    return mix(max(leaves, key=lambda lp: ops_in(lp).count("DMUL")))
 
 
 def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
@@ -282,7 +310,7 @@ def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
     rng = np.random.default_rng(SEED)
     err = {"ryser_dense_scalar": 0.0, "ryser_dense_batched": 0.0}
     worst_ulp = 0.0
-    ok = True
+    ok = equal = True
     for n in WINDOW_NS:
         # below the bucket sizes a small geometry, so the window still
         # spans 8 blocks; from there on the main path's own
@@ -301,6 +329,7 @@ def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
                         A_pads[:1], xb_pads[:1], base, precision=prec,
                         mode=mode, **geo)[0]
                     ok &= _agree(got, want, err, "ryser_dense_scalar")
+                    equal &= bool(torch.equal(got, want))
                     worst_ulp = max(worst_ulp, _ulp_gap(
                         got.cpu().numpy(), want.cpu().numpy()))
                 got = RC.ryser_cuda_call_batched(A_pads, xb_pads,
@@ -310,6 +339,7 @@ def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
                                                precision=prec, mode=mode,
                                                **geo)
                 ok &= _agree(got, want, err, "ryser_dense_batched")
+                equal &= bool(torch.equal(got, want))
                 worst_ulp = max(worst_ulp, _ulp_gap(got.cpu().numpy(),
                                                     want.cpu().numpy()))
         torch.cuda.synchronize()
@@ -322,17 +352,21 @@ def phase_kernel_vs_plain(smoke: Smoke, torch) -> dict:
     got = RC.ryser_cuda_call_batched(A_pads, xb_pads, **geo)
     want = RC.block_partials_plain(A_pads, xb_pads, 0, **geo)
     ok &= _agree(got, want, err, "ryser_dense_batched")
+    equal &= bool(torch.equal(got, want))
     worst_ulp = max(worst_ulp, _ulp_gap(got.cpu().numpy(),
                                         want.cpu().numpy()))
     print(f"kernel vs plain: worst ulp gap {worst_ulp:g}, max abs err "
-          f"{err}")
+          f"{err}, bit for bit {equal}")
     smoke.check(ok, f"kernels agree with their plain versions for n in "
                     f"{WINDOW_NS} (rtol {RTOL_KERNEL:g}, atol "
                     f"{ATOL_KERNEL:g}), both modes, {len(PRECISIONS)} "
                     f"precisions, scalar windows incl. the top of the space, "
                     f"batched B=3, full grid {B_BUCKET} x n={N_BUCKET} "
                     f"({blocks} blocks)")
-    smoke.summary["kernel_vs_plain"] = {"worst_ulp": worst_ulp, **err}
+    smoke.check(equal, "real dense kernels equal their plain versions bit "
+                       "for bit on the same windows and grid")
+    smoke.summary["kernel_vs_plain"] = {"worst_ulp": worst_ulp,
+                                        "bit_for_bit": equal, **err}
     return err
 
 
@@ -618,10 +652,35 @@ def _uneven_sparse(rng, n: int, cplx: bool, extra: int):
     return A * np.exp(1j * rng.uniform(-np.pi, np.pi, (n, n))) if cplx else A
 
 
-def _sparse_inputs(torch, mats, cplx: bool):
+def _extent_sparse(rng, n: int, R: int, kw: int, extra: int = 0,
+                   negzero: bool = False):
+    """Density about 0.25 with a full diagonal, whose kw low columns touch
+    exactly the rows below R (row R - 1 among them): the real sparse kernel
+    runs its window loop for RPAD = R rounded up to 8.  ``extra`` more
+    nonzeros in column kw give a larger maxdeg.  With ``negzero`` the
+    zeros are stored as -0.0 and, if R < n - 1, row n - 1 becomes an
+    untouched row whose sum cancels (0.5 and -0.5), so its state is 0 on
+    some steps."""
+    A = rng.uniform(0.5, 1.5, (n, n)) * (rng.uniform(0, 1, (n, n)) < 0.25)
+    np.fill_diagonal(A, 1.0)
+    A[R:, :kw] = 0.0
+    A[R - 1, 0] = 0.75
+    if extra:
+        A[rng.choice(n, size=min(extra, n), replace=False), kw] = 1.25
+    if negzero:
+        if R < n - 1 and kw + 1 < n:
+            A[n - 1] = 0.0
+            A[n - 1, kw], A[n - 1, kw + 1] = 0.5, -0.5
+        A = np.where(A == 0.0, -0.0, A)
+    return A
+
+
+def _sparse_inputs(torch, mats, cplx: bool, Wu: int | None = None):
     """Kernel inputs of a sparse stack on the card, packed to the
     bucket-wide maxdeg: the real ``(A_pads, rows, vals, xb_pads)`` or the
-    complex ``(Ar, Ai, rows, vals_r, vals_i, xbr, xbi)``."""
+    complex ``(Ar, Ai, rows, vals_r, vals_i, xbr, xbi)``.  Given the
+    window ``Wu``, real leaves are ordered as the main path orders them
+    (``ops.prepare_sparse``); without it they go as they come."""
     from repro_torch.core.sparyser import SparseMatrix, pack_padded_ccs
     from repro_torch.kernels import ops
     A_np, rows_np, vals_np = pack_padded_ccs(
@@ -633,8 +692,17 @@ def _sparse_inputs(torch, mats, cplx: bool):
         Ar, Ai, xbr, xbi, _ = ops.prepare_complex(As)
         return (Ar, Ai, rows, vals.real.contiguous(), vals.imag.contiguous(),
                 xbr, xbi)
+    if Wu is not None:
+        return ops.prepare_sparse(As, rows, vals, Wu)[:4]
     A_pads, xb_pads, _ = ops.prepare(As)
     return A_pads, rows, vals, xb_pads
+
+
+def _rows_rpad(rows, Wu: int, n: int) -> list:
+    """[R, RPAD] of each member of real kernel inputs' CCS ``rows``."""
+    from repro_torch.kernels import ryser_sparse_cuda as RS
+    R = RS.low_column_rows(rows, int(math.log2(Wu)), n).reshape(-1).tolist()
+    return [[r, max(8, -(-r // 8) * 8)] for r in R]
 
 
 def _sparse_calls(cplx: bool):
@@ -662,18 +730,24 @@ def _dense_batched_mode(ins, cplx: bool, **geo):
 def phase_kernel_vs_plain_sparse(smoke: Smoke, torch) -> dict:
     """The four sparse entries against their plain versions on the card,
     bit for bit: 8-block windows (the first and the last) for every n of
-    SPARSE_WINDOW_NS x 5 precisions, matrices of uneven column degrees
-    (n == n_pad at 16, 24, 32, 40, 64); the batched entries at B = 3 with
-    a bucket-wide maxdeg above each member's own; and the full grid of
-    16 x n = 22 (the timing phase holds 256 x n = 24).  Every batched
-    result is also held against the dense batched mode on the same
-    matrices, bit for bit: the scattered low CCS columns equal A's own."""
+    SPARSE_WINDOW_NS x 5 precisions (n == n_pad at 16, 24, 32, 40, 64);
+    the batched entries at B = 3 with a bucket-wide maxdeg above each
+    member's own; and the full grid of 16 x n = 22 (the timing phase holds
+    the main path's 256 x n = 24 and n = 32).  Real matrices have a set R
+    (``_extent_sparse``): the B = 3 members R = 5 (with -0.0 zeros and a
+    cancelling untouched row), about n / 2 + 1, and n, so each window
+    reaches three RPAD variants, the scalar entry taking each member in
+    turn; the 16 x 22 members cycle R over 3, 8, 9, 16, 17, 22.  Complex
+    matrices have uneven column degrees.  Every batched result is also
+    held against the dense batched mode on the same matrices, bit for bit:
+    the scattered low CCS columns equal A's own."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
     rng = np.random.default_rng(SEED + 20)
     err = {k: 0.0 for k in ("ryser_sparse_scalar", "ryser_sparse_batched",
                             "ryser_sparse_complex_scalar",
                             "ryser_sparse_complex_batched")}
     worst_ulp, ok, equal, as_dense = 0.0, True, True, True
+    rpads = []                          # (n, [[R, RPAD] per member]), real
 
     def hold(got, want, entry):
         nonlocal ok, worst_ulp, equal
@@ -689,15 +763,23 @@ def phase_kernel_vs_plain_sparse(smoke: Smoke, torch) -> dict:
             geom = DEFAULT_GEOMETRY if n >= N_BUCKET else Geometry(8, 8, 4)
             TB, C, Wu, blocks = geom.kernel_geometry(n)
             nb = min(8, blocks)
-            ins = _sparse_inputs(torch, [_uneven_sparse(rng, n, cplx, e)
-                                         for e in (0, 2, n // 3)], cplx)
+            kw = int(math.log2(Wu))
+            mats = [_uneven_sparse(rng, n, cplx, e) for e in (0, 2, n // 3)] \
+                if cplx else [
+                    _extent_sparse(rng, n, min(5, n), kw, 0, negzero=True),
+                    _extent_sparse(rng, n, n // 2 + 1, kw, 2),
+                    _extent_sparse(rng, n, n, kw, n // 3)]
+            ins = _sparse_inputs(torch, mats, cplx)
+            if not cplx:
+                rpads.append((n, _rows_rpad(ins[1], Wu, n)))
             geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
-            for prec in PRECISIONS:
+            for k, prec in enumerate(PRECISIONS):
+                b = k % 3                       # each member in turn
                 for base in sorted({0, blocks * TB - nb * TB}):
-                    got = scalar(*(t[0] for t in ins), base, precision=prec,
+                    got = scalar(*(t[b] for t in ins), base, precision=prec,
                                  **geo)
-                    want = plain(*(t[:1] for t in ins), base, precision=prec,
-                                 **geo)[0]
+                    want = plain(*(t[b:b + 1] for t in ins), base,
+                                 precision=prec, **geo)[0]
                     hold(got, want, f"ryser_{kind}_scalar")
                 got = batched(*ins, precision=prec, **geo)
                 hold(got, plain(*ins, 0, precision=prec, **geo),
@@ -706,9 +788,15 @@ def phase_kernel_vs_plain_sparse(smoke: Smoke, torch) -> dict:
                     ins, cplx, precision=prec, **geo)))
             torch.cuda.synchronize()
         TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(N_BUCKET)
+        kw = int(math.log2(Wu))
         ins = _sparse_inputs(torch, [
             _circulant_sparse(rng, N_BUCKET, BUCKET_DEGREE, cplx, extra=b % 3)
+            if cplx else _extent_sparse(rng, N_BUCKET, (3, 8, 9, 16, 17,
+                                                        22)[b % 6], kw, b % 3,
+                                        negzero=b % 6 == 0)
             for b in range(B_BUCKET)], cplx)
+        if not cplx:
+            rpads.append((N_BUCKET, _rows_rpad(ins[1], Wu, N_BUCKET)))
         geo = dict(n=N_BUCKET, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
                    precision="dq_acc")
         got = batched(*ins, **geo)
@@ -717,7 +805,7 @@ def phase_kernel_vs_plain_sparse(smoke: Smoke, torch) -> dict:
                                                               **geo)))
     print(f"sparse kernels vs plain: worst ulp gap {worst_ulp:g}, max abs "
           f"err {err}, bit for bit {equal}; equal to the dense batched "
-          f"mode {as_dense}")
+          f"mode {as_dense}; real [R, RPAD] per n {rpads}")
     smoke.check(ok and equal, f"sparse kernels (real, complex) equal their "
                               f"plain versions bit for bit for n in "
                               f"{SPARSE_WINDOW_NS}, {len(PRECISIONS)} "
@@ -731,7 +819,8 @@ def phase_kernel_vs_plain_sparse(smoke: Smoke, torch) -> dict:
     smoke.summary["kernel_vs_plain_sparse"] = {"worst_ulp": worst_ulp,
                                                "bit_for_bit": equal,
                                                "equals_dense_batched":
-                                               as_dense, **err}
+                                               as_dense, "rpads": rpads,
+                                               **err}
     return err
 
 
@@ -846,6 +935,13 @@ def phase_values_sparse(smoke: Smoke, torch, mp: dict) -> None:
                              f"the torch sparse engine max rel {rel:.3e} "
                              f"<= 1e-9")
     out["bucket_vs_torch"] = rel
+    if not cplx:
+        rel = _vs_unordered(torch, mp)
+        smoke.check(rel <= 1e-12, f"{label} n={N_SPARSE} and bucket "
+                                  f"{B_BUCKET} x n={N_BUCKET} values vs the "
+                                  f"kernel on the leaves as they come, not "
+                                  f"ordered, max rel {rel:.3e} <= 1e-12")
+        out["vs_unordered"] = rel
     rng = np.random.default_rng(SEED + (32 if cplx else 22))
     other = _circulant_sparse(rng, N_SPARSE, SPARSE_DEGREE, cplx, extra=2)
     vb = repro_torch.permanent_batch([mp["A32"], other], preprocess=False)
@@ -855,6 +951,33 @@ def phase_values_sparse(smoke: Smoke, torch, mp: dict) -> None:
                       f"({mp['v32']} vs {vb[0]})")
     out["scalar_vs_bucket_equal"] = same
     smoke.summary[f"values_{'sparse_complex' if cplx else 'sparse'}"] = out
+
+
+def _vs_unordered(torch, mp: dict) -> float:
+    """Max rel gap of the real sparse main path's values (n = 32 and the
+    16 x 22 bucket) to the same kernel on the leaves as they come, not
+    ordered (``order_sparse_leaves``): the ordering moves the values by
+    rounding only.  Both are printed."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY
+    from repro_torch.kernels import ops
+    worst = 0.0
+    for mats, got in (([mp["A32"]], np.array([mp["v32"]])),
+                      (list(mp["bucket"]), np.asarray(mp["vb"]))):
+        n = mats[0].shape[-1]
+        TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+        A_pads, rows, vals, xb_pads = _sparse_inputs(torch, mats, False)
+        out = _sparse_calls(False)[1](A_pads, rows, vals, xb_pads, n=n,
+                                      TB=TB, C=C, Wu=Wu, num_blocks=blocks,
+                                      precision="dq_acc")
+        xbs = ops.nw_base_vector(torch.as_tensor(np.stack(mats),
+                                                 device="cuda"))
+        want = ops._reduce_real(out, xbs, n).cpu().numpy()
+        rel = np.abs(got - want) / np.abs(want)
+        print(f"sparse n={n} values ordered vs as they come: "
+              f"{[(float(a), float(b)) for a, b in zip(got[:4], want[:4])]}"
+              f" max rel {float(rel.max()):.3e}")
+        worst = max(worst, float(rel.max()))
+    return worst
 
 
 def _timed_inputs(torch, rng, entry: str, n: int, B: int):
@@ -897,9 +1020,11 @@ def _timed_inputs_sparse(torch, rng, entry: str, n: int, B: int):
     sparse entry at a main-path shape: the scalar entry on a degree-7
     matrix, its plain version over the full grid in PLAIN_WINDOWS slices
     (one pass would hold tens of GB at n = 32); the batched entry on a
-    degree-5 bucket.  Bytes count each input once (rows as int32) and the
-    partials written; operations are what SpaRyser needs for these
-    matrices' column degrees (``sparse_ryser_ops``)."""
+    degree-5 bucket.  Real inputs are ordered as the main path orders them
+    (``ops.prepare_sparse``); their R and RPAD are printed.  Bytes count
+    each input once (rows as int32) and the partials written; operations
+    are what SpaRyser needs for these matrices' column degrees
+    (``sparse_ryser_ops``)."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     cplx = "complex" in entry
     scalar_call, batched_call, plain_call = _sparse_calls(cplx)
@@ -907,7 +1032,10 @@ def _timed_inputs_sparse(torch, rng, entry: str, n: int, B: int):
     geo = dict(n=n, TB=TB, C=C, Wu=Wu, precision="dq_acc")
     degree = SPARSE_DEGREE if B == 1 else BUCKET_DEGREE
     ins = _sparse_inputs(torch, [_circulant_sparse(rng, n, degree, cplx)
-                                 for _ in range(B)], cplx)
+                                 for _ in range(B)], cplx, Wu)
+    if not cplx:
+        rr = sorted({tuple(x) for x in _rows_rpad(ins[1], Wu, n)})
+        print(f"{entry}: {B} x n={n} timed inputs, [R, RPAD] {rr}")
     if B == 1:
         step = blocks // PLAIN_WINDOWS
         kern = lambda: scalar_call(*(t[0] for t in ins), 0,  # noqa: E731
@@ -930,10 +1058,11 @@ def _timed_inputs_sparse(torch, rng, entry: str, n: int, B: int):
 def _dense_at_sparse_shape(smoke: Smoke, torch, msp: dict,
                            mspc: dict) -> dict:
     """The sparse scalar kernels and the dense kernels on the sparse main
-    path's n = 32 matrices in one call (ms per call by CUDA events, beside
-    which PERF.md puts them): the real dense entry in both modes, the dense
-    complex entry.  Over this full grid each sparse kernel must equal the
-    dense batched mode bit for bit."""
+    path's n = 32 matrices, as the main path prepares them, in one call
+    (ms per call by CUDA events, beside which PERF.md puts them): the real
+    dense entry in both modes, the dense complex entry.  Over this full
+    grid each sparse kernel must equal the dense batched mode bit for
+    bit."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     from repro_torch.kernels import ryser_complex_cuda as RX
     from repro_torch.kernels import ryser_cuda as RC
@@ -942,7 +1071,7 @@ def _dense_at_sparse_shape(smoke: Smoke, torch, msp: dict,
                precision="dq_acc")
     out, same = {}, True
     for m, cplx in ((msp, False), (mspc, True)):
-        ins = [t[0] for t in _sparse_inputs(torch, [m["A32"]], cplx)]
+        ins = [t[0] for t in _sparse_inputs(torch, [m["A32"]], cplx, Wu)]
         kind = "sparse_complex" if cplx else "sparse"
         out[f"ryser_{kind}_scalar"], got = _time_ms(
             torch, lambda: _sparse_calls(cplx)[0](*ins, 0, **geo), reps=3)
@@ -1064,8 +1193,8 @@ def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
     """Kernel, plain and bound at the main path's shapes.  The kernels are
     timed first, in rounds taken in turns (``_time_rounds``), before any
     plain pass heats the card; then each kernel's last result is held
-    against its plain version over the full grid of the timed shape (bit
-    for bit for the complex and the sparse kernels)."""
+    against its plain version over the full grid of the timed shape, bit
+    for bit."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     entries = _timed_entries(torch, card)
     timed = _time_rounds(torch, {k: e[0] for k, e in entries.items()})
@@ -1075,19 +1204,16 @@ def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
     for entry, n, B, replaces, source in TIMED:
         _kern, plain, bound, bound_by, _n, _B, mode = entries.pop(entry)
         blocks = DEFAULT_GEOMETRY.kernel_geometry(n)[3]
-        bitwise = "sparse" in entry or "complex" in entry
         got = timed[entry].pop("got")
         plain_ms, want = _time_ms(torch, plain, reps=1)
         if entry.endswith("_scalar"):
             want = want[0]
         full_err[entry] = 0.0
         ok = _agree(got, want, full_err, entry)
-        if bitwise:
-            ok &= bool(torch.equal(got, want))
-        smoke.check(ok, f"{entry} {'equals' if bitwise else 'agrees with'} "
-                        f"its plain version over the full grid of {B} x "
-                        f"n={n} ({blocks} blocks, {mode}, dq_acc): max abs "
-                        f"err {full_err[entry]:g}")
+        ok &= bool(torch.equal(got, want))
+        smoke.check(ok, f"{entry} equals its plain version bit for bit over "
+                        f"the full grid of {B} x n={n} ({blocks} blocks, "
+                        f"{mode}, dq_acc): max abs err {full_err[entry]:g}")
         del plain, got, want
         torch.cuda.empty_cache()
         ms = timed[entry]["ms"]

@@ -1,7 +1,7 @@
-// What the Ryser kernels share: accumulator codes, the block size cap,
+// What the Ryser kernels share: accumulator codes, the block size cap and
 // _accum_add (kernels/ryser_pallas.py), one product term into a lane's
-// (s, c) accumulator, and the real row product over a register state.
-// Included by ryser_kernels.cuh, the block bodies every source instantiates.
+// (s, c) accumulator.  Included by ryser_kernels.cuh, the block bodies every
+// source instantiates, which also holds the row products.
 #pragma once
 
 namespace {
@@ -33,17 +33,6 @@ __device__ __forceinline__ void accum_add(double& s, double& c, double term) {
   } else {
     s = s + term;  // dd, and qq (no twofloat product in the kernel)
   }
-}
-
-// Sequential product over the n live rows; padded rows are exactly 1.
-template <int NPAD>
-__device__ __forceinline__ double chain_prod(const double (&X)[NPAD], int n) {
-  double p = X[0];
-#pragma unroll
-  for (int i = 1; i < NPAD; ++i) {
-    if (i < n) p = p * X[i];
-  }
-  return p;
 }
 
 }  // namespace

@@ -34,11 +34,11 @@
 // nothing to fuse, so the least time is ryser_flops(n) over half the
 // data-sheet FP64 FLOP/s (which counts an FMA as two).  What the design
 // does about it: no global memory traffic inside the step loop (A in shared
-// memory, X in registers), each update is one DFMA, and the product skips
-// the padded rows (exactly 1).  Not done yet: the product is one serial
-// DMUL chain, so at the occupancy a 2 * NPAD register array allows the
-// step is latency-bound; splitting the chain would change the reference's
-// association order.
+// memory, X in registers), each update is one DFMA, and the product runs
+// its rows without a branch, dropping the padded ones by a select
+// (ryser_kernels.cuh::re_chain), so the rows' loads and states overlap the
+// chain.  Not done: the product is one serial DMUL chain; splitting it would
+// change the reference's association order.
 
 #include <cstdint>
 #include <cuda_runtime.h>

@@ -13,7 +13,7 @@
 // boundary column, the lane tree -- is one code path.  Within a CCS column
 // the live rows are distinct, so every live U entry is one exact add to 0
 // and U equals A[:, :kw]: a sparse kernel equals the dense batched mode bit
-// for bit on the same matrix, and does the same work.
+// for bit on the same matrix.
 //
 // Layout (the paper's GPU layout, not the Pallas block layout): one thread
 // per chunk, TB threads per CTA, each running C Gray steps as M = C / Wu
@@ -24,20 +24,41 @@
 // Built with --fmad=false; the only __fma_rn sites multiply an entry of A
 // by 0, +-1 or -2, where the product is exact.
 //
-// What bounds the complex body on the H100, and what its design does about
-// it.  The work is FP64 instructions: per live row and step 2 adds for the
-// state, 4 multiplies and 2 adds for the product, and the mid correction's
-// 2 fused ops on half the steps.  The product chain serialises the rows,
-// two dependent FP64 latencies a row, and at NPAD 32 the two X planes leave
-// room for 8 warps an SM: too few to hide that unless each warp has other
-// work ready, the next rows' shared loads and states.  A branch a row
-// (i < n) makes every row a block of its own and serialises those too: the
-// FP64 pipe then runs at about a third of its rate.  cx_chain runs the rows
-// without a branch, dropping the rows past n by a select, so the compiler
-// issues the loads (paired into 16-byte loads) and the states ahead of the
-// chain.  Splitting a chunk's rows over a lagged thread pair, for 16 warps
-// at 128 registers, costs more in selects, unpaired loads and per-step work
-// than the extra warps win, so a chunk stays on one thread.
+// What bounds the bodies on the H100, and what their design does about it.
+// The work is FP64 instructions: per live row and step a state add (real;
+// complex 2) and the product's multiply (complex 4 multiplies and 2 adds),
+// plus the mid correction's fused op on half the steps.  The product chain
+// serialises the rows, one or two dependent FP64 latencies a row, so a
+// warp needs other work ready beside it: the next rows' shared loads and
+// states.  A branch a row (i < n) makes every row a block of its own and
+// serialises those too, which left the FP64 pipe at a third of its rate.
+// So both bodies run their rows without a branch (re_chain, cx_chain): rows
+// past n are dropped by a select, and the compiler issues the loads and
+// states ahead of the chain.  A real row gives the chain one multiply and
+// little else to overlap it, so the real body also takes its inner steps
+// two at a time up to NPAD 32: one pass over the rows carries two
+// independent chains, each step's product and accumulation op for op and
+// in order as before.  Splitting a complex chunk's rows over a lagged
+// thread pair, for 16 warps at 128 registers, costs more in selects,
+// unpaired loads and per-step work than the extra warps win, so a chunk
+// stays on one thread; capping the real body at 128 registers (16 warps)
+// spills.
+//
+// The sparse real body also skips the rows no window state touches.  On a
+// row that none of the kw low columns reaches, D and the mid column are
+// exactly +0 and the state is X[i] itself, so the host glue
+// (kernels/ops.py::order_sparse_leaves) permutes each real leaf so that few
+// rows are touched and those come first, each CTA reads R = 1 + the largest
+// live row of its member's low columns, and one CTA-uniform switch picks
+// the window loop compiled for RPAD = R rounded up to 8: rows from RPAD on
+// enter each product as X[i], with no add and no correction.  This leaves
+// every bit as it was: X[i] + (+0) == X[i] for every X[i] but -0, and a row
+// sum is never -0.  It starts from x_i = a[i][n-1] - rowsum_i / 2 and adds
+// terms a[i][j] * {0, 1}; in round to nearest a sum is -0 only when both
+// addends are, x_i is -0 only when rowsum_i / 2 is +0, and such a row
+// holds an entry that is +0 or positive, whose terms are too.  So the
+// sparse kernels still equal their plain versions and the dense batched
+// mode.
 #pragma once
 
 #include <cstdint>
@@ -80,6 +101,237 @@ __device__ __forceinline__ void window_states(double* Ds, const double* low,
   }
 }
 
+// Where the state of row i of a real step comes from: X[i] + D[i][idx]
+// before the window's mid step, plus the mid correction col_mid[i] * cm from
+// it on; X[i] itself, advanced beforehand (the boundary step); or X[i]
+// advanced in place by the step's signed column (the baseline mode).
+enum ReState { RE_WINDOW = 0, RE_WINDOW_CORR = 1, RE_X = 2, RE_STEP = 3 };
+
+// The real products of K consecutive steps over rows 0..n-1, in one pass
+// over the rows: p[k] = step k's state of row 0, then p[k] <- p[k] * state.
+// Each product is the plain version's chain op for op; K = 2 gives the warp
+// two independent chains to issue.  src[k] is step k's window states
+// (RE_WINDOW*) or column (RE_STEP, sign f[k]; steps in order).  Rows from
+// RPAD on take X[i] itself in the window states (the sparse body's
+// untouched rows).  No branch splits the rows (ROW_BRANCHES false), so the
+// compiler runs their loads and states ahead of the chains: rows below
+// LIVE_FROM are live (i < n) by the caller's promise, and a later row past
+// n has its product computed and dropped by select -- never a multiply by a
+// padded row's 1, which could flip the sign of a zero.  With ROW_BRANCHES
+// each row's product sits behind its own i < n branch.
+template <int NPAD, int STATE, int RPAD, int K, int LIVE_FROM,
+          bool ROW_BRANCHES>
+__device__ __forceinline__ void re_chain(double (&X)[NPAD],
+                                         const double* const (&src)[K],
+                                         const double (&f)[K],
+                                         const double* cmc, double cm, int n,
+                                         double (&p)[K]) {
+#pragma unroll
+  for (int i = 0; i < NPAD; ++i) {
+    double x[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (STATE == RE_STEP) {
+        X[i] = __fma_rn(src[k][i], f[k], X[i]);  // exact: f is +-1
+        x[k] = X[i];
+      } else {
+        x[k] = X[i];
+        if (STATE != RE_X && i < RPAD) {
+          x[k] = x[k] + src[k][i];
+          if (STATE == RE_WINDOW_CORR) x[k] = __fma_rn(cmc[i], cm, x[k]);  // exact: cm is 0 or -2
+        }
+      }
+    }
+    if (ROW_BRANCHES && i >= n) continue;
+    const bool live = ROW_BRANCHES || i < LIVE_FROM || i < n;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (i == 0) {
+        p[k] = x[k];
+      } else {
+        const double q = p[k] * x[k];
+        p[k] = live ? q : p[k];
+      }
+    }
+  }
+}
+
+// re_chain for any n, as cx_chain_rows: up to NPAD 32 the rows run
+// branch-free -- all unconditional when n == NPAD, those below NPAD - 8
+// when n > NPAD - 8 (every caller pads to the least multiple of 8 >= n), a
+// select on every row otherwise; above NPAD 32 each row keeps its branch.
+template <int NPAD, int STATE, int RPAD, int K>
+__device__ __forceinline__ void re_chain_rows(double (&X)[NPAD],
+                                              const double* const (&src)[K],
+                                              const double (&f)[K],
+                                              const double* cmc, double cm,
+                                              int n, double (&p)[K]) {
+  if constexpr (NPAD > 32)
+    re_chain<NPAD, STATE, RPAD, K, 0, true>(X, src, f, cmc, cm, n, p);
+  else if (n == NPAD)
+    re_chain<NPAD, STATE, RPAD, K, NPAD, false>(X, src, f, cmc, cm, n, p);
+  else if (n > NPAD - 8)
+    re_chain<NPAD, STATE, RPAD, K, NPAD - 8, false>(X, src, f, cmc, cm, n,
+                                                    p);
+  else
+    re_chain<NPAD, STATE, RPAD, K, 0, false>(X, src, f, cmc, cm, n, p);
+}
+
+// K window steps idx.. from their states into (s_acc, c_acc), in order.
+template <int NPAD, int P, int STATE, int RPAD, int K>
+__device__ __forceinline__ void window_steps(double (&X)[NPAD],
+                                             const double* Ds, int idx,
+                                             const double* col_mid, double cm,
+                                             int n, double& s_acc,
+                                             double& c_acc) {
+  const double* src[K];
+  double f[K], p[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    src[k] = Ds + (idx + k) * NPAD;
+    f[k] = 0.0;
+  }
+  re_chain_rows<NPAD, STATE, RPAD, K>(X, src, f, col_mid, cm, n, p);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    accum_add<P>(s_acc, c_acc, ((idx + k + 1) & 1) ? -p[k] : p[k]);
+}
+
+// K baseline steps w.. (X advanced in place) into (s_acc, c_acc), in order.
+template <int NPAD, int P, int K>
+__device__ __forceinline__ void baseline_steps(double (&X)[NPAD],
+                                               const double* As, int w,
+                                               int kw, double mid_flip, int n,
+                                               double& s_acc, double& c_acc) {
+  const double* src[K];
+  double f[K], p[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int wk = w + k;
+    const int j = __ffs(wk) - 1;
+    // host-constant sign, except the mid step's per-lane flip
+    f[k] = (j + 1 < kw) ? (double)(2 * (((wk >> j) ^ (wk >> (j + 1))) & 1) - 1)
+                        : mid_flip;
+    src[k] = As + j * NPAD;
+  }
+  re_chain_rows<NPAD, RE_STEP, NPAD, K>(X, src, f, nullptr, 0.0, n, p);
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    accum_add<P>(s_acc, c_acc, ((w + k) & 1) ? -p[k] : p[k]);
+}
+
+// The M windows of one chunk from X (its start state) into (s_acc, c_acc),
+// the inner steps K at a time: two up to NPAD 32, so each pass over the
+// rows issues two independent product chains; one above, where a second
+// chain spills (600-700 B at NPAD 64).  Rows from RPAD on are untouched by
+// D and col_mid (RPAD = NPAD unless the sparse body found fewer rows in its
+// low columns): they neither take the window states nor advance with them.
+template <int NPAD, int P, bool SPARSE, int RPAD>
+__device__ __forceinline__ void real_windows(
+    double (&X)[NPAD], const double* As, const double* Ds,
+    const double* col_mid, uint64_t start, int M, int Wu_log2, int n,
+    bool batched, double& s_acc, double& c_acc) {
+  const int Wu = 1 << Wu_log2;
+  const int kw = Wu_log2;
+  const int mid_idx = Wu / 2 - 1;
+  const uint64_t space = 1ull << (n - 1);
+  constexpr int K = NPAD <= 32 ? 2 : 1;
+  for (int m = 0; m < M; ++m) {
+    if constexpr (SPARSE) {
+      // With the mode fixed at compile time the compiler hoists the
+      // window-invariant columns col_mid and D[:, Wu-2] out of this loop
+      // into 4 NPAD more registers (232 at NPAD 32, spills from NPAD 40);
+      // the barrier keeps the dense kernel's reload from shared memory.
+      asm volatile("" ::: "memory");
+    }
+    const uint64_t macro = start + ((uint64_t)m << Wu_log2);
+    const double bitk = (double)((macro >> kw) & 1ull);
+    if (!batched) {
+      const double mid_flip = 1.0 - 2.0 * bitk;
+      int w = 1;
+      for (; w + K - 1 < Wu; w += K)
+        baseline_steps<NPAD, P, K>(X, As, w, kw, mid_flip, n, s_acc, c_acc);
+      if constexpr (K == 2)     // Wu - 1 steps: one is left
+        baseline_steps<NPAD, P, 1>(X, As, w, kw, mid_flip, n, s_acc, c_acc);
+    } else {
+      // states (X + D[:, idx]) + corr, corr = col_mid * (-2 * bitk) from the
+      // mid step on; X itself is advanced once per window
+      const double cm = -2.0 * bitk;
+      if constexpr (K == 1) {
+        // one loop over the steps: split in two as below, the sparse
+        // NPAD 40-64 instantiations took 43-74 more registers and spilled
+        // at NPAD 56-64
+        for (int idx = 0; idx < Wu - 1; ++idx) {
+          if (idx >= mid_idx)
+            window_steps<NPAD, P, RE_WINDOW_CORR, RPAD, 1>(
+                X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
+          else
+            window_steps<NPAD, P, RE_WINDOW, RPAD, 1>(X, Ds, idx, col_mid,
+                                                      cm, n, s_acc, c_acc);
+        }
+      } else {
+        int idx = 0;
+        for (; idx + 1 < mid_idx; idx += 2)
+          window_steps<NPAD, P, RE_WINDOW, RPAD, 2>(X, Ds, idx, col_mid, cm,
+                                                    n, s_acc, c_acc);
+        if (idx < mid_idx)
+          window_steps<NPAD, P, RE_WINDOW, RPAD, 1>(X, Ds, idx++, col_mid, cm,
+                                                    n, s_acc, c_acc);
+        for (; idx + 1 < Wu - 1; idx += 2)
+          window_steps<NPAD, P, RE_WINDOW_CORR, RPAD, 2>(X, Ds, idx, col_mid,
+                                                         cm, n, s_acc, c_acc);
+        if (idx < Wu - 1)
+          window_steps<NPAD, P, RE_WINDOW_CORR, RPAD, 1>(X, Ds, idx, col_mid,
+                                                         cm, n, s_acc, c_acc);
+      }
+      const double* Dl = Ds + (Wu - 2) * NPAD;
+#pragma unroll
+      for (int i = 0; i < RPAD; ++i) {
+        X[i] = X[i] + Dl[i];
+        X[i] = __fma_rn(col_mid[i], cm, X[i]);
+      }
+    }
+
+    // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
+    const uint64_t gb = macro + (uint64_t)Wu;
+    const int jb = __ffsll((long long)gb) - 1;
+    const uint64_t ggb = gb ^ (gb >> 1);
+    const double sb = (double)(2 * (int)((ggb >> jb) & 1ull) - 1);
+    const double live = (gb <= space - 1) ? 1.0 : 0.0;
+    const double f = sb * live;
+    const double* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
+#pragma unroll
+    for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
+    // a separate pass: folded into the chain as an RE_STEP, ptxas takes
+    // 174 registers at NPAD 32 (8 warps/SM) and spills at NPAD 24 and 64
+    const double* none[1] = {nullptr};
+    double p[1];
+    re_chain_rows<NPAD, RE_X, NPAD, 1>(X, none, {0.0}, nullptr, 0.0, n, p);
+    accum_add<P>(s_acc, c_acc, p[0] * live);
+  }
+}
+
+// The sparse body's CTA-uniform switch on R, the rows its low columns
+// touch: the window loop compiled for RPAD, the least multiple of 8 >= R,
+// found by a chain of uniform branches from RPAD = 8 up.
+template <int NPAD, int P, int RPAD>
+__device__ __forceinline__ void sparse_windows(
+    int R, double (&X)[NPAD], const double* As, const double* Ds,
+    const double* col_mid, uint64_t start, int M, int Wu_log2, int n,
+    double& s_acc, double& c_acc) {
+  if constexpr (RPAD >= NPAD) {
+    real_windows<NPAD, P, true, NPAD>(X, As, Ds, col_mid, start, M, Wu_log2,
+                                      n, true, s_acc, c_acc);
+  } else {
+    if (R <= RPAD)
+      real_windows<NPAD, P, true, RPAD>(X, As, Ds, col_mid, start, M,
+                                        Wu_log2, n, true, s_acc, c_acc);
+    else
+      sparse_windows<NPAD, P, RPAD + 8>(R, X, As, Ds, col_mid, start, M,
+                                        Wu_log2, n, s_acc, c_acc);
+  }
+}
+
 template <int NPAD, int P, bool SPARSE>
 __global__ void __launch_bounds__(kMaxThreads)
 ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
@@ -93,13 +345,13 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   const int Wu = 1 << Wu_log2;
   const int kw = Wu_log2;
   const int M = 1 << (C_log2 - Wu_log2);
-  const uint64_t space = 1ull << (n - 1);
   const bool batched = SPARSE || mode == M_BATCHED;    // sparse: batched only
 
   double* As = smem;                                   // NPAD * NPAD
   double* Us = As + NPAD * NPAD;                       // NPAD * kw if SPARSE
   double* Ds = Us + (SPARSE ? NPAD * kw : 0);          // NPAD * (Wu - 1)
   double* red = Ds + (batched ? NPAD * (Wu - 1) : 0);  // 2 * TB
+  int* Rs = reinterpret_cast<int*>(red + 2 * TB);      // kw if SPARSE
   const double* low = SPARSE ? Us : As;                // the kw low columns
 
   const int b = blockIdx.y;
@@ -110,11 +362,20 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
     As[j * NPAD + i] = Ab[t];
   }
   if constexpr (SPARSE) {
+    const int* rb = rows + (size_t)b * n * maxdeg;
     for (int t = lane; t < NPAD * kw; t += TB) Us[t] = 0.0;
     __syncthreads();
-    scatter_low_columns(Us, rows + (size_t)b * n * maxdeg,
-                        vals + (size_t)b * n * maxdeg, kw, maxdeg, NPAD, lane,
-                        TB);
+    scatter_low_columns(Us, rb, vals + (size_t)b * n * maxdeg, kw, maxdeg,
+                        NPAD, lane, TB);
+    // R of each low column: 1 + its largest live row (0 if it has none)
+    for (int j = lane; j < kw; j += TB) {
+      int r1 = 0;
+      for (int d = 0; d < maxdeg; ++d) {
+        const int r = rb[j * maxdeg + d];
+        if (r < n) r1 = max(r1, r + 1);
+      }
+      Rs[j] = r1;
+    }
   }
   if (batched) {
     __syncthreads();
@@ -137,70 +398,15 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   }
 
   const double* col_mid = low + (kw - 1) * NPAD;
-  const int mid_idx = Wu / 2 - 1;
   double s_acc = 0.0, c_acc = 0.0;
-  for (int m = 0; m < M; ++m) {
-    if constexpr (SPARSE) {
-      // With the mode fixed at compile time the compiler hoists the
-      // window-invariant columns col_mid and D[:, Wu-2] out of this loop
-      // into 4 NPAD more registers (232 at NPAD 32, spills from NPAD 40);
-      // the barrier keeps the dense kernel's reload from shared memory.
-      asm volatile("" ::: "memory");
-    }
-    const uint64_t macro = start + ((uint64_t)m << Wu_log2);
-    const double bitk = (double)((macro >> kw) & 1ull);
-    if (!batched) {
-      const double mid_flip = 1.0 - 2.0 * bitk;
-      for (int w = 1; w < Wu; ++w) {
-        const int j = __ffs(w) - 1;
-        // host-constant sign, except the mid step's per-lane flip
-        const double s = (j + 1 < kw)
-            ? (double)(2 * (((w >> j) ^ (w >> (j + 1))) & 1) - 1)
-            : mid_flip;
-        const double* col = As + j * NPAD;
-#pragma unroll
-        for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(col[i], s, X[i]);  // exact: s is +-1
-        const double prod = chain_prod<NPAD>(X, n);
-        accum_add<P>(s_acc, c_acc, (w & 1) ? -prod : prod);
-      }
-    } else {
-      // states (X + D[:, idx]) + corr, corr = col_mid * (-2 * bitk) from the
-      // mid step on; X itself is advanced once per window
-      const double cm = -2.0 * bitk;
-      for (int idx = 0; idx < Wu - 1; ++idx) {
-        const double* Dc = Ds + idx * NPAD;
-        const bool after_mid = idx >= mid_idx;
-        double p = 1.0;
-#pragma unroll
-        for (int i = 0; i < NPAD; ++i) {
-          if (i < n) {
-            double st = X[i] + Dc[i];
-            if (after_mid) st = __fma_rn(col_mid[i], cm, st);  // exact: cm is 0 or -2
-            p = (i == 0) ? st : p * st;
-          }
-        }
-        accum_add<P>(s_acc, c_acc, ((idx + 1) & 1) ? -p : p);
-      }
-      const double* Dl = Ds + (Wu - 2) * NPAD;
-#pragma unroll
-      for (int i = 0; i < NPAD; ++i) {
-        X[i] = X[i] + Dl[i];
-        X[i] = __fma_rn(col_mid[i], cm, X[i]);
-      }
-    }
-
-    // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
-    const uint64_t gb = macro + (uint64_t)Wu;
-    const int jb = __ffsll((long long)gb) - 1;
-    const uint64_t ggb = gb ^ (gb >> 1);
-    const double sb = (double)(2 * (int)((ggb >> jb) & 1ull) - 1);
-    const double live = (gb <= space - 1) ? 1.0 : 0.0;
-    const double f = sb * live;
-    const double* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
-#pragma unroll
-    for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
-    const double prod = chain_prod<NPAD>(X, n);
-    accum_add<P>(s_acc, c_acc, prod * live);
+  if constexpr (SPARSE) {
+    int R = 0;                  // every thread, the same fixed order
+    for (int j = 0; j < kw; ++j) R = max(R, Rs[j]);
+    sparse_windows<NPAD, P, 8>(R, X, As, Ds, col_mid, start, M, Wu_log2, n,
+                               s_acc, c_acc);
+  } else {
+    real_windows<NPAD, P, false, NPAD>(X, As, Ds, col_mid, start, M,
+                                       Wu_log2, n, batched, s_acc, c_acc);
   }
 
   // ---- fixed-order lane tree over hi and lo (no atomics) ----

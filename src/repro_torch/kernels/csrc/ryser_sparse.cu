@@ -34,11 +34,15 @@
 //
 // Bound: FP64 instruction throughput over the work SpaRyser needs, which the
 // data sets: per Gray step deg(j) adds for the changed column j and n - 1
-// multiplies for the product (complex: 2 deg(j) + 6 (n - 1)).  This design
-// does the dense kernel's n adds per step whatever the density, so it sits
-// further from that bound than the dense kernel from its own.  Not done: a
-// sparse-aware step (only deg(j) rows change) needs X in shared memory or a
-// runtime-indexed update.
+// multiplies for the product (complex: 2 deg(j) + 6 (n - 1)).  The dense
+// body adds a window state to all n rows a step, whatever the density.  The
+// real sparse body adds it only to the rows below RPAD: the rows its low
+// columns touch, rounded up to 8 (ryser_kernels.cuh).  The host glue
+// (kernels/ops.py::order_sparse_leaves) permutes each real leaf so that its
+// kw low columns touch few rows and those rows come first: about 8-10 of
+// 24-32 on a banded matrix of degree 5-7, so a step does RPAD adds and
+// n - 1 multiplies, still at least the bound's count.  The complex body
+// keeps the dense step.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -55,7 +59,7 @@ int launch_real(const double* A, const int* rows, const double* vals,
   const size_t Wu = (size_t)1 << Wu_log2;
   const size_t smem = sizeof(double) *
       ((size_t)NPAD * NPAD + (size_t)NPAD * Wu_log2 + (size_t)NPAD * (Wu - 1) +
-       2 * (size_t)TB);
+       2 * (size_t)TB) + sizeof(int) * (size_t)Wu_log2;
   return launch_kernel(ryser_kernel<NPAD, P, true>, smem, num_blocks, B, TB,
                        stream, A, rows, vals, xb, c0, out, base, n, maxdeg,
                        C_log2, Wu_log2, num_blocks, (int)M_BATCHED);

@@ -18,8 +18,12 @@ arrays (the executor's path), ``permanent_cuda_sparse(sp)`` /
 drive the padded-CCS SpaRyser kernels of ``ryser_sparse.cu`` through
 ``_cuda_sparse_values``, sharing padding, the NW base vectors,
 ``prepare``/``prepare_complex`` and ``kernel_reduce`` with the dense arm;
-the CCS ``rows`` travel as int32.  A scalar sparse leaf and its bucket
-entry run one kernel body from chunk 0, so they agree bit for bit.
+the CCS ``rows`` travel as int32.  A real sparse leaf is first permuted
+(``order_sparse_leaves``) so that the kernel's low columns touch few rows,
+which come first: the real sparse kernel skips the window states of the
+rest.  The permutation depends on the leaf alone and a scalar sparse leaf
+and its bucket entry run one kernel body from chunk 0, so they agree bit
+for bit.
 ``block_partials_cuda`` exposes the raw per-block real dense partials over
 any chunk window.
 
@@ -52,8 +56,9 @@ __all__ = ["Geometry", "DEFAULT_GEOMETRY", "permanent_cuda",
            "permanent_cuda_batched", "permanent_cuda_sparse",
            "permanent_cuda_sparse_batched", "sparse_value_cuda",
            "sparse_batched_values_cuda",
-           "block_partials_cuda", "kernel_reduce", "pad_matrix",
-           "pad_base_vector", "prepare", "prepare_complex",
+           "block_partials_cuda", "kernel_reduce", "order_sparse_leaves",
+           "pad_matrix", "pad_base_vector", "prepare", "prepare_complex",
+           "prepare_sparse", "sparse_leaf_order",
            "split_matrix_planes", "split_base_planes", "tree_sum"]
 
 _PAD = 8  # the kernel is instantiated for n_pad in 8, 16, ..., 64
@@ -132,6 +137,78 @@ def prepare_complex(As):
             xbs)
 
 
+def _low_columns(supp, kw: int):
+    """(taken, touched), each (B, n) bool: the kw columns chosen as a
+    leaf's low columns and the rows they touch, from ``supp[b, j, i]``
+    (column j has a nonzero in row i).  Greedy and deterministic: start
+    from a column of least degree, then keep adding the column that adds
+    the fewest rows not yet touched; ties go to the lowest column."""
+    B, n, _ = supp.shape
+    dev = supp.device
+    bidx = torch.arange(B, device=dev)
+    taken = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    touched = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    col = torch.arange(n, device=dev)
+    for _ in range(kw):
+        new = (supp & ~touched[:, None, :]).sum(-1)
+        key = (new * n + col).masked_fill(taken, n * (n + 1))  # unique min
+        j = torch.argmin(key, dim=-1)
+        taken[bidx, j] = True
+        touched |= supp[bidx, j]
+    return taken, touched
+
+
+def sparse_leaf_order(rows, kw: int):
+    """``(cols, order, R)`` of each leaf of (B, n, maxdeg) padded CCS
+    ``rows``, each (B, n) / (B,): the column order, the kw low columns
+    ``_low_columns`` picks first, then the other columns; the row order,
+    the R rows those columns touch first, then the others; each group in
+    its original order.  A function of each leaf's nonzero pattern alone,
+    so a leaf gets the same order alone and in any bucket."""
+    B, n, _ = rows.shape
+    supp = torch.zeros((B, n, n + 1), dtype=torch.bool, device=rows.device)
+    supp.scatter_(2, rows.long(), True)
+    taken, touched = _low_columns(supp[..., :n], kw)
+    cols = torch.argsort((~taken).to(torch.int8), dim=-1, stable=True)
+    order = torch.argsort((~touched).to(torch.int8), dim=-1, stable=True)
+    return cols, order, touched.sum(-1)
+
+
+def order_sparse_leaves(As, rows, vals, kw: int):
+    """Each real sparse leaf of a (B, n, n) stack and its (B, n, maxdeg)
+    padded CCS arrays permuted for the sparse kernel
+    (``sparse_leaf_order``): ``A[order][:, cols]``, the CCS row ids
+    remapped and each column's entries in ascending row (padding, row n,
+    last) with their values, as ``padded_ccs`` of the permuted leaf
+    would give them at this maxdeg.  A permutation of rows and columns
+    leaves the permanent as it is."""
+    n = As.shape[-1]
+    cols, order, _ = sparse_leaf_order(rows, kw)
+    bidx = torch.arange(As.shape[0], device=As.device)[:, None]
+    new_id = torch.argsort(order, dim=-1)             # old row -> new row
+    As = As[bidx[..., None], order[:, :, None], cols[:, None, :]]
+    r = rows.long()[bidx, cols]
+    r = torch.where(r < n, new_id.gather(1, r.clamp(max=n - 1).flatten(1))
+                    .view_as(r), n)
+    r, by_row = torch.sort(r, dim=-1, stable=True)
+    return As, r.to(torch.int32), vals[bidx, cols].gather(-1, by_row)
+
+
+def prepare_sparse(As, rows, vals, Wu: int):
+    """Real sparse kernel inputs ``(A_pads, rows, vals, xb_pads, xbs)`` of
+    a leaf (n, n) with its (n, maxdeg) CCS arrays or of a stack: the
+    leaves ordered for a window of Wu steps (``order_sparse_leaves``,
+    kw = log2(Wu)), then padded as ``prepare`` pads."""
+    one = As.ndim == 2
+    if one:
+        As, rows, vals = As[None], rows[None], vals[None]
+    As, rows, vals = order_sparse_leaves(As, rows, vals, int(math.log2(Wu)))
+    if one:
+        As, rows, vals = As[0], rows[0], vals[0]
+    A_pads, xb_pads, xbs = prepare(As)
+    return A_pads, rows, vals, xb_pads, xbs
+
+
 def _as_input(A, device):
     """f64 tensor on ``device``, complex128 for complex input."""
     return torch.complex(*as_planes(A, device)) if is_complex(A) \
@@ -188,7 +265,8 @@ def _cuda_sparse_values(As, rows, vals, *, batched: bool, precision: str,
     """The sparse arm: ``As`` (n, n) / (B, n, n) is the dense form (init,
     NW base vectors, boundary column), ``rows`` (int32) / ``vals`` the
     (..., n, maxdeg) padded CCS arrays driving the window states.  Real
-    input launches the real sparse kernel, complex the split-plane one."""
+    input is ordered (``prepare_sparse``) and launches the real sparse
+    kernel, complex the split-plane one as it comes."""
     n = As.shape[-1]
     TB, C, Wu, blocks = geometry.kernel_geometry(n)
     geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
@@ -202,7 +280,7 @@ def _cuda_sparse_values(As, rows, vals, *, batched: bool, precision: str,
         else:
             out = ryser_sparse_cuda_call_complex(*planes, 0, **geo)
         return _reduce_complex(out, xbs, n)
-    A_pads, xb_pads, xbs = prepare(As)
+    A_pads, rows, vals, xb_pads, xbs = prepare_sparse(As, rows, vals, Wu)
     if batched:
         out = ryser_sparse_cuda_call_batched(A_pads, rows, vals, xb_pads,
                                              **geo)

@@ -19,7 +19,11 @@ from fewer columns.  Entries at row n_pad (when n == n_pad) are skipped.
 The kernels instantiate the dense bodies (``csrc/ryser_kernels.cuh``)
 with U as the source of the low columns, and the plain versions run the
 dense plain bodies on U; U equals A's low columns exactly, so both equal
-the dense batched mode bit for bit on the same matrix.
+the dense batched mode bit for bit on the same matrix.  The real kernel
+also reads R, the rows its low columns touch (``low_column_rows``), and
+adds window states only to the rows below R rounded up to 8: on the rest
+they are +0 and the result is the same to the bit, so the plain version
+has no such step.
 
 Every entry returns per-block partials WITHOUT the g = 0 term: ``(hi, lo)``
 real, ``(re_hi, re_err, im_hi, im_err)`` complex; ``kernels/ops.py::
@@ -44,7 +48,7 @@ __all__ = ["ryser_sparse_cuda_call", "ryser_sparse_cuda_call_batched",
            "ryser_sparse_cuda_call_complex",
            "ryser_sparse_cuda_call_complex_batched",
            "block_partials_plain_sparse",
-           "block_partials_plain_sparse_complex"]
+           "block_partials_plain_sparse_complex", "low_column_rows"]
 
 
 def _scatter_low_columns(rows, vals, kw: int, n_pad: int):
@@ -61,6 +65,15 @@ def _scatter_low_columns(rows, vals, kw: int, n_pad: int):
             r = r_all[:, j, d]
             U[bidx, r, j] = U[bidx, r, j] + vals[:, j, d]
     return U[:, :n_pad]                              # row n_pad: the sink
+
+
+def low_column_rows(rows, kw: int, n: int):
+    """R of each matrix as the real kernel derives it from its (..., n,
+    maxdeg) CCS rows: 1 + the largest live row id (< n) among the kw low
+    columns, 0 if they hold none.  The kernel runs the window loop compiled
+    for RPAD, R rounded up to a multiple of 8 (at least 8)."""
+    r = rows[..., :kw, :].long()
+    return torch.where(r < n, r + 1, 0).flatten(-2).amax(-1)
 
 
 def block_partials_plain_sparse(A_pads, rows, vals, xb_pads, chunk_base: int,

@@ -1,7 +1,7 @@
 """Tests that need the card: the CUDA kernels (dense real, split-plane
-complex, and sparse real and complex) against their plain versions and the
-main path against the torch engines, on the device.  They skip where no
-card is present; on a machine with one run
+complex, and sparse real and complex) against their plain versions, bit
+for bit, and the main path against the torch engines, on the device.
+They skip where no card is present; on a machine with one run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -227,3 +227,120 @@ def test_sparse_main_path_on_card(card, cplx):
     want = repro_torch.permanent_batch(mats, preprocess=False,
                                        backend="torch")
     np.testing.assert_allclose(got, want, rtol=1e-9)
+
+
+# n = 4, 5 (NPAD 8), 13 (16), 17 (24) and 30 (32) drop rows past n in the
+# real chain's select region, n = 16, 24, 32 run every row unconditionally,
+# n = 64 keeps a branch a row; over-padded n_pad puts a select on every row
+@pytest.mark.parametrize("mode", ["baseline", "batched"])
+@pytest.mark.parametrize("n, n_pad", [(4, 8), (5, 8), (13, 16), (16, 16),
+                                      (17, 24), (24, 24), (30, 32), (32, 32),
+                                      (64, 64), (9, 24), (20, 32), (30, 48)])
+def test_real_kernel_equals_plain_bitwise_on_card(card, n, n_pad, mode):
+    """The real body's branch-free rows keep its plain version's
+    arithmetic op for op: both entries equal it bit for bit."""
+    rng = np.random.default_rng(600 + n + n_pad)
+    As = torch.as_tensor(rng.uniform(-1, 1, (2, n, n)), device=card)
+    A_pads = ops.pad_matrix(As, n_pad)
+    xb_pads = ops.pad_base_vector(ops.nw_base_vector(As), n_pad)[..., None]
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    nb = min(4, blocks)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb, mode=mode)
+    top = blocks * TB - nb * TB
+    got = RC.ryser_cuda_call(A_pads[0], xb_pads[0], top, **geo)
+    want = RC.block_partials_plain(A_pads[:1], xb_pads[:1], top, **geo)[0]
+    assert torch.equal(got, want)
+    got = RC.ryser_cuda_call_batched(A_pads, xb_pads, **geo)
+    assert torch.equal(got, RC.block_partials_plain(A_pads, xb_pads, 0,
+                                                    **geo))
+
+
+def _extent(rng, n, R, kw, extra=0, negzero=False):
+    """Real, density about 0.25 with a full diagonal, whose kw low columns
+    touch exactly the rows below R; ``extra`` more nonzeros in column kw;
+    ``negzero``: zeros stored as -0.0 and, if R < n - 1, an untouched last
+    row whose entries cancel (0.5, -0.5)."""
+    A = rng.uniform(0.5, 1.5, (n, n)) * (rng.uniform(0, 1, (n, n)) < 0.25)
+    np.fill_diagonal(A, 1.0)
+    A[R:, :kw] = 0.0
+    A[R - 1, 0] = 0.75
+    if extra:
+        A[rng.choice(n, size=min(extra, n), replace=False), kw] = 1.25
+    if negzero:
+        if R < n - 1 and kw + 1 < n:
+            A[n - 1] = 0.0
+            A[n - 1, kw], A[n - 1, kw + 1] = 0.5, -0.5
+        A = np.where(A == 0.0, -0.0, A)
+    return A
+
+
+# (n, R of each member, -0.0 zeros): R < 8 alone; R = n; n no multiple of
+# 8; a bucket of four RPAD variants and maxdegs at NPAD 32; the -0.0 leaf
+# with a cancelling untouched row; NPAD 64 (rows with a branch)
+@pytest.mark.parametrize("n, Rs, negzero", [
+    (13, (3, 5, 7), False), (24, (24, 24, 24), False),
+    (22, (5, 12, 22), False), (30, (9, 17, 30), False),
+    (32, (3, 10, 20, 32), False), (24, (5, 9, 18), True),
+    (64, (5, 33, 64), False)])
+def test_sparse_kernel_rpad_variants_equal_plain_on_card(card, n, Rs,
+                                                         negzero):
+    """The real sparse kernel runs the window loop of RPAD = R rounded up
+    to 8, R derived per member: both entries equal the plain version and
+    the dense batched mode bit for bit (every member through the scalar
+    entry at the top of the step space)."""
+    rng = np.random.default_rng(700 + n + len(Rs))
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    kw = int(np.log2(Wu))
+    mats = [_extent(rng, n, R, kw, extra, negzero)
+            for R, extra in zip(Rs, (0, 2, 5, 1))]
+    A_np, rows_np, vals_np = pack_padded_ccs(
+        [SparseMatrix.from_dense(A) for A in mats])
+    As = torch.as_tensor(A_np, device=card)
+    rows = torch.as_tensor(rows_np, device=card)
+    vals = torch.as_tensor(vals_np, device=card)
+    assert RS.low_column_rows(rows, kw, n).tolist() == list(Rs)
+    A_pads, xb_pads, _ = ops.prepare(As)
+    nb = min(4, blocks)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+    top = blocks * TB - nb * TB
+    for b in range(len(mats)):
+        got = RS.ryser_sparse_cuda_call(A_pads[b], rows[b], vals[b],
+                                        xb_pads[b], top, **geo)
+        want = RS.block_partials_plain_sparse(
+            A_pads[b:b + 1], rows[b:b + 1], vals[b:b + 1],
+            xb_pads[b:b + 1], top, **geo)[0]
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    geo["num_blocks"] = min(16, blocks)
+    got = RS.ryser_sparse_cuda_call_batched(A_pads, rows, vals, xb_pads,
+                                            **geo)
+    torch.testing.assert_close(got, RS.block_partials_plain_sparse(
+        A_pads, rows, vals, xb_pads, 0, **geo), rtol=0, atol=0)
+    torch.testing.assert_close(got, RC.ryser_cuda_call_batched(
+        A_pads, xb_pads, mode="batched", **geo), rtol=0, atol=0)
+
+
+def test_sparse_main_path_orders_real_leaves_on_card(card):
+    """A band leaf on the sparse route runs on its ordered form (R = 8 of
+    20 rows): the value is within 1e-12 of the kernel on the leaf as it
+    comes and within 1e-9 of the torch engine; a bucket entry equals it."""
+    rng = np.random.default_rng(9)
+    i, j = np.indices((20, 20))
+    band = np.where((j - i) % 20 < 5, rng.uniform(0.5, 1.5, (20, 20)), 0.0)
+    A = band[rng.permutation(20)][:, rng.permutation(20)]
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(20)
+    rows, vals = (torch.as_tensor(x, device=card)
+                  for x in SparseMatrix.from_dense(A).padded_columns())
+    _, _, R = ops.sparse_leaf_order(rows[None], int(np.log2(Wu)))
+    assert int(R[0]) == 8
+    RC.reset_counters()
+    got = repro_torch.permanent(A, preprocess=False)
+    assert RC.counters["ryser_sparse_scalar"] == 1
+    A_pads, xb_pads, xbs = ops.prepare(torch.as_tensor(A, device=card))
+    out = RS.ryser_sparse_cuda_call(A_pads, rows, vals, xb_pads, 0, n=20,
+                                    TB=TB, C=C, Wu=Wu, num_blocks=blocks)
+    as_comes = float(ops._reduce_real(out, xbs, 20))
+    assert abs(got - as_comes) <= 1e-12 * abs(as_comes)
+    want = repro_torch.permanent(A, preprocess=False, backend="torch")
+    assert abs(got - want) <= 1e-9 * abs(want)
+    other = _extent(rng, 20, 20, int(np.log2(Wu)), extra=4)
+    assert repro_torch.permanent_batch([A, other], preprocess=False)[0] == got

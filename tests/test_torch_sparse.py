@@ -7,10 +7,11 @@ kernels in interpret mode: per-block partials at rtol 1e-12 / atol 1e-15
 geometry, uneven ``maxdeg``; (b) the torch sparse engines against
 ``repro.core.sparyser`` at equal chunking within 1e-12, worst ulp gap
 reported; (c) the entries against the reference and the oracle within
-1e-9; (d) batch invariance bit for bit; (e) dispatch tags, interop and
-the CLI.  On the CPU every kernel wrapper runs its plain version; the
-kernels themselves are held against them on the card (``chip_smoke.py``,
-``tests/test_torch_cuda.py``).
+1e-9; (d) batch invariance bit for bit; (e) the order a real leaf takes
+for the sparse kernel (``ops.order_sparse_leaves``); (f) dispatch tags,
+interop and the CLI.  On the CPU every kernel wrapper runs its plain
+version; the kernels themselves are held against them on the card
+(``chip_smoke.py``, ``tests/test_torch_cuda.py``).
 """
 
 import dataclasses
@@ -482,7 +483,124 @@ def test_scalar_sparse_leaf_equals_bucket_member(backend, cplx):
 
 
 # ---------------------------------------------------------------------------
-# (e) tags, interop, the CLI
+# (e) the real leaf order the sparse kernel runs on (ops.order_sparse_leaves)
+# ---------------------------------------------------------------------------
+
+def _banded(rng, n, degree):
+    """A random row and column permutation of the ``degree``-diagonal
+    circulant pattern, U(0.5, 1.5) values."""
+    i, j = np.indices((n, n))
+    mask = ((j - i) % n < degree)[rng.permutation(n)][:, rng.permutation(n)]
+    return np.where(mask, rng.uniform(0.5, 1.5, (n, n)), 0.0)
+
+
+def _ordered(mats, kw):
+    """(stack, rows, vals) as numpy, ``sparse_leaf_order`` and
+    ``order_sparse_leaves`` of a same-size list of real matrices."""
+    stack = np.stack(mats)
+    rows, vals = TSP.padded_ccs(stack)
+    order = TOPS.sparse_leaf_order(torch.tensor(rows), kw)
+    got = TOPS.order_sparse_leaves(torch.tensor(stack), torch.tensor(rows),
+                                   torch.tensor(vals), kw)
+    return (stack, rows, vals), order, got
+
+
+@pytest.mark.parametrize("kw", [1, 2, 4])
+@pytest.mark.parametrize("n", [6, 9, 12, 24])
+def test_sparse_leaf_order_is_a_permutation(n, kw):
+    """Row and column orders are permutations of range(n), the leaf is
+    A[order][:, cols], and R lies in [1, n]."""
+    rng = np.random.default_rng(1000 + n)
+    mats = [_sparse(rng, n, extra=e) for e in (0, 3)] + [_banded(rng, n, 3)]
+    (stack, _, _), (cols, order, R), (As, _, _) = _ordered(mats, kw)
+    for b in range(len(mats)):
+        c, o = cols[b].numpy(), order[b].numpy()
+        np.testing.assert_array_equal(np.sort(c), np.arange(n))
+        np.testing.assert_array_equal(np.sort(o), np.arange(n))
+        np.testing.assert_array_equal(As[b].numpy(), stack[b][o][:, c])
+    assert ((1 <= R) & (R <= n)).all()
+
+
+def test_sparse_leaf_order_depends_on_the_leaf_alone():
+    """A leaf gets one order alone, first or last in a bucket whose other
+    members raise maxdeg, and on every call."""
+    rng = np.random.default_rng(1010)
+    leaf = _banded(rng, 12, 3)
+    others = [_sparse(rng, 12, extra=e) for e in (6, 9)]
+    alone = _ordered([leaf], 4)
+    for mats, b in (([leaf] + others, 0), (others + [leaf], 2),
+                    ([leaf], 0)):
+        _, order, got = _ordered(mats, 4)
+        for x, y in zip(order, alone[1]):
+            assert torch.equal(x[b], y[0])
+        assert torch.equal(got[0][b], alone[2][0][0])
+        maxdeg = alone[2][1].shape[-1]
+        assert torch.equal(got[1][b, :, :maxdeg], alone[2][1][0])
+        assert (got[1][b, :, maxdeg:] == 12).all()
+        assert torch.equal(got[2][b, :, :maxdeg], alone[2][2][0])
+
+
+@pytest.mark.parametrize("n, degree, kw", [(12, 3, 2), (24, 5, 4),
+                                           (32, 7, 4)])
+def test_sparse_leaf_order_puts_the_touched_rows_first(n, degree, kw):
+    """The rows below R are exactly those the kw low columns touch, R is
+    what the kernel derives (``low_column_rows``), and on a band the greedy
+    columns are band neighbours: degree + kw - 1 rows (10 of 32 at degree
+    7), where the first kw columns of the leaf as it comes touch more."""
+    rng = np.random.default_rng(1020 + n)
+    mats = [_banded(rng, n, degree), _sparse(rng, n, extra=2)]
+    (_, rows, _), (_, _, R), (_, r2, _) = _ordered(mats, kw)
+    assert torch.equal(R, RS.low_column_rows(r2, kw, n))
+    for b in range(len(mats)):
+        low = r2[b, :kw]
+        assert set(low[low < n].tolist()) == set(range(int(R[b])))
+    assert int(R[0]) == degree + kw - 1
+    raw = RS.low_column_rows(torch.tensor(rows), kw, n)
+    assert int(raw[0]) > int(R[0])
+
+
+@pytest.mark.parametrize("n", [5, 9, 16])
+def test_ordered_ccs_equals_padded_ccs_of_the_ordered_leaf(n):
+    """The remapped CCS arrays are ``padded_ccs`` of the permuted dense
+    leaf, padded to the bucket's maxdeg."""
+    rng = np.random.default_rng(1030 + n)
+    mats = [_sparse(rng, n, extra=e) for e in (0, 2, n - 1)]
+    _, _, (As, rows, vals) = _ordered(mats, 2)
+    want_rows, want_vals = TSP.padded_ccs(As.numpy())
+    assert rows.dtype == torch.int32
+    np.testing.assert_array_equal(rows.numpy(), want_rows)
+    np.testing.assert_array_equal(vals.numpy(), want_vals)
+
+
+@pytest.mark.parametrize("precision", PRECISIONS)
+@pytest.mark.parametrize("n", [6, 9, 12])
+def test_ordered_sparse_leaf_matches_oracle_and_reference(n, precision):
+    """The real sparse entry runs the plain version on the ordered leaf:
+    its value is within 1e-9 of the oracle and within 1e-12 of the
+    reference Pallas sparse kernel (interpret mode) on the leaf as it
+    comes, at the same geometry and precision."""
+    rng = np.random.default_rng(1040 + n)
+    A = _sparse(rng, n, extra=2, density=0.3)
+    rows, _ = TSP.padded_ccs(A)
+    kw = int(np.log2(GEO.kernel_geometry(n)[2]))
+    cols, order, _ = TOPS.sparse_leaf_order(torch.tensor(rows)[None], kw)
+    assert not (torch.equal(cols[0], torch.arange(n))
+                and torch.equal(order[0], torch.arange(n)))
+    RC.reset_counters()
+    got = float(TOPS.permanent_cuda_sparse(TSP.SparseMatrix.from_dense(A),
+                                           precision=precision, geometry=GEO,
+                                           device="cpu"))
+    assert RC.counters["block_partials_plain_sparse"] == 1
+    exact = oracle.perm_ryser_exact(A)
+    want = float(OPS.permanent_pallas_sparse(
+        RSP.SparseMatrix.from_dense(A), precision=precision,
+        geometry=RefGeometry(8, 8, 4)))
+    assert abs(got - exact) <= 1e-9 * abs(exact)
+    assert abs(got - want) <= 1e-12 * abs(want)
+
+
+# ---------------------------------------------------------------------------
+# (f) tags, interop, the CLI
 # ---------------------------------------------------------------------------
 
 def test_sparse_dispatch_tags_and_downgrades():
