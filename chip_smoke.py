@@ -42,8 +42,10 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -61,6 +63,27 @@ WINDOW_NS = (4, 13, N_BUCKET, N_THRU, N_MAIN, 40, 64)
 N_SPARSE, SPARSE_DEGREE, BUCKET_DEGREE = 32, 7, 5
 SPARSE_WINDOW_NS = (4, 13, 16, N_BUCKET, N_THRU, N_SPARSE, 40, 64)
 PLAIN_WINDOWS = 8        # the n = 32 plain pass runs in this many slices
+# the campaign route (dense n >= 31 at campaign_threshold = 2^34)
+N_CAMPAIGN, N_CAMPAIGN_CX = 40, 32   # main paths: all-ones real, complex
+CAMPAIGN_ONES = (32, 36, 40)         # all-ones values against n!
+# Value bars of the campaign main paths (relative).  All-ones: every Gray
+# step's product is of equal integers, so the error is that of the
+# products' roundings and the cross-block sums (read 5.6e-12 / 5.2e-11 /
+# 6.8e-11 at n = 32 / 36 / 40; worst case (n-1) u x sum|terms| / n! =
+# 6.4e-9 at n = 40).  I + P (P a derangement): every row sum, product and
+# partial sum is a small integer, so the value is exact, 2^(cycles of P).
+# D1 J D2, a rank-one matrix with random diagonals, perm = n! prod(d1)
+# prod(d2): its Ryser terms cancel by about 1e6 at n = 40 and its row sums
+# are not integers, so they drift over a chunk's C Gray steps -- read
+# 1.7e-7 real at n = 40 (C = 2^19), 2.5e-11 complex at n = 32 (C = 2^11).
+# Complex against the direct kernel: two chunk geometries round apart by
+# what the matrix makes of them -- read 1.0e-12, 4.3e-14 and 1.2e-12 on
+# three Gaussian n = 32 matrices.
+ONES_BAR, CX_DIRECT_BAR = 1e-10, 1e-11
+RANK1_BAR = {False: 1e-6, True: 1e-10}      # real n = 40, complex n = 32
+LARGE_BASE_NS = (40, 48, 56, 64)     # scalar entries from large chunk bases
+CAMPAIGN_KILL_N, CAMPAIGN_KILL_SLICES = 36, 256   # kill and resume
+W1_SLICES = 8                        # slices run again at W = 1
 PRECISIONS = ("dd", "dq_fast", "dq_acc", "qq", "kahan")
 RTOL_KERNEL, ATOL_KERNEL = 1e-12, 1e-15
 MAIN_REPS = 3
@@ -1310,6 +1333,525 @@ def phase_profile(smoke: Smoke, torch, calls: list) -> None:
     smoke.summary["profile"] = out
 
 
+# ---------------------------------------------------------------------------
+# The campaign route: checkpointed waves of slices for n >= 31
+# ---------------------------------------------------------------------------
+
+def _bits_equal(torch, got, want, err: dict, entry: str) -> bool:
+    """Kernel partials equal their plain version bit for bit; the largest
+    absolute gap is kept per entry."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    err[entry] = max(err.get(entry, 0.0), float(np.max(np.abs(g - w))))
+    return bool(torch.equal(got, want)) and bool(np.all(np.isfinite(g)))
+
+
+def _campaign_large_bases(smoke: Smoke, torch) -> dict:
+    """Each scalar entry (the dense one in both modes, the complex one and
+    the two sparse ones) at n in LARGE_BASE_NS from chunk bases at the end
+    of the 2^(n-1) step space and around 2^(n-2), 2 blocks of TB 32, C 64,
+    Wu 16, two precisions: bit for bit with its plain version.  The
+    campaign main path runs these entries from such bases; the main paths
+    of the other phases never go past 2^31."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_complex_cuda as RX
+    from repro_torch.kernels import ryser_cuda as RC
+    rng = np.random.default_rng(SEED + 40)
+    TB, C, Wu, nb = 32, 64, 16, 2
+    err: dict = {}
+    ok, runs = True, 0
+    for n in LARGE_BASE_NS:
+        chunks = (1 << (n - 1)) // C
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+        A = torch.as_tensor(rng.uniform(-1, 1, (1, n, n)) / 2,
+                            device="cuda")
+        A_pads, xb_pads, _ = ops.prepare(A)
+        cx = ops.prepare_complex(torch.as_tensor(_cgauss(rng, (1, n, n)) / 2,
+                                                 device="cuda"))[:4]
+        sp = _sparse_inputs(torch, [_extent_sparse(
+            rng, n, n // 2 + 1, int(math.log2(Wu)), 2)], False, Wu)
+        spx = _sparse_inputs(torch, [_uneven_sparse(rng, n, True, 3)], True)
+        for prec in ("dq_acc", "dd"):
+            for base in (chunks - nb * TB, chunks // 2 - nb * TB // 2):
+                kw = dict(precision=prec, **geo)
+                for mode in ("baseline", "batched"):
+                    ok &= _bits_equal(torch, RC.ryser_cuda_call(
+                        A_pads[0], xb_pads[0], base, mode=mode, **kw),
+                        RC.block_partials_plain(A_pads, xb_pads, base,
+                                                mode=mode, **kw)[0],
+                        err, "ryser_dense_scalar")
+                ok &= _bits_equal(torch, RX.ryser_cuda_call_complex(
+                    *(p[0] for p in cx), base, **kw),
+                    RX.block_partials_plain_complex(*cx, base, **kw)[0],
+                    err, "ryser_complex_scalar")
+                for cplx, ins in ((False, sp), (True, spx)):
+                    scalar, _batched, plain = _sparse_calls(cplx)
+                    ok &= _bits_equal(
+                        torch, scalar(*(t[0] for t in ins), base, **kw),
+                        plain(*ins, base, **kw)[0], err,
+                        f"ryser_{'sparse_complex' if cplx else 'sparse'}"
+                        "_scalar")
+                runs += 5
+        torch.cuda.synchronize()
+    print(f"campaign large bases: {runs} launches at n in {LARGE_BASE_NS}, "
+          f"max abs err {err}")
+    smoke.check(ok, f"scalar entries (dense both modes, complex, sparse "
+                    f"real and complex) from chunk bases at the end of the "
+                    f"space and around 2^(n-2), n in {LARGE_BASE_NS}, equal "
+                    f"their plain versions bit for bit")
+    return {"bit_for_bit": ok, **err}
+
+
+def _campaign_wave_body(smoke: Smoke, torch) -> dict:
+    """The wave body at the main paths' own lane count, TB = 128 (C = 2^10
+    and 256 chunks a slice, so two slices are four CTAs): kernel #1 in
+    batched mode at n = N_CAMPAIGN and #3 at n = N_CAMPAIGN_CX, from the
+    first two slices, the middle and the last two of the space, equal
+    their plain versions bit for bit, and so do ``campaign_slice_sums``'s
+    per-slice sums."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_complex_cuda as RX
+    from repro_torch.kernels import ryser_cuda as RC
+    rng = np.random.default_rng(SEED + 44)
+    cps, C, Wu, TB = 256, 1 << 10, 16, 128
+    ok, err = True, {}
+    for n, cplx in ((N_CAMPAIGN, False), (N_CAMPAIGN_CX, True)):
+        A = _cgauss(rng, (n, n)) / 2 if cplx \
+            else rng.uniform(-1, 1, (n, n)) / 2
+        A = torch.as_tensor(A, device="cuda")
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=2 * cps // TB)
+        slices = (1 << (n - 1)) // C // cps
+        name = "ryser_complex_scalar" if cplx else "ryser_dense_scalar"
+        for first in (0, slices // 2 - 1, slices - 2):
+            base = first * cps
+            hi, lo = ops.campaign_slice_sums(
+                A, first, 2, chunks_per_slice=cps, chunk_size=C,
+                device=A.device)
+            if cplx:
+                ins = ops.prepare_complex(A[None])[:4]
+                got = RX.ryser_cuda_call_complex(*(t[0] for t in ins), base,
+                                                 **geo)
+                plain = RX.block_partials_plain_complex(*ins, base, **geo)[0]
+                re = ops._slice_sums(plain[:, 0], plain[:, 1], 2)
+                im = ops._slice_sums(plain[:, 2], plain[:, 3], 2)
+                want = (torch.complex(re[0], im[0]),
+                        torch.complex(re[1], im[1]))
+            else:
+                A_pads, xb_pads, _ = ops.prepare(A[None])
+                got = RC.ryser_cuda_call(A_pads[0], xb_pads[0], base,
+                                         mode="batched", **geo)
+                plain = RC.block_partials_plain(A_pads, xb_pads, base,
+                                                mode="batched", **geo)[0]
+                want = ops._slice_sums(plain[:, 0], plain[:, 1], 2)
+            ok &= _bits_equal(torch, got, plain, err, name)
+            ok &= bool(torch.equal(hi, want[0]) and torch.equal(lo, want[1]))
+    torch.cuda.synchronize()
+    print(f"campaign wave body at TB={TB}, C={C}, {cps} chunks a slice: "
+          f"max abs err {err}")
+    smoke.check(ok, f"wave body at the main paths' TB={TB}: kernels #1 "
+                    f"(n={N_CAMPAIGN}) and #3 (n={N_CAMPAIGN_CX}) and their "
+                    f"per-slice sums equal the plain versions bit for bit "
+                    f"from the start, middle and end of the space")
+    return {"bit_for_bit": ok, **err}
+
+
+def _campaign_refusals(smoke: Smoke, torch) -> dict:
+    """The window count is 64-bit, so no C is refused for its windows; a C
+    past the step space, and a chunk range past it, are refused by the
+    Python wrappers (ValueError) and by every scalar C entry (rc
+    cudaErrorInvalidValue = 1, before any launch)."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ryser_cuda as RC
+    lib = build.load_library()
+    buf = torch.zeros(64 * 64 * 4, dtype=torch.float64, device="cuda")
+    p = buf.data_ptr()
+    s = torch.cuda.current_stream().cuda_stream
+    n, TB = 40, 32
+
+    def entries(base, C_log2):
+        # (name, call) of the four scalar C entries at (base, C_log2)
+        g = (n, 40, TB, C_log2, 4, 1, 2)           # n n_pad TB C Wu blk prec
+        return (("ryser_dense_scalar", lambda: lib.ryser_dense_scalar(
+                    p, p, p, p, base, *g, 1, s)),
+                ("ryser_complex_scalar", lambda: lib.ryser_complex_scalar(
+                    p, p, p, p, p, p, base, *g, s)),
+                ("ryser_sparse_scalar", lambda: lib.ryser_sparse_scalar(
+                    p, p, p, p, p, p, base, n, 40, 4, *g[2:], s)),
+                ("ryser_sparse_complex_scalar",
+                 lambda: lib.ryser_sparse_complex_scalar(
+                     p, p, p, p, p, p, p, p, p, base, n, 40, 4, *g[2:], s)))
+
+    space_chunks = (1 << (n - 1)) >> 6              # at C = 2^6
+    rcs = {}
+    for label, base, C_log2 in (("C past the space", 0, n),
+                                ("range past the space",
+                                 space_chunks - TB + 1, 6),
+                                ("base 2^63", 1 << 63, 6)):
+        rcs[label] = {name: call() for name, call in entries(base, C_log2)}
+    torch.cuda.synchronize()
+    py = []
+    A_pad = torch.zeros((40, 40), dtype=torch.float64, device="cuda")
+    xb = torch.ones((40, 1), dtype=torch.float64, device="cuda")
+    for kw in (dict(dev_chunk_base=0, C=1 << n),
+               dict(dev_chunk_base=space_chunks - TB + 1, C=64)):
+        try:
+            RC.ryser_cuda_call(A_pad, xb, kw["dev_chunk_base"], n=n, TB=TB,
+                               C=kw["C"], Wu=16, num_blocks=1)
+            py.append("launched")
+        except ValueError as e:
+            py.append(str(e))
+    print(f"campaign refusals: C entries {rcs}; wrappers {py}")
+    ok = all(rc == 1 for r in rcs.values() for rc in r.values()) and \
+        all("step space" in m for m in py)
+    smoke.check(ok, "a chunk size past the step space and a chunk range "
+                    "past it are refused by the wrappers and by the four "
+                    "scalar C entries")
+    return {"c_entries": rcs, "wrappers": py}
+
+
+def _profiled(torch, fn):
+    """(result, wall s, device s) of ``fn()`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = sum(ev.self_device_time_total for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA) / 1e6
+    return out, wall, dev
+
+
+def _rank_one(rng, n: int, cplx: bool):
+    """D1 J D2 with random diagonals (positive reals, or moduli in
+    [0.5, 1.5] with phases within 0.3 rad) and its permanent
+    n! prod(d1) prod(d2)."""
+    def diag():
+        d = rng.uniform(0.5, 1.5, n)
+        return d * np.exp(1j * rng.uniform(-0.3, 0.3, n)) if cplx else d
+    d1, d2 = diag(), diag()
+    return np.outer(d1, d2), math.factorial(n) * np.prod(d1) * np.prod(d2)
+
+
+def _derangement_plus_identity(rng, n: int):
+    """I + P for a random derangement P, and its permanent: 2 to the
+    number of P's cycles (each cycle's rows admit exactly two matchings).
+    Entries, row sums and the Ryser terms are all small integers."""
+    while True:
+        p = rng.permutation(n)
+        if np.all(p != np.arange(n)):
+            break
+    A = np.eye(n)
+    A[np.arange(n), p] += 1.0
+    seen, cycles = np.zeros(n, dtype=bool), 0
+    for i in range(n):
+        if not seen[i]:
+            cycles += 1
+            while not seen[i]:
+                seen[i], i = True, p[i]
+    return A, 2.0 ** cycles
+
+
+def _campaign_main_path(smoke: Smoke, torch, card: dict) -> tuple:
+    """The campaign main paths through ``repro_torch.permanent`` at the
+    default config: all-ones n = 40 (real; routes to step_sharded by
+    itself) and a complex Gaussian n = 32, counters 0 before each and
+    read right after; rank-one D1 J D2 at both and I + P at n = 40
+    against their closed forms; then the n = 40 job again through a solver
+    with a checkpoint, for each wave's width, kernel, host and save times.
+    Gates: the value bars above, the campaign tag, only the campaign's
+    kernel launched."""
+    import repro_torch
+    from repro_torch.core.oracle import all_ones_permanent
+    from repro_torch.core.solver import PermanentSolver, SolverConfig
+    from repro_torch.kernels import ryser_cuda as RC
+    _sku_name, fp64, _bw = _sku(card["name"])
+    n = N_CAMPAIGN
+    J = np.ones((n, n))
+    exact = all_ones_permanent(n)
+    RC.reset_counters()
+    (v, rep), wall, dev = _profiled(
+        torch, lambda: repro_torch.permanent(J, return_report=True))
+    counts = dict(RC.counters)
+    rel = abs(v - exact) / exact
+    bound = 2.0 * n * 2.0 ** (n - 1) / (fp64 / 2)
+    others = sum(c for k, c in counts.items() if k != "ryser_dense_scalar")
+    print(f"campaign n={n} all-ones: {v:+.17e} exact {exact:+.17e} rel.err "
+          f"{rel:.3e}, dispatch {rep.dispatch}, host {wall:.4f} s, device "
+          f"{dev:.4f} s, busy share {dev / wall:.3f}, "
+          f"{2.0 ** (n - 1) / wall:.4e} Gray steps/s, bound {bound:.4f} s "
+          f"({wall / bound:.2f}x), counters {counts}")
+    smoke.check(rel <= ONES_BAR and rep.dispatch == [f"campaign(n={n},cuda)"]
+                and counts["ryser_dense_scalar"] > 0 and others == 0,
+                f"all-ones n={n} through permanent() at the default config "
+                f"runs the campaign route on ryser_dense_scalar only "
+                f"({rep.dispatch}), rel.err {rel:.3e} <= {ONES_BAR:g}")
+    out = {"n": n, "value": v, "rel_err": rel, "dispatch": rep.dispatch,
+           "wall_s": wall, "device_s": dev, "busy_share": dev / wall,
+           "gray_steps_per_s": 2.0 ** (n - 1) / wall, "bound_s": bound,
+           "x_bound": wall / bound, "launches": counts}
+
+    rng = np.random.default_rng(SEED + 41)
+    rank1 = {}
+    for m, cplx in ((n, False), (N_CAMPAIGN_CX, True)):
+        R, want = _rank_one(rng, m, cplx)
+        got, r = repro_torch.permanent(R, return_report=True)
+        kind = "complex" if cplx else "real"
+        rank1[f"{kind}_n{m}"] = e = abs(got - want) / abs(want)
+        print(f"campaign rank-one D1 J D2 n={m} {kind}: {got} closed form "
+              f"{want}, rel {e:.3e}, {r.dispatch}")
+        smoke.check(e <= RANK1_BAR[cplx] and r.dispatch == [
+            f"campaign(n={m},cuda)"], f"{kind} D1 J D2 n={m} campaign vs "
+            f"n! prod(d1) prod(d2): rel {e:.3e} <= {RANK1_BAR[cplx]:g}")
+        if cplx:
+            continue
+        # the same matrix at a 16x smaller and a 16x larger chunk: the
+        # error follows the Gray steps a row sum runs without a restart
+        for label, kw in (("C=2^15", dict(campaign_lanes=1 << 14)),
+                          ("C=2^23", dict(campaign_slices=64))):
+            other = PermanentSolver(cache=False, **kw)
+            g = other.execute(other.plan(R))
+            rank1[f"real_n{m}_{label}"] = abs(g - want) / abs(want)
+        print(f"campaign rank-one D1 J D2 n={m} real by chunk size: "
+              f"{ {k: f'{x:.3e}' for k, x in rank1.items() if 'real' in k} }")
+    P, want = _derangement_plus_identity(rng, n)
+    exact_solver = PermanentSolver(preprocess=False, cache=False)
+    got, r = exact_solver.execute(exact_solver.plan(P), return_report=True)
+    print(f"campaign I + P n={n}: {got!r} exact {want!r}, {r.dispatch}")
+    smoke.check(got == want and r.dispatch == [f"campaign(n={n},cuda)"],
+                f"I + P n={n} (P a derangement) campaign == 2^cycles = "
+                f"{want:g} exactly ({got!r})")
+    out.update(rank_one_rel=rank1, i_plus_p={"value": got, "exact": want})
+
+    waves = []
+    with tempfile.TemporaryDirectory() as tmp:
+        solver = PermanentSolver(SolverConfig(
+            campaign_checkpoint=os.path.join(tmp, "j40.npz")))
+        solver.campaign_progress = lambda st, w: waves.append(
+            {"ids": w.ids_text(), "W": w.width, "launches": w.launches,
+             "kernel_ms": w.kernel_s * 1e3, "host_ms": w.host_s * 1e3,
+             "save_ms": w.save_s * 1e3})
+        t0 = time.perf_counter()
+        v2 = solver.execute(solver.plan(J))
+        wall2 = time.perf_counter() - t0
+    for w in waves:
+        print(f"  campaign n={n} wave {w}")
+    # a kill loses at most the wave in flight: its host time and its save
+    lost = max(w["host_ms"] + w["save_ms"] for w in waves) / 1e3
+    print(f"campaign n={n} checkpointed: {len(waves)} waves, {wall2:.4f} s, "
+          f"at most {lost:.4f} s lost to a kill")
+    smoke.check(v2 == v and len(waves) >= 8,
+                f"n={n} through a checkpointing solver: {len(waves)} waves "
+                f"(>= 8), the same bits as permanent() ({v2!r})")
+    out.update(waves=waves, checkpointed_wall_s=wall2, kill_loss_s=lost)
+
+    Z = _cgauss(rng, (N_CAMPAIGN_CX, N_CAMPAIGN_CX))
+    RC.reset_counters()
+    (vz, repz), wallz, devz = _profiled(
+        torch, lambda: repro_torch.permanent(Z, return_report=True))
+    counts_z = dict(RC.counters)
+    direct_solver = PermanentSolver(campaign_threshold=None, cache=False)
+    direct = direct_solver.execute(direct_solver.plan(Z))
+    relz = abs(vz - direct) / abs(direct)
+    others = sum(c for k, c in counts_z.items()
+                 if k != "ryser_complex_scalar")
+    print(f"campaign complex n={N_CAMPAIGN_CX}: {vz} vs direct {direct}, "
+          f"rel {relz:.3e}, dispatch {repz.dispatch}, host {wallz:.4f} s, "
+          f"busy share {devz / wallz:.3f}, counters {counts_z}")
+    smoke.check(relz <= CX_DIRECT_BAR and repz.dispatch == [
+        f"campaign(n={N_CAMPAIGN_CX},cuda)"]
+        and counts_z["ryser_complex_scalar"] > 0 and others == 0,
+        f"complex n={N_CAMPAIGN_CX} through permanent() runs the campaign "
+        f"route on ryser_complex_scalar only, rel {relz:.3e} <= "
+        f"{CX_DIRECT_BAR:g} to the direct kernel")
+    out["complex"] = {"n": N_CAMPAIGN_CX, "value": [vz.real, vz.imag],
+                      "vs_direct": relz, "wall_s": wallz, "device_s": devz,
+                      "busy_share": devz / wallz, "launches": counts_z}
+    ones = {}
+    for m in CAMPAIGN_ONES:
+        if m == n:
+            ones[m] = rel
+            continue
+        got, r = repro_torch.permanent(np.ones((m, m)), return_report=True)
+        ones[m] = abs(got - all_ones_permanent(m)) / all_ones_permanent(m)
+        smoke.check(ones[m] <= ONES_BAR and r.dispatch == [
+            f"campaign(n={m},cuda)"], f"all-ones n={m} campaign rel.err "
+                                      f"{ones[m]:.3e} <= {ONES_BAR:g}")
+    out["allones_rel"] = ones
+    return out, {"ryser_dense_scalar": counts["ryser_dense_scalar"],
+                 "ryser_complex_scalar": counts_z["ryser_complex_scalar"]}
+
+
+def _campaign_vs_direct(smoke: Smoke, torch) -> dict:
+    """n = 30 real and n = 28 complex, forced to campaign
+    (``campaign_threshold=-1``) and at the default config (the direct
+    scalar kernel): values within rel 1e-12."""
+    from repro_torch.core.solver import PermanentSolver
+    rng = np.random.default_rng(SEED + 42)
+    out = {}
+    for n, A in ((N_MAIN, rng.uniform(-1, 1, (N_MAIN, N_MAIN))),
+                 (28, _cgauss(rng, (28, 28)))):
+        vals = {}
+        for label, thr in (("campaign", -1.0), ("direct", 2.0 ** 34)):
+            s = PermanentSolver(campaign_threshold=thr, cache=False)
+            vals[label], rep = s.execute(s.plan(A), return_report=True)
+            vals[label + "_tag"] = rep.dispatch
+        rel = abs(vals["campaign"] - vals["direct"]) / abs(vals["direct"])
+        kind = "complex" if np.iscomplexobj(A) else "real"
+        print(f"campaign vs direct {kind} n={n}: {vals}, rel {rel:.3e}")
+        smoke.check(rel <= 1e-12 and vals["campaign_tag"] == [
+            f"campaign(n={n},cuda)"] and vals["direct_tag"] == [
+            f"dense(n={n})"], f"{kind} n={n} campaign vs direct kernel "
+                              f"rel {rel:.3e} <= 1e-12")
+        out[f"{kind}_n{n}"] = rel
+    return out
+
+
+def _cli_campaign(args: list, kill_after_first_wave: bool = False) -> str:
+    """Run the campaign CLI in a child process; with
+    ``kill_after_first_wave`` SIGKILL it right after its first
+    ``[campaign] wave`` line (printed once that wave's checkpoint is on
+    disk).  Returns its output."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.campaign",
+                          *args], env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, cwd=ROOT)
+    lines = []
+    try:
+        for line in p.stdout:
+            lines.append(line)
+            if kill_after_first_wave and "[campaign] wave" in line:
+                os.kill(p.pid, signal.SIGKILL)
+                break
+        p.wait(timeout=600)
+    finally:
+        p.stdout.close()
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+    return "".join(lines)
+
+
+def _campaign_resume(smoke: Smoke, torch) -> dict:
+    """Kill and resume at n = CAMPAIGN_KILL_N with CAMPAIGN_KILL_SLICES
+    slices, real and complex: the CLI SIGKILLed after its first wave and
+    resumed prints the same %.17e as an uninterrupted run; an in-process
+    ``campaign_max_waves=1`` pause and resume gives the same bits; W = 1
+    over the first slices, and a wave of non-contiguous ids, give the same
+    slice sums as the default W, bit for bit."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.resume import JobState
+    from repro_torch.core.solver import PermanentSolver, SolverConfig
+    n, slices = CAMPAIGN_KILL_N, CAMPAIGN_KILL_SLICES
+    rng = np.random.default_rng(SEED + 43)
+    out = {}
+    for cplx in (False, True):
+        kind = "complex" if cplx else "real"
+        A = rng.uniform(0.2, 1.2, (n, n))
+        if cplx:
+            A = A + 1j * rng.uniform(0.2, 1.2, (n, n))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = lambda name: os.path.join(tmp, name)  # noqa: E731
+            np.save(path("A.npy"), A)
+            cfg = SolverConfig(preprocess=False, campaign_threshold=-1.0,
+                               campaign_slices=slices, cache=False)
+            ref_solver = PermanentSolver(cfg.replace(
+                campaign_checkpoint=path("ref.npz")))
+            waves = []
+            ref_solver.campaign_progress = lambda st, w: waves.append(w)
+            t0 = time.perf_counter()
+            ref = ref_solver.execute(ref_solver.plan(A))
+            t_ref = time.perf_counter() - t0
+            ref_txt = f"{ref.real:+.17e} {ref.imag:+.17e}j" if cplx \
+                else f"{ref:+.17e}"
+            ref_state = JobState.load(path("ref.npz"))
+            spec = ref_solver.plan(A).leaves[0].campaign
+
+            cli = ["--matrix", path("A.npy"), "--slices", str(slices),
+                   "--checkpoint", path("job.npz")]
+            killed = _cli_campaign(cli, kill_after_first_wave=True)
+            done = JobState.load(path("job.npz")).fraction_done() \
+                if os.path.exists(path("job.npz")) else 0.0
+            resumed = _cli_campaign(cli)
+            if not 0 < done < 1 or "perm(A) =" not in resumed:
+                print(f"campaign CLI output, killed:\n{killed[-3000:]}\n"
+                      f"resumed:\n{resumed[-3000:]}")
+            got_txt = next((ln.split("perm(A) =")[1].split("  (")[0].strip()
+                            for ln in resumed.splitlines()
+                            if "perm(A) =" in ln), None)
+            first = next((ln.strip() for ln in killed.splitlines()
+                          if "[campaign] wave" in ln), "")
+            smoke.check(0 < done < 1 and got_txt == ref_txt,
+                        f"{kind} n={n}: CLI killed after its first wave "
+                        f"({done:.4f} done: {first}) and resumed prints "
+                        f"{got_txt} == uninterrupted {ref_txt}")
+
+            paused = PermanentSolver(cfg.replace(
+                campaign_checkpoint=path("pause.npz"), campaign_max_waves=1))
+            try:
+                paused.execute(paused.plan(A))
+                was_paused = False
+            except D.CampaignPaused:
+                was_paused = True
+            again = PermanentSolver(cfg.replace(
+                campaign_checkpoint=path("pause.npz")))
+            same = was_paused and again.execute(again.plan(A)) == ref
+            smoke.check(same, f"{kind} n={n}: campaign_max_waves=1 pauses "
+                              f"and the resumed solver gives the same bits")
+
+            body = dict(chunks_per_slice=spec.chunks_per_slice,
+                        chunk_size=spec.chunk_size,
+                        precision=spec.precision, backend="cuda")
+            _v, one = D.run_campaign(A, total_slices=spec.total_slices,
+                                     wave_width=1, max_waves=W1_SLICES,
+                                     **body)
+            k = W1_SLICES
+            ids = [0, 5, 6, spec.total_slices - 1]
+            his, los, launches = D.slice_sums(A, ids, **body)
+            w1_same = bool(np.array_equal(one.hi[:k], ref_state.hi[:k])
+                           and np.array_equal(one.lo[:k], ref_state.lo[:k])
+                           and one.done.sum() == k)
+            gaps_same = bool(np.array_equal(his, ref_state.hi[ids])
+                             and np.array_equal(los, ref_state.lo[ids])
+                             and launches == 3)
+            smoke.check(w1_same and gaps_same,
+                        f"{kind} n={n}: W = 1 over slices 0-{k - 1} and a "
+                        f"wave of ids {ids} ({launches} launches) equal the "
+                        f"default W = {waves[0].width}'s slice sums bit for "
+                        f"bit")
+        out[kind] = {"value": ref_txt, "resumed": got_txt,
+                     "killed_at": done, "uninterrupted_s": t_ref,
+                     "W": waves[0].width, "waves": len(waves),
+                     "wave_kernel_ms": [w.kernel_s * 1e3 for w in waves],
+                     "wave_host_ms": [w.host_s * 1e3 for w in waves],
+                     "wave_save_ms": [w.save_s * 1e3 for w in waves]}
+        print(f"campaign resume {kind} n={n}: {out[kind]}")
+    return out
+
+
+def phase_campaign(smoke: Smoke, torch, card: dict) -> dict:
+    """The campaign route on the card (``core/distributed.py``): the scalar
+    entries from large chunk bases, the wave body at the main paths' lane
+    count, the refusal of out-of-range chunk sizes, the campaign main
+    paths through ``permanent`` (all-ones n = 40, complex n = 32, rank-one
+    n = 40 and complex n = 32, all-ones n = 32 and 36), campaign against
+    the direct kernels, and kill and resume.  Returns the main paths' launches of
+    kernels #1 and #3."""
+    t0 = time.perf_counter()
+    out = {"large_bases": _campaign_large_bases(smoke, torch),
+           "wave_body": _campaign_wave_body(smoke, torch),
+           "refusals": _campaign_refusals(smoke, torch)}
+    out["main"], launches = _campaign_main_path(smoke, torch, card)
+    out["vs_direct"] = _campaign_vs_direct(smoke, torch)
+    out["resume"] = _campaign_resume(smoke, torch)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"campaign phase: {out['seconds']:.1f} s")
+    smoke.summary["campaign"] = out
+    return launches
+
+
 def time_only(smoke: Smoke, torch, card: dict) -> int:
     """``--time-only``: after the build, only the timing rounds of the eight
     entries (no plain pass, no value check, no result line), for comparing
@@ -1362,6 +1904,9 @@ def main() -> int:
                          **msp["launches"], **mspc["launches"]}, window_err)
     smoke.summary["dense_at_sparse_shape"] = _dense_at_sparse_shape(
         smoke, torch, msp, mspc)
+    campaign_launches = phase_campaign(smoke, torch, card)
+    for row in rows:
+        row["launches"] += campaign_launches.get(row["name"], 0)
     smoke.summary.update(card=card, kernels=rows,
                          seconds=time.perf_counter() - t_start,
                          failures=smoke.failures)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .distributed import CampaignPaused
 from .executor import execute_plan
 from .planner import (DENSITY_SWITCH, PermanentReport, SolverConfig,
                       build_plan)
@@ -21,7 +22,8 @@ from .ryser import resolve_device
 from .solver import PermanentSolver, plan_values
 
 __all__ = ["permanent", "permanent_batch", "PermanentReport",
-           "PermanentSolver", "SolverConfig", "DENSITY_SWITCH"]
+           "PermanentSolver", "SolverConfig", "DENSITY_SWITCH",
+           "CampaignPaused"]
 
 
 def _config(precision: str, preprocess: bool, dm: bool | None,

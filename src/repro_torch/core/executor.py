@@ -1,10 +1,10 @@
 """Execute side of the plan/execute split: backend registry + dispatcher.
 
-The port of the reference package's ``core/executor.py`` for the dense
-and sparse routes, real and complex.  Each :class:`Backend` runs one leaf
-and (optionally) a whole same-size bucket of either route;
-``register_backend`` adds strategies without touching the dispatcher.  Two
-register at import:
+The port of the reference package's ``core/executor.py`` for the dense,
+sparse and campaign routes, real and complex.  Each :class:`Backend` runs
+one leaf and (optionally) a whole same-size bucket of either route;
+``register_backend`` adds strategies without touching the dispatcher.
+Three register at import:
 
 * ``torch`` -- the chunked torch engines (``core/ryser.py``, sparse
   ``core/sparyser.py``), the counterpart of the reference's ``jnp``;
@@ -14,15 +14,23 @@ register at import:
   leaves and buckets run the split-plane kernel's two entries; sparse
   leaves and buckets (density < 0.30) the SpaRyser kernel's scalar and
   batched entries, real or complex; n < 4 runs the torch engine, as
-  ``PallasBackend._kernel_ok`` sends n < 4 to ``jnp``.
+  ``PallasBackend._kernel_ok`` sends n < 4 to ``jnp``;
+* ``campaign`` -- not selected by ``SolverConfig.backend``: the planner
+  routes a leaf whose step estimate exceeds ``campaign_threshold`` to
+  ``step_sharded``, and :class:`CampaignBackend` runs it as checkpointed
+  waves of slices (``core/distributed.py::run_campaign``) through the wave
+  body its ``CampaignSpec`` names: the scalar CUDA entry from a u64 chunk
+  base (real ``batched`` mode, or the split-plane kernel) under ``cuda``,
+  the torch engine under ``torch``.  Its tag is ``campaign(n=..,cuda)``;
+  a ``campaign_max_waves`` budget that runs out raises
+  :class:`~repro_torch.core.distributed.CampaignPaused` through
+  :func:`execute_plan`.
 
-Both run on ``SolverConfig.device`` (None = the card).  Campaign
-(``step_sharded``) leaves are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item; they never run on
-another engine.  A complex ``qq`` plan runs as ``kahan`` and says so with
-a ``precision(qq->kahan)`` tag on every report.  Scalar sparse tags name
-the value's producer, ``sparse(n=..,cuda)``, with a ``cuda->torch`` suffix
-when the torch engine serves an n < 4 leaf.
+All run on ``SolverConfig.device`` (None = the card).  A complex ``qq``
+plan runs as ``kahan`` and says so with a ``precision(qq->kahan)`` tag on
+every report.  Scalar sparse tags name the value's producer,
+``sparse(n=..,cuda)``, with a ``cuda->torch`` suffix when the torch
+engine serves an n < 4 leaf.
 
 **Batch contract.**  ``dense_batch(stack, *, precision, num_chunks,
 geometry, device)`` and ``sparse_batch(stack, ...)`` run one same-size
@@ -48,15 +56,12 @@ from . import ryser as R
 from . import sparyser as S
 from .cache import ResultCache
 from .planner import (ROUTE_CAMPAIGN, ROUTE_DENSE, ROUTE_INLINE,
-                      ROUTE_SPARSE, ExecutionPlan, LeafTask, PermanentReport)
+                      ROUTE_SPARSE, CampaignSpec, ExecutionPlan, LeafTask,
+                      PermanentReport)
 
-__all__ = ["Backend", "TorchBackend", "CudaBackend", "register_backend",
-           "get_backend", "available_backends", "ExecStats", "LeafTiming",
-           "execute_plan"]
-
-_CAMPAIGN_TODO = ("step_sharded (campaign) leaves are not ported yet "
-                  "(ROADMAP.md, modules queue: 'Campaign on one GPU'); "
-                  "the largest dense leaf served is n = 30")
+__all__ = ["Backend", "TorchBackend", "CudaBackend", "CampaignBackend",
+           "register_backend", "get_backend", "available_backends",
+           "ExecStats", "LeafTiming", "execute_plan"]
 
 
 def _scalar(v) -> complex | float:
@@ -244,6 +249,38 @@ class CudaBackend(TorchBackend):
         return self.name if self._kernel_ok(n) else "torch"
 
 
+class CampaignBackend(Backend):
+    """Checkpointed step-space waves for ROUTE_CAMPAIGN leaves.
+
+    Not selected through ``SolverConfig.backend``: the planner routes a
+    leaf here when its step estimate crosses ``campaign_threshold``, and
+    the :class:`CampaignSpec` it records (slice geometry, wave-body
+    backend, precision, kernel geometry) fully determines the numerics.
+    Execution is ``core.distributed.run_campaign`` on ``device``,
+    twofloat slice partials checkpointed to ``checkpoint_path`` after
+    each wave, a fixed-order final reduce, in waves of
+    ``distributed.default_wave_width`` slices.  A ``max_waves`` budget that expires with slices pending
+    raises ``CampaignPaused`` (the checkpoint holds the progress).
+    """
+
+    name = "campaign"
+
+    def campaign(self, M: np.ndarray, spec: CampaignSpec, *, device=None,
+                 checkpoint_path: str | None = None, progress_cb=None,
+                 max_waves: int | None = None) -> complex | float:
+        from . import distributed as Dm
+        value, state = Dm.run_campaign(
+            M, total_slices=spec.total_slices,
+            chunks_per_slice=spec.chunks_per_slice,
+            chunk_size=spec.chunk_size, precision=spec.precision,
+            backend=spec.backend, geometry=spec.geometry, device=device,
+            checkpoint_path=checkpoint_path, progress_cb=progress_cb,
+            max_waves=max_waves)
+        if value is None:
+            raise Dm.CampaignPaused(state)
+        return _scalar(value)
+
+
 _BACKENDS: dict[str, Backend] = {}
 
 
@@ -267,6 +304,7 @@ def available_backends() -> list[str]:
 
 register_backend(TorchBackend())
 register_backend(CudaBackend())
+register_backend(CampaignBackend())
 
 _FALLBACK = "torch"
 
@@ -290,13 +328,6 @@ def _cache_key(leaf: LeafTask, plan: ExecutionPlan, produced_by: str) -> tuple:
                            produced_by, plan.config.num_chunks,
                            dtype=leaf.matrix.dtype.str,
                            geometry=_geometry_tag(leaf, produced_by))
-
-
-def _check_ported(plan: ExecutionPlan) -> None:
-    """Refuse what the port does not run yet, before any device work."""
-    for leaf in plan.leaves:
-        if leaf.route == ROUTE_CAMPAIGN:
-            raise NotImplementedError(_CAMPAIGN_TODO)
 
 
 def _run_leaf(leaf: LeafTask, plan: ExecutionPlan, backend: Backend,
@@ -334,15 +365,16 @@ def _inline_value(m: np.ndarray) -> complex | float:
         m[0, 0] * m[1, 1] + m[0, 1] * m[1, 0]
 
 
-def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
+def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
+                 campaign_progress=None):
     """Dispatch every leaf of ``plan`` and accumulate per-matrix totals.
 
     Returns ``(totals, reports, stats)``: ``totals`` is a (B,) complex128
     array (callers take the real part for real plans), ``reports`` one
     PermanentReport per planned matrix, ``stats`` the dispatch/cache
-    accounting.
+    accounting.  ``campaign_progress(state, wave)`` is called after every
+    checkpointed wave of a campaign leaf.
     """
-    _check_ported(plan)
     cfg = plan.config
     backend = get_backend(cfg.backend)
     fallback = get_backend(_FALLBACK)
@@ -363,7 +395,41 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
             r.dispatch.append(ptag)
 
     def produced_by(leaf: LeafTask, batched: bool) -> str:
+        """Name of the strategy whose numerics serve this leaf.  Campaign
+        leaves name the full wave-body identity of their spec -- backend,
+        slice geometry and kernel geometry -- since their twofloat slice
+        partials depend on the decomposition, not just the engine."""
+        if leaf.route == ROUTE_CAMPAIGN:
+            s = leaf.campaign
+            return (f"campaign[{s.backend},{s.total_slices}x"
+                    f"{s.chunks_per_slice}x{s.chunk_size},"
+                    f"{s.geometry.tag() if s.geometry else '-'}]")
         return backend.value_backend(leaf.route, leaf.n, batched=batched)
+
+    campaign_leaves = [l for l in plan.leaves if l.route == ROUTE_CAMPAIGN]
+
+    def campaign_ckpt(leaf: LeafTask) -> str | None:
+        """The configured checkpoint path verbatim for a plan with one
+        campaign leaf, suffixed by the leaf key when several campaign
+        (their JobStates must not collide)."""
+        base = cfg.campaign_checkpoint
+        if base is None or len(campaign_leaves) == 1:
+            return base
+        return f"{base}.{leaf.key[:12]}.npz"
+
+    def run_campaign_leaf(leaf: LeafTask) -> complex | float:
+        tag = f"campaign(n={leaf.n},{leaf.campaign.backend})"
+        reports[leaf.owner].dispatch.append(tag)
+        t0 = time.perf_counter()
+        val = get_backend("campaign").campaign(
+            leaf.matrix, leaf.campaign, device=cfg.device,
+            checkpoint_path=campaign_ckpt(leaf),
+            progress_cb=campaign_progress,
+            max_waves=cfg.campaign_max_waves)
+        stats.record_time(tag, time.perf_counter() - t0)
+        stats.device_dispatches += 1
+        stats.scalar_leaves += 1
+        return val
 
     if not plan.batched:
         # scalar mode: strict plan-order per-leaf dispatch
@@ -380,8 +446,9 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
                 reports[leaf.owner].dispatch.append(
                     f"cache({leaf.route},n={leaf.n})")
             else:
-                val = _run_leaf(leaf, plan, backend, reports[leaf.owner],
-                                stats)
+                val = run_campaign_leaf(leaf) \
+                    if leaf.route == ROUTE_CAMPAIGN else \
+                    _run_leaf(leaf, plan, backend, reports[leaf.owner], stats)
                 if key is not None:
                     cache.put(key, val)
             totals[leaf.owner] += leaf.coef * val
@@ -417,6 +484,18 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None):
             pending.setdefault((route, n), []).append(j)
 
     for (route, n), idxs in sorted(pending.items()):
+        if route == ROUTE_CAMPAIGN:
+            # campaign leaves never share a device program: each is its
+            # own checkpointed wave sequence (probe key == store key)
+            for j in idxs:
+                leaf = plan.leaves[j]
+                val = run_campaign_leaf(leaf)
+                if cache is not None:
+                    k = _cache_key(leaf, plan, produced_by(leaf, True))
+                    cache.put(k, val)
+                    computed[k] = val
+                totals[leaf.owner] += leaf.coef * val
+            continue
         # one device program per resolved kernel geometry: geometry is
         # numeric identity, so leaves of different geometry never share one
         groups: dict[str, list[LeafTask]] = {}

@@ -89,15 +89,19 @@ class SolverConfig:
     geometry: Geometry | None = None
     tuning_table: str | None = None
     # Step-space campaign routing: a single leaf whose Ryser-step estimate
-    # exceeds campaign_threshold re-routes to ROUTE_CAMPAIGN, its step
-    # space cut into slices recorded in the plan as a CampaignSpec.  None
-    # disables the route; negative forces it.  The executor does not run
-    # campaign leaves yet (ROADMAP.md, modules queue: 'Campaign on one
-    # GPU'), so the reference's checkpoint/max-waves knobs have no
-    # counterpart here.
+    # exceeds campaign_threshold re-routes to ROUTE_CAMPAIGN -- its step
+    # space is cut into resumable slices (geometry recorded in the plan as
+    # a CampaignSpec) and the executor's CampaignBackend runs them in
+    # checkpointed waves.  None disables the route; negative forces it.
+    # campaign_slices is the reference's 64 x 16: on one card a slice is
+    # chunks/lanes CTAs (8 at the defaults) and the card holds about 66
+    # slices of the real body at once, so 64 slices would be one wave and
+    # one checkpoint; 1024 gives 16 waves, each a checkpoint.
     campaign_threshold: float | None = float(2 ** 34)
-    campaign_slices: int = 64        # plan_slices() slice-count target
+    campaign_slices: int = 1024      # plan_slices() slice-count target
     campaign_lanes: int = 1024       # plan_slices() chunk-count target
+    campaign_checkpoint: str | None = None   # JobState .npz path
+    campaign_max_waves: int | None = None    # pause (CampaignPaused) after
     cache: bool = True               # content-hash result cache on leaves
     cache_entries: int = 4096        # LRU capacity of the result cache
     queue_max_batch: int = 32        # flush a size bucket at this depth
@@ -249,7 +253,8 @@ class ExecutionPlan:
     # CampaignSpec.geometry) -- hashing the raw knobs (a table *path*)
     # would split plans whose resolved execution is identical.
     _POLICY_FIELDS = ("campaign_threshold", "campaign_slices",
-                      "campaign_lanes", "geometry", "tuning_table",
+                      "campaign_lanes", "campaign_checkpoint",
+                      "campaign_max_waves", "geometry", "tuning_table",
                       "cache", "cache_entries",
                       "queue_max_batch", "queue_max_delay_s", "clock")
 

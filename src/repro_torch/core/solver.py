@@ -13,6 +13,12 @@ reaches ``config.queue_max_batch`` or its oldest request ages past
 ``config.queue_max_delay_s``.  ``submit`` returns a
 :class:`PermanentRequest` future.  Leaf results are memoised in a
 content-hash :class:`~repro_torch.core.cache.ResultCache`.
+
+**Campaigns**: a leaf the planner routes to ``step_sharded`` runs as
+checkpointed waves (``SolverConfig.campaign_checkpoint``,
+``campaign_max_waves``); ``solver.campaign_progress(state, wave)`` is
+called after every checkpointed wave, and a spent wave budget raises
+:class:`~repro_torch.core.distributed.CampaignPaused`.
 """
 
 from __future__ import annotations
@@ -89,6 +95,9 @@ class PermanentSolver:
         self._queue: dict[int, tuple[float, list[PermanentRequest]]] = {}
         self._stats = ExecStats()
         self.flushes = 0
+        # optional (JobState, Wave) -> None callback fired after every
+        # checkpointed wave of a step_sharded (campaign) leaf
+        self.campaign_progress: Callable | None = None
 
     # -- plan ---------------------------------------------------------------
 
@@ -109,7 +118,8 @@ class PermanentSolver:
         """Dispatch a plan; scalar plans return a Python float, batch plans
         a (B,) float64 ndarray (Python complex / complex128 for a complex
         plan)."""
-        totals, reports, stats = execute_plan(plan, cache=self.cache)
+        totals, reports, stats = execute_plan(
+            plan, cache=self.cache, campaign_progress=self.campaign_progress)
         self._merge_stats(stats)
         out = plan_values(plan, totals, reports)
         if not plan.batched and plan.num_matrices == 1:

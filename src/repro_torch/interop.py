@@ -21,9 +21,6 @@ __all__ = ["BACKEND_NAMES", "config_from_reference", "geometry_from_tag",
            "sparse_from_reference"]
 
 BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda"}
-# Reference fields the port does not carry until the campaign slice; they
-# cross only at their defaults.
-_UNPORTED_DEFAULTS = {"campaign_checkpoint": None, "campaign_max_waves": None}
 
 
 def geometry_from_tag(tag: str | None) -> Geometry | None:
@@ -37,16 +34,11 @@ def config_from_reference(d: dict) -> SolverConfig:
 
     ``geometry`` may arrive as the asdict form (a dict of Geometry's
     fields), a tag string or None.  A backend without a port yet
-    (``distributed*``) raises ``ValueError``; a campaign checkpoint or
-    wave limit raises ``NotImplementedError`` (campaigns are not ported).
+    (``distributed*``) raises ``ValueError``.  The campaign knobs cross as
+    they are; a checkpoint the reference wrote names its own backend, so
+    the port refuses to resume it (``core.resume``).
     """
     d = dict(d)
-    for name, default in _UNPORTED_DEFAULTS.items():
-        value = d.pop(name, default)
-        if value != default:
-            raise NotImplementedError(
-                f"{name}={value!r}: campaigns are not ported yet (ROADMAP.md, "
-                "modules queue: 'Campaign on one GPU')")
     backend = d.get("backend", "jnp")
     if backend not in BACKEND_NAMES:
         raise ValueError(f"backend {backend!r} has no port yet "

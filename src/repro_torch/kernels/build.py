@@ -161,6 +161,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ryser_sparse_complex_scalar.restype = I
     lib.ryser_sparse_complex_batched.argtypes = [P] * 9 + [I] * 9 + [P]
     lib.ryser_sparse_complex_batched.restype = I
+    lib.ryser_dense_occupancy.argtypes = [I, I, I, I, I, P]
+    lib.ryser_dense_occupancy.restype = I
+    lib.ryser_complex_occupancy.argtypes = [I, I, I, I, P]
+    lib.ryser_complex_occupancy.restype = I
     lib.ryser_error_string.argtypes = [I]
     lib.ryser_error_string.restype = ctypes.c_char_p
     return lib

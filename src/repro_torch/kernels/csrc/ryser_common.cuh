@@ -1,14 +1,27 @@
-// What the Ryser kernels share: accumulator codes, the block size cap and
-// _accum_add (kernels/ryser_pallas.py), one product term into a lane's
-// (s, c) accumulator.  Included by ryser_kernels.cuh, the block bodies every
-// source instantiates, which also holds the row products.
+// What the Ryser kernels share: accumulator codes, the block size cap, the
+// entries' step-space guard and _accum_add (kernels/ryser_pallas.py), one
+// product term into a lane's (s, c) accumulator.  Included by
+// ryser_kernels.cuh, the block bodies every source instantiates, which also
+// holds the row products.
 #pragma once
+
+#include <cstdint>
 
 namespace {
 
 enum Prec { P_DD = 0, P_KAHAN = 1, P_DQ_ACC = 2, P_DQ_FAST = 3 };
 
 constexpr int kMaxThreads = 256;
+
+// The launch's chunks [base, base + num_blocks * TB) of 2^C_log2 steps lie
+// in the 2^(n-1) step space, C_log2 <= n - 1 (the entries' guard, checked
+// before any shift can overflow; n <= 64).
+inline bool chunks_in_space(uint64_t base, int n, int TB, int C_log2,
+                            int num_blocks) {
+  if (C_log2 < 1 || C_log2 > n - 1 || TB < 1 || num_blocks < 1) return false;
+  const uint64_t chunks = 1ull << (n - 1 - C_log2);
+  return base <= chunks && (uint64_t)num_blocks * (uint64_t)TB <= chunks - base;
+}
 
 template <int P>
 __device__ __forceinline__ void accum_add(double& s, double& c, double term) {

@@ -49,18 +49,30 @@
 
 namespace {
 
+template <int NPAD>
+size_t smem_bytes(int TB, int Wu_log2) {
+  const size_t Wu = (size_t)1 << Wu_log2;
+  return sizeof(double) *
+      (2 * (size_t)NPAD * NPAD + 2 * (size_t)NPAD * (Wu - 1) + 4 * (size_t)TB);
+}
+
 template <int NPAD, int P>
 int launch(const double* Ar, const double* Ai, const double* xbr,
            const double* xbi, const double* c0, double* out, uint64_t base,
            int n, int TB, int C_log2, int Wu_log2, int num_blocks, int B,
            cudaStream_t stream) {
-  const int Wu = 1 << Wu_log2;
-  const size_t smem = sizeof(double) *
-      (2 * (size_t)NPAD * NPAD + 2 * (size_t)NPAD * (Wu - 1) + 4 * (size_t)TB);
+  const size_t smem = smem_bytes<NPAD>(TB, Wu_log2);
   return launch_kernel(ryser_cx_kernel<NPAD, P, false>, smem, num_blocks, B,
                        TB, stream, Ar, Ai, (const int*)nullptr,
                        (const double*)nullptr, (const double*)nullptr, xbr,
                        xbi, c0, out, base, n, 0, C_log2, Wu_log2, num_blocks);
+}
+
+// CTAs of TB threads one SM holds at once (registers and shared memory).
+template <int NPAD, int P>
+int occupancy(int TB, int Wu_log2, int* ctas) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, ryser_cx_kernel<NPAD, P, false>, TB, smem_bytes<NPAD>(TB, Wu_log2));
 }
 
 }  // namespace
@@ -78,6 +90,10 @@ int launch(const double* Ar, const double* Ai, const double* xbr,
       int TB, int C_log2, int Wu_log2, int num_blocks, int B, int precision,  \
       cudaStream_t stream)
 
+#define RYSER_CX_OCCUPANCY_SIG(K)                                              \
+  extern "C" int ryser_cx_occupancy_npad_##K(int precision, int TB,           \
+                                             int Wu_log2, int* ctas)
+
 #define RYSER_CX_CASE_P(K, PV)                                                 \
   case PV:                                                                     \
     return launch<K, PV>(Ar, Ai, xbr, xbi, c0, out, base, n, TB, C_log2,       \
@@ -92,6 +108,15 @@ int launch(const double* Ar, const double* Ai, const double* xbr,
       RYSER_CX_CASE_P(K, P_DQ_FAST)                                            \
       default: return (int)cudaErrorInvalidValue;                              \
     }                                                                          \
+  }                                                                            \
+  RYSER_CX_OCCUPANCY_SIG(K) {                                                  \
+    switch (precision) {                                                       \
+      case P_DD: return occupancy<K, P_DD>(TB, Wu_log2, ctas);                 \
+      case P_KAHAN: return occupancy<K, P_KAHAN>(TB, Wu_log2, ctas);           \
+      case P_DQ_ACC: return occupancy<K, P_DQ_ACC>(TB, Wu_log2, ctas);         \
+      case P_DQ_FAST: return occupancy<K, P_DQ_FAST>(TB, Wu_log2, ctas);       \
+      default: return (int)cudaErrorInvalidValue;                              \
+    }                                                                          \
   }
 
 #define RYSER_CX_EXPAND(M, K) M(K)
@@ -99,14 +124,17 @@ int launch(const double* Ar, const double* Ai, const double* xbr,
 #if defined(RYSER_NPAD)
 RYSER_CX_EXPAND(RYSER_CX_DEFINE_LAUNCHER, RYSER_NPAD)
 #else
-RYSER_CX_LAUNCHER_SIG(8);
-RYSER_CX_LAUNCHER_SIG(16);
-RYSER_CX_LAUNCHER_SIG(24);
-RYSER_CX_LAUNCHER_SIG(32);
-RYSER_CX_LAUNCHER_SIG(40);
-RYSER_CX_LAUNCHER_SIG(48);
-RYSER_CX_LAUNCHER_SIG(56);
-RYSER_CX_LAUNCHER_SIG(64);
+#define RYSER_CX_DECLARE(K) \
+  RYSER_CX_LAUNCHER_SIG(K);  \
+  RYSER_CX_OCCUPANCY_SIG(K);
+RYSER_CX_DECLARE(8)
+RYSER_CX_DECLARE(16)
+RYSER_CX_DECLARE(24)
+RYSER_CX_DECLARE(32)
+RYSER_CX_DECLARE(40)
+RYSER_CX_DECLARE(48)
+RYSER_CX_DECLARE(56)
+RYSER_CX_DECLARE(64)
 
 namespace {
 
@@ -116,7 +144,8 @@ int dispatch(const double* Ar, const double* Ai, const double* xbr,
              int B, int precision, void* stream) {
   if (n < 3 || n > 64 || n > n_pad || TB < 1 || TB > kMaxThreads ||
       (TB & (TB - 1)) != 0 || Wu_log2 < 1 || C_log2 < Wu_log2 ||
-      num_blocks < 1 || B < 1 || B > 65535)
+      num_blocks < 1 || B < 1 || B > 65535 ||
+      !chunks_in_space(base, n, TB, C_log2, num_blocks))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RYSER_CX_CASE(K)                                                       \
@@ -153,5 +182,22 @@ extern "C" int ryser_complex_batched(const double* Ar, const double* Ai,
                                      int precision, void* stream) {
   return dispatch(Ar, Ai, xbr, xbi, c0, out, 0, n, n_pad, TB, C_log2, Wu_log2,
                   num_blocks, B, precision, stream);
+}
+
+// CTAs of TB threads of the n_pad instantiation one SM holds at once, into
+// *ctas (the campaign's wave width reads it).
+extern "C" int ryser_complex_occupancy(int n_pad, int precision, int TB,
+                                       int Wu_log2, int* ctas) {
+  if (TB < 1 || TB > kMaxThreads || Wu_log2 < 1 || ctas == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define RYSER_CX_OCC_CASE(K) \
+  case K: return ryser_cx_occupancy_npad_##K(precision, TB, Wu_log2, ctas);
+  switch (n_pad) {
+    RYSER_CX_OCC_CASE(8) RYSER_CX_OCC_CASE(16) RYSER_CX_OCC_CASE(24)
+    RYSER_CX_OCC_CASE(32) RYSER_CX_OCC_CASE(40) RYSER_CX_OCC_CASE(48)
+    RYSER_CX_OCC_CASE(56) RYSER_CX_OCC_CASE(64)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RYSER_CX_OCC_CASE
 }
 #endif

@@ -47,18 +47,31 @@
 
 namespace {
 
+template <int NPAD>
+size_t smem_bytes(int TB, int Wu_log2, int mode) {
+  const size_t Wu = (size_t)1 << Wu_log2;
+  return sizeof(double) *
+      ((size_t)NPAD * NPAD + (mode == M_BATCHED ? (size_t)NPAD * (Wu - 1) : 0) +
+       2 * (size_t)TB);
+}
+
 template <int NPAD, int P>
 int launch(const double* A, const double* xb, const double* c0, double* out,
            uint64_t base, int n, int TB, int C_log2, int Wu_log2,
            int num_blocks, int B, int mode, cudaStream_t stream) {
-  const int Wu = 1 << Wu_log2;
-  const size_t smem = sizeof(double) *
-      ((size_t)NPAD * NPAD + (mode == M_BATCHED ? (size_t)NPAD * (Wu - 1) : 0) +
-       2 * (size_t)TB);
+  const size_t smem = smem_bytes<NPAD>(TB, Wu_log2, mode);
   return launch_kernel(ryser_kernel<NPAD, P, false>, smem, num_blocks, B, TB,
                        stream, A, (const int*)nullptr, (const double*)nullptr,
                        xb, c0, out, base, n, 0, C_log2, Wu_log2, num_blocks,
                        mode);
+}
+
+// CTAs of TB threads one SM holds at once (registers and shared memory).
+template <int NPAD, int P>
+int occupancy(int TB, int Wu_log2, int mode, int* ctas) {
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, ryser_kernel<NPAD, P, false>, TB,
+      smem_bytes<NPAD>(TB, Wu_log2, mode));
 }
 
 }  // namespace
@@ -76,6 +89,10 @@ int launch(const double* A, const double* xb, const double* c0, double* out,
       uint64_t base, int n, int TB, int C_log2, int Wu_log2, int num_blocks,  \
       int B, int precision, int mode, cudaStream_t stream)
 
+#define RYSER_OCCUPANCY_SIG(K)                                                 \
+  extern "C" int ryser_occupancy_npad_##K(int precision, int TB, int Wu_log2, \
+                                          int mode, int* ctas)
+
 #define RYSER_DEFINE_LAUNCHER(K)                                               \
   RYSER_LAUNCHER_SIG(K) {                                                      \
     switch (precision) {                                                       \
@@ -92,6 +109,15 @@ int launch(const double* A, const double* xb, const double* c0, double* out,
                                                   B, mode, stream);            \
       default: return (int)cudaErrorInvalidValue;                              \
     }                                                                          \
+  }                                                                            \
+  RYSER_OCCUPANCY_SIG(K) {                                                     \
+    switch (precision) {                                                       \
+      case P_DD: return occupancy<K, P_DD>(TB, Wu_log2, mode, ctas);           \
+      case P_KAHAN: return occupancy<K, P_KAHAN>(TB, Wu_log2, mode, ctas);     \
+      case P_DQ_ACC: return occupancy<K, P_DQ_ACC>(TB, Wu_log2, mode, ctas);   \
+      case P_DQ_FAST: return occupancy<K, P_DQ_FAST>(TB, Wu_log2, mode, ctas); \
+      default: return (int)cudaErrorInvalidValue;                              \
+    }                                                                          \
   }
 
 #define RYSER_EXPAND(M, K) M(K)
@@ -99,14 +125,17 @@ int launch(const double* A, const double* xb, const double* c0, double* out,
 #if defined(RYSER_NPAD)
 RYSER_EXPAND(RYSER_DEFINE_LAUNCHER, RYSER_NPAD)
 #else
-RYSER_LAUNCHER_SIG(8);
-RYSER_LAUNCHER_SIG(16);
-RYSER_LAUNCHER_SIG(24);
-RYSER_LAUNCHER_SIG(32);
-RYSER_LAUNCHER_SIG(40);
-RYSER_LAUNCHER_SIG(48);
-RYSER_LAUNCHER_SIG(56);
-RYSER_LAUNCHER_SIG(64);
+#define RYSER_DECLARE(K) \
+  RYSER_LAUNCHER_SIG(K); \
+  RYSER_OCCUPANCY_SIG(K);
+RYSER_DECLARE(8)
+RYSER_DECLARE(16)
+RYSER_DECLARE(24)
+RYSER_DECLARE(32)
+RYSER_DECLARE(40)
+RYSER_DECLARE(48)
+RYSER_DECLARE(56)
+RYSER_DECLARE(64)
 
 namespace {
 
@@ -115,7 +144,8 @@ int dispatch(const double* A, const double* xb, const double* c0, double* out,
              int num_blocks, int B, int precision, int mode, void* stream) {
   if (n < 3 || n > 64 || n > n_pad || TB < 1 || TB > kMaxThreads ||
       (TB & (TB - 1)) != 0 || Wu_log2 < 1 || C_log2 < Wu_log2 ||
-      num_blocks < 1 || B < 1 || B > 65535 || (mode != M_BASELINE && mode != M_BATCHED))
+      num_blocks < 1 || B < 1 || B > 65535 || (mode != M_BASELINE && mode != M_BATCHED) ||
+      !chunks_in_space(base, n, TB, C_log2, num_blocks))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RYSER_CASE(K)                                                        \
@@ -148,6 +178,22 @@ extern "C" int ryser_dense_batched(const double* A, const double* xb,
                                    void* stream) {
   return dispatch(A, xb, c0, out, 0, n, n_pad, TB, C_log2, Wu_log2,
                   num_blocks, B, precision, mode, stream);
+}
+
+// CTAs of TB threads of the n_pad instantiation one SM holds at once, into
+// *ctas (the campaign's wave width reads it).
+extern "C" int ryser_dense_occupancy(int n_pad, int precision, int TB,
+                                     int Wu_log2, int mode, int* ctas) {
+  if (TB < 1 || TB > kMaxThreads || Wu_log2 < 1 || ctas == nullptr)
+    return (int)cudaErrorInvalidValue;
+#define RYSER_OCC_CASE(K) \
+  case K: return ryser_occupancy_npad_##K(precision, TB, Wu_log2, mode, ctas);
+  switch (n_pad) {
+    RYSER_OCC_CASE(8) RYSER_OCC_CASE(16) RYSER_OCC_CASE(24) RYSER_OCC_CASE(32)
+    RYSER_OCC_CASE(40) RYSER_OCC_CASE(48) RYSER_OCC_CASE(56) RYSER_OCC_CASE(64)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RYSER_OCC_CASE
 }
 
 extern "C" const char* ryser_error_string(int code) {

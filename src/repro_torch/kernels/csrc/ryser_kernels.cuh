@@ -59,10 +59,24 @@
 // holds an entry that is +0 or positive, whose terms are too.  So the
 // sparse kernels still equal their plain versions and the dense batched
 // mode.
+//
+// The window count.  The entries refuse C > 2^(n-1) (chunks_in_space), and
+// Wu >= 2, so a chunk holds M = C / Wu <= 2^(n-2) windows: at most 2^30 up
+// to NPAD 32, where both bodies count them in an int, as they always did.
+// A campaign chunk above NPAD 32 can hold 2^31 or more (C / Wu = 2^(n-21)
+// at the default campaign spec and window, from n = 52 on), so there the
+// real body steps its windows' first steps in 64 bits, one window a call
+// of its window loop, and the complex body counts its windows in 64 bits.
+// Of the forms tried on the card these are the ones ptxas compiles without
+// a spill at NPAD 40-48 (the real body at 126-140 registers at NPAD 40,
+// where a pass loop around the 32-bit loop took 166 and ran a campaign
+// 1.8x slower); NPAD <= 32 keeps the 32-bit loop because every change to
+// it moved ptxas there (spills at NPAD 8-24, #5 17% slower).
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "ryser_common.cuh"
 
@@ -344,7 +358,9 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   const int lane = threadIdx.x;
   const int Wu = 1 << Wu_log2;
   const int kw = Wu_log2;
-  const int M = 1 << (C_log2 - Wu_log2);
+  // windows a call of the window loop: the chunk's all up to NPAD 32, one
+  // above (the chunk's windows stepped in 64 bits there)
+  const int M = 1 << (NPAD <= 32 ? C_log2 - Wu_log2 : 0);
   const bool batched = SPARSE || mode == M_BATCHED;    // sparse: batched only
 
   double* As = smem;                                   // NPAD * NPAD
@@ -386,6 +402,7 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   // ---- chunk id, start step, init X = xb + sum_j A[:, j] * graybit_j ----
   const uint64_t chunk = chunk_base + (uint64_t)blockIdx.x * TB + lane;
   const uint64_t start = chunk << C_log2;
+  [[maybe_unused]] const uint64_t stop = start + (1ull << C_log2);  // <= 2^63
   const uint64_t gs = start ^ (start >> 1);
   double X[NPAD];
 #pragma unroll
@@ -402,11 +419,21 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   if constexpr (SPARSE) {
     int R = 0;                  // every thread, the same fixed order
     for (int j = 0; j < kw; ++j) R = max(R, Rs[j]);
-    sparse_windows<NPAD, P, 8>(R, X, As, Ds, col_mid, start, M, Wu_log2, n,
-                               s_acc, c_acc);
+    if constexpr (NPAD <= 32)
+      sparse_windows<NPAD, P, 8>(R, X, As, Ds, col_mid, start, M, Wu_log2, n,
+                                 s_acc, c_acc);
+    else
+      for (uint64_t macro = start; macro < stop; macro += (uint64_t)Wu)
+        sparse_windows<NPAD, P, 8>(R, X, As, Ds, col_mid, macro, M, Wu_log2,
+                                   n, s_acc, c_acc);
   } else {
-    real_windows<NPAD, P, false, NPAD>(X, As, Ds, col_mid, start, M,
-                                       Wu_log2, n, batched, s_acc, c_acc);
+    if constexpr (NPAD <= 32)
+      real_windows<NPAD, P, false, NPAD>(X, As, Ds, col_mid, start, M,
+                                         Wu_log2, n, batched, s_acc, c_acc);
+    else
+      for (uint64_t macro = start; macro < stop; macro += (uint64_t)Wu)
+        real_windows<NPAD, P, false, NPAD>(X, As, Ds, col_mid, macro, M,
+                                           Wu_log2, n, batched, s_acc, c_acc);
   }
 
   // ---- fixed-order lane tree over hi and lo (no atomics) ----
@@ -516,7 +543,9 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   const int lane = threadIdx.x;
   const int Wu = 1 << Wu_log2;
   const int kw = Wu_log2;
-  const int M = 1 << (C_log2 - Wu_log2);
+  // the window count: 32 bits up to NPAD 32, 64 above
+  using Count = std::conditional_t<(NPAD <= 32), int, uint64_t>;
+  const Count M = Count(1) << (C_log2 - Wu_log2);
   const uint64_t space = 1ull << (n - 1);
 
   double* Ars = smem;                                  // NPAD * NPAD
@@ -598,7 +627,7 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   const double* cmi = low_i + (kw - 1) * NPAD;
   const int mid_idx = Wu / 2 - 1;
   double sr = 0.0, cr_acc = 0.0, si = 0.0, ci_acc = 0.0;
-  for (int m = 0; m < M; ++m) {
+  for (Count m = 0; m < M; ++m) {
     const uint64_t macro = start + ((uint64_t)m << Wu_log2);
     // states (X + D[:, idx]) + corr, corr = cm_col * (-2 * bitk) from the mid
     // step on; X itself is advanced once per window

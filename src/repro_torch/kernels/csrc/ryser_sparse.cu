@@ -153,19 +153,20 @@ RYSER_SP_DECLARE(64)
 
 namespace {
 
-bool bad_geometry(int n, int n_pad, int maxdeg, int TB, int C_log2,
-                  int Wu_log2, int num_blocks, int B) {
+bool bad_geometry(uint64_t base, int n, int n_pad, int maxdeg, int TB,
+                  int C_log2, int Wu_log2, int num_blocks, int B) {
   return n < 3 || n > 64 || n > n_pad || maxdeg < 1 || TB < 1 ||
          TB > kMaxThreads || (TB & (TB - 1)) != 0 || Wu_log2 < 1 ||
          Wu_log2 >= n || C_log2 < Wu_log2 || num_blocks < 1 || B < 1 ||
-         B > 65535;
+         B > 65535 || !chunks_in_space(base, n, TB, C_log2, num_blocks);
 }
 
 int dispatch(const double* A, const int* rows, const double* vals,
              const double* xb, const double* c0, double* out, uint64_t base,
              int n, int n_pad, int maxdeg, int TB, int C_log2, int Wu_log2,
              int num_blocks, int B, int precision, void* stream) {
-  if (bad_geometry(n, n_pad, maxdeg, TB, C_log2, Wu_log2, num_blocks, B))
+  if (bad_geometry(base, n, n_pad, maxdeg, TB, C_log2, Wu_log2, num_blocks,
+                   B))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RYSER_SP_CASE(K)                                                       \
@@ -187,7 +188,8 @@ int dispatch_cx(const double* Ar, const double* Ai, const int* rows,
                 uint64_t base, int n, int n_pad, int maxdeg, int TB,
                 int C_log2, int Wu_log2, int num_blocks, int B, int precision,
                 void* stream) {
-  if (bad_geometry(n, n_pad, maxdeg, TB, C_log2, Wu_log2, num_blocks, B))
+  if (bad_geometry(base, n, n_pad, maxdeg, TB, C_log2, Wu_log2, num_blocks,
+                   B))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RYSER_SPX_CASE(K)                                                      \

@@ -27,6 +27,12 @@ for bit.
 ``block_partials_cuda`` exposes the raw per-block real dense partials over
 any chunk window.
 
+``campaign_slice_sums`` is the wave body of a step-space campaign
+(``core/distributed.py``): the per-slice twofloat sums of a run of
+contiguous slices from ONE launch of the scalar entry from a u64 chunk
+base (real: ``batched`` mode, complex: the split-plane kernel), or from
+the torch engine's chunk partials at the same offset.
+
 ``device=None`` means the card.  On a CPU tensor the kernel wrappers run
 their plain PyTorch versions instead.  f32 input is not ported yet.
 """
@@ -40,13 +46,14 @@ import torch
 
 from ..core import precision as P
 from ..core.ryser import (_final_factor, _small_n, as_matrix, as_planes,
-                          chain_prod, chain_prod_complex, is_complex,
-                          nw_base_vector, resolve_device)
+                          chain_prod, chain_prod_complex,
+                          chunk_partial_sums, chunk_partial_sums_complex,
+                          is_complex, nw_base_vector, resolve_device)
 from ..core.sparyser import pack_padded_ccs
 from ..core.stepspace import DEFAULT_GEOMETRY, Geometry
-from .ryser_complex_cuda import (ryser_cuda_call_complex,
+from .ryser_complex_cuda import (ctas_per_sm_complex, ryser_cuda_call_complex,
                                  ryser_cuda_call_complex_batched)
-from .ryser_cuda import ryser_cuda_call, ryser_cuda_call_batched
+from .ryser_cuda import ctas_per_sm, ryser_cuda_call, ryser_cuda_call_batched
 from .ryser_sparse_cuda import (ryser_sparse_cuda_call,
                                 ryser_sparse_cuda_call_batched,
                                 ryser_sparse_cuda_call_complex,
@@ -56,7 +63,9 @@ __all__ = ["Geometry", "DEFAULT_GEOMETRY", "permanent_cuda",
            "permanent_cuda_batched", "permanent_cuda_sparse",
            "permanent_cuda_sparse_batched", "sparse_value_cuda",
            "sparse_batched_values_cuda",
-           "block_partials_cuda", "kernel_reduce", "order_sparse_leaves",
+           "block_partials_cuda", "campaign_slice_sums", "wave_geometry",
+           "wave_precision", "wave_ctas_per_sm", "kernel_reduce",
+           "order_sparse_leaves",
            "pad_matrix", "pad_base_vector", "prepare", "prepare_complex",
            "prepare_sparse", "sparse_leaf_order",
            "split_matrix_planes", "split_base_planes", "tree_sum"]
@@ -304,6 +313,120 @@ def block_partials_cuda(A, *, dev_chunk_base: int = 0,
                           Wu=Wu, num_blocks=num_blocks or full_blocks,
                           precision=precision, mode=mode)
     return out, (TB, C, Wu, full_blocks)
+
+
+def wave_precision(precision: str) -> str:
+    """The accumulator a campaign wave body runs: ``qq`` has no twofloat
+    product in the step-space family and runs as ``dq_acc``, as the
+    reference's wave bodies do (``_pallas_device_partials`` and
+    ``_dyn_chunk_partials``)."""
+    return precision if precision in ("dd", "kahan", "dq_acc", "dq_fast") \
+        else "dq_acc"
+
+
+def wave_geometry(chunks_per_slice: int, chunk_size: int,
+                  geometry: Geometry | None = None) -> tuple[int, int]:
+    """(TB, Wu) of a campaign wave launch: TB = min(lanes, chunks per
+    slice) threads a CTA, one chunk each, and Wu = min(window, C), as the
+    reference's wave body takes them; the chunk size C itself is the
+    campaign's.  A slice is chunks_per_slice / TB CTAs."""
+    g = geometry or DEFAULT_GEOMETRY
+    return min(g.lanes, chunks_per_slice), min(g.window, chunk_size)
+
+
+def wave_ctas_per_sm(n: int, cplx: bool, *, chunks_per_slice: int,
+                     chunk_size: int, precision: str,
+                     geometry: Geometry | None = None) -> int:
+    """CTAs of the campaign wave body one SM of the card holds at once
+    (the occupancy query of the instantiation the wave launches)."""
+    TB, Wu = wave_geometry(chunks_per_slice, chunk_size, geometry)
+    n_pad = max(_PAD, -(-n // _PAD) * _PAD)
+    if cplx:
+        return ctas_per_sm_complex(n_pad, TB=TB, Wu=Wu,
+                                   precision=wave_precision(precision))
+    return ctas_per_sm(n_pad, TB=TB, Wu=Wu,
+                       precision=wave_precision(precision), mode="batched")
+
+
+def _slice_sums(hi, lo, num_slices: int):
+    """(hi, lo) of each slice from its partials (blocks or chunks, in
+    order, the last axis): ``two_sum`` of the fixed-order trees over that
+    slice's own partials, so a slice's sum is a function of the slice
+    alone, whichever run of slices shared its launch."""
+    return P.two_sum(tree_sum(hi.reshape(num_slices, -1)),
+                     tree_sum(lo.reshape(num_slices, -1)))
+
+
+def _timed(events: list | None, A, launch):
+    """``launch()``, bracketed by a pair of CUDA events appended to
+    ``events`` when it is a list and ``A`` lies on the card."""
+    if events is None or not A.is_cuda:
+        return launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = launch()
+    end.record()
+    events.append((start, end))
+    return out
+
+
+def campaign_slice_sums(A, first_slice: int, num_slices: int, *,
+                        chunks_per_slice: int, chunk_size: int,
+                        precision: str = "dq_acc",
+                        geometry: Geometry | None = None,
+                        backend: str = "cuda", device=None,
+                        events: list | None = None):
+    """Per-slice twofloat sums ``(hi, lo)``, each (num_slices,) on
+    ``device`` (complex128 for complex ``A``), of the contiguous campaign
+    slices [first_slice, first_slice + num_slices), each
+    ``chunks_per_slice`` chunks of ``chunk_size`` steps (g = 0 term NOT
+    included).
+
+    ``backend="cuda"`` is ONE launch of the scalar entry from chunk base
+    ``first_slice * chunks_per_slice`` over ``num_slices * chunks_per_slice
+    / TB`` blocks (``wave_geometry``): the real kernel in ``batched`` mode
+    or the split-plane complex kernel (the plain versions on a CPU
+    tensor); n < 3 runs the torch engine.  ``backend="torch"`` is the
+    chunked torch engine (``chunk_partial_sums`` with ``chunk_offset``).
+    Either way each slice reduces over its own partials
+    (``_slice_sums``).  ``events``, when given, collects a (start, end)
+    pair of CUDA events around the kernel launch on the card."""
+    A = _as_input(A, device)
+    n = A.shape[-1]
+    if A.ndim != 2 or A.shape[0] != n:
+        raise ValueError(f"square matrix required, got {tuple(A.shape)}")
+    if backend not in ("cuda", "torch"):
+        raise ValueError(f"backend must be cuda|torch, got {backend!r}")
+    prec = wave_precision(precision)
+    base = first_slice * chunks_per_slice
+    if backend == "cuda" and n >= 3:
+        TB, Wu = wave_geometry(chunks_per_slice, chunk_size, geometry)
+        geo = dict(n=n, TB=TB, C=chunk_size, Wu=Wu,
+                   num_blocks=num_slices * chunks_per_slice // TB,
+                   precision=prec)
+        if A.is_complex():
+            Ar, Ai, xbr, xbi, _ = prepare_complex(A)
+            out = _timed(events, A, lambda: ryser_cuda_call_complex(
+                Ar, Ai, xbr, xbi, base, **geo))
+            re = _slice_sums(out[:, 0], out[:, 1], num_slices)
+            im = _slice_sums(out[:, 2], out[:, 3], num_slices)
+            return torch.complex(re[0], im[0]), torch.complex(re[1], im[1])
+        A_pad, xb_pad, _ = prepare(A)
+        out = _timed(events, A, lambda: ryser_cuda_call(
+            A_pad, xb_pad, base, mode="batched", **geo))
+        return _slice_sums(out[:, 0], out[:, 1], num_slices)
+    T, total = num_slices * chunks_per_slice, (1 << (n - 1)) // chunk_size
+    if A.is_complex():
+        re, im, _ = chunk_partial_sums_complex(
+            A.real[None], A.imag[None], T, chunk_size, prec,
+            chunk_offset=base, total_chunks=total)
+        re = _slice_sums(re.hi[0], re.lo[0], num_slices)
+        im = _slice_sums(im.hi[0], im.lo[0], num_slices)
+        return torch.complex(re[0], im[0]), torch.complex(re[1], im[1])
+    parts = chunk_partial_sums(A[None], T, chunk_size, prec,
+                               chunk_offset=base, total_chunks=total)
+    return _slice_sums(parts.hi[0], parts.lo[0], num_slices)
 
 
 def permanent_cuda(A, *, precision: str = "dq_acc", mode: str = "baseline",

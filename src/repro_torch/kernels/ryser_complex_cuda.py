@@ -31,11 +31,11 @@ from ..core import gray as G
 from .ryser_cuda import (PRECISION_CODES, _accum, _block_sums, _boundary,
                          _check, _check_batch, _check_range, _cumsig_device,
                          _cumsig_host, _init_state, _lane_starts, _launch,
-                         _on_card, _signed_const_schedule, _window_states,
-                         counters)
+                         _occupancy, _on_card, _signed_const_schedule,
+                         _window_states, counters)
 
 __all__ = ["ryser_cuda_call_complex", "ryser_cuda_call_complex_batched",
-           "block_partials_plain_complex"]
+           "block_partials_plain_complex", "ctas_per_sm_complex"]
 
 
 def _cprod_rows(row, n: int):
@@ -187,3 +187,11 @@ def ryser_cuda_call_complex_batched(Ar_pads, Ai_pads, xbr_pads, xbi_pads, *,
             int(math.log2(C)), int(math.log2(Wu)), num_blocks,
             PRECISION_CODES[precision])
     return out
+
+
+def ctas_per_sm_complex(n_pad: int, *, TB: int, Wu: int,
+                        precision: str = "dq_acc") -> int:
+    """CTAs of TB threads of the split-plane dense instantiation for
+    ``n_pad`` that one SM of the card holds at once."""
+    return _occupancy("ryser_complex_occupancy", n_pad,
+                      PRECISION_CODES[precision], TB, int(math.log2(Wu)))

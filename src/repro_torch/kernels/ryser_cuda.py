@@ -34,7 +34,7 @@ from ..core import gray as G
 
 __all__ = ["ryser_cuda_call", "ryser_cuda_call_batched",
            "block_partials_plain", "counters", "reset_counters",
-           "PRECISION_CODES"]
+           "ctas_per_sm", "PRECISION_CODES"]
 
 # _accum_add's modes; qq has no twofloat product in-kernel and runs as dd
 PRECISION_CODES = {"dd": 0, "qq": 0, "kahan": 1, "dq_acc": 2, "dq_fast": 3}
@@ -280,6 +280,9 @@ def _check(A, xb, *, n: int, TB: int, C: int, Wu: int, num_blocks: int,
     if Wu < 2 or C % Wu or TB > 256 or num_blocks < 1:
         raise ValueError(f"bad geometry TB={TB} C={C} Wu={Wu} "
                          f"blocks={num_blocks}")
+    if C > 1 << (n - 1):
+        raise ValueError(f"chunk size C = 2^{int(math.log2(C))} exceeds the "
+                         f"2^{n - 1} step space of n={n}")
     if precision not in PRECISION_CODES:
         raise ValueError(f"unknown precision {precision!r}")
     if mode not in _MODE_CODES:
@@ -299,9 +302,11 @@ def _check_batch(B: int) -> None:
 
 def _check_range(base: int, num_blocks: int, TB: int, C: int,
                  n: int) -> None:
+    """The chunks [base, base + num_blocks * TB) of C steps lie in the
+    2^(n-1) step space (the C entries refuse the launch otherwise)."""
     if base < 0 or (base + num_blocks * TB) * C > (1 << (n - 1)):
-        raise ValueError(f"chunk range [{base}, +{num_blocks * TB}) exceeds "
-                         f"the 2^{n - 1} step space")
+        raise ValueError(f"chunk range [{base}, +{num_blocks * TB}) of "
+                         f"C={C} steps exceeds the 2^{n - 1} step space")
 
 
 @functools.lru_cache(maxsize=64)
@@ -316,6 +321,31 @@ def _c0_ptr(mode: str, Wu: int, n_pad: int, device: torch.device):
     """cumsig pointer for the kernel; baseline mode never reads it (NULL)."""
     return _cumsig_device(Wu, n_pad, device).data_ptr() \
         if mode == "batched" else None
+
+
+def _occupancy(entry: str, *args) -> int:
+    """CTAs one SM holds at once, from the occupancy query ``entry`` of
+    the kernel library (registers and shared memory of the
+    instantiation)."""
+    import ctypes
+
+    from .build import load_library
+    lib = load_library()
+    ctas = ctypes.c_int(0)
+    rc = getattr(lib, entry)(*args, ctypes.byref(ctas))
+    if rc != 0:
+        raise RuntimeError(f"{entry} failed: "
+                           f"{lib.ryser_error_string(rc).decode()} ({rc})")
+    return ctas.value
+
+
+def ctas_per_sm(n_pad: int, *, TB: int, Wu: int, precision: str = "dq_acc",
+                mode: str = "batched") -> int:
+    """CTAs of TB threads of the real dense instantiation for ``n_pad``
+    that one SM of the card holds at once (the campaign's wave width)."""
+    return _occupancy("ryser_dense_occupancy", n_pad,
+                      PRECISION_CODES[precision], TB, int(math.log2(Wu)),
+                      _MODE_CODES[mode])
 
 
 def _launch(entry: str, A, xb, out, *args) -> None:

@@ -7,6 +7,9 @@
     python -m repro_torch.launch.permanent --sparse-n 12 --density 0.2
     python -m repro_torch.launch.permanent --family fibonacci --n 32 \
         --no-preprocess                                  # the sparse route
+    python -m repro_torch.launch.permanent --n 40      # a campaign (n >= 31)
+    python -m repro_torch.launch.permanent --n 14 --device cpu \
+        --checkpoint job.npz --slices 32 --lanes 8       # forced, resumable
 
 Matrix sources: --matrix <.npy>, --n <random dense>, --sparse-n/--density
 (random sparse: U(0.5, 1.5) entries kept with probability --density),
@@ -16,7 +19,10 @@ Runs from the repository root with ``PYTHONPATH=src``.  Prints the
 ``ExecutionPlan`` summary before dispatching (``--plan-json`` dumps the
 whole plan), then ``perm(A) = %+.17e`` (``%+.17e %+.17ej`` for a complex
 matrix), ``rel.err`` against the closed form for ``--family allones`` and
-``OK``/``MISMATCH`` against F(n+1) for ``--family fibonacci``.
+``OK``/``MISMATCH`` against F(n+1) for ``--family fibonacci``.  A leaf
+beyond ``--campaign-threshold`` (2^34 steps by default: dense n >= 31)
+runs as a resumable campaign; ``--checkpoint`` forces the route and
+keeps its progress in a ``.npz`` that a rerun resumes.
 """
 
 from __future__ import annotations
@@ -73,6 +79,18 @@ def permanent_main(argv=None) -> int:
     ap.add_argument("--plan-json", action="store_true",
                     help="dump the full ExecutionPlan as JSON first")
     ap.add_argument("--no-preprocess", action="store_true")
+    ap.add_argument("--checkpoint", help="resumable job state (.npz); "
+                    "forces the step_sharded campaign route")
+    ap.add_argument("--campaign-threshold", type=float, default=None,
+                    help="step-cost estimate above which a leaf becomes a "
+                         "resumable campaign (default: forced with "
+                         "--checkpoint, 2^34 otherwise)")
+    ap.add_argument("--slices", type=int,
+                    default=SolverConfig.campaign_slices,
+                    help="campaign slice-count target (plan_slices)")
+    ap.add_argument("--lanes", type=int,
+                    default=SolverConfig.campaign_lanes,
+                    help="campaign chunk-count target (plan_slices)")
     args = ap.parse_args(argv)
 
     A = _load_matrix(args)
@@ -81,10 +99,19 @@ def permanent_main(argv=None) -> int:
           f"density={(A != 0).mean():.2%} precision={args.precision} "
           f"backend={args.backend} device={args.device or 'cuda'}")
     t0 = time.perf_counter()
+    threshold = args.campaign_threshold
+    if threshold is None:
+        # --checkpoint means "this run must be resumable" -> campaign
+        threshold = -1.0 if args.checkpoint \
+            else SolverConfig().campaign_threshold
     solver = PermanentSolver(SolverConfig(
         precision=args.precision, backend=args.backend,
         preprocess=not args.no_preprocess, num_chunks=args.chunks,
-        device=args.device, cache=False))
+        device=args.device, cache=False, campaign_threshold=threshold,
+        campaign_slices=args.slices, campaign_lanes=args.lanes,
+        campaign_checkpoint=args.checkpoint))
+    solver.campaign_progress = lambda s, _wave: print(
+        f"[superman] {s.fraction_done():6.1%} done", flush=True)
     plan = solver.plan(A)
     print(f"[superman] {plan.summary()}")
     if args.plan_json:

@@ -1,10 +1,17 @@
 """Tests that need the card: the CUDA kernels (dense real, split-plane
 complex, and sparse real and complex) against their plain versions, bit
-for bit, and the main path against the torch engines, on the device.
+for bit, also from chunk bases at the end of the step space; the main
+path against the torch engines, on the device; the refusal of a chunk
+size past the step space; a campaign killed and resumed.
 They skip where no card is present; on a machine with one run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import os
+import signal
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -344,3 +351,154 @@ def test_sparse_main_path_orders_real_leaves_on_card(card):
     assert abs(got - want) <= 1e-9 * abs(want)
     other = _extent(rng, 20, 20, int(np.log2(Wu)), extra=4)
     assert repro_torch.permanent_batch([A, other], preprocess=False)[0] == got
+
+
+@pytest.mark.parametrize("n", [40, 48, 64])
+def test_scalar_entries_from_large_chunk_bases_on_card(card, n):
+    """The four scalar entries (the dense one in both modes) from the last
+    chunks of the 2^(n-1) step space and from around 2^(n-2), where a
+    campaign's slices start: bit for bit with their plain versions."""
+    rng = np.random.default_rng(800 + n)
+    TB, C, Wu, nb = 32, 64, 16, 2
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+    chunks = (1 << (n - 1)) // C
+    A_pads, xb_pads, _ = ops.prepare(torch.as_tensor(
+        rng.uniform(-1, 1, (1, n, n)) / 2, device=card))
+    cx = ops.prepare_complex(torch.as_tensor(
+        _cgauss(rng, (1, n, n)) / 2, device=card))[:4]
+    sp = [torch.as_tensor(x, device=card) for x in pack_padded_ccs(
+        [SparseMatrix.from_dense(_sparse(rng, n, False, 3))])]
+    A_sp, rows, vals, xb_sp = ops.prepare_sparse(*sp, Wu)[:4]
+    spx = [torch.as_tensor(x, device=card) for x in pack_padded_ccs(
+        [SparseMatrix.from_dense(_sparse(rng, n, True, 3))])]
+    Ar, Ai, xbr, xbi, _ = ops.prepare_complex(spx[0])
+    spx_in = (Ar, Ai, spx[1], spx[2].real.contiguous(),
+              spx[2].imag.contiguous(), xbr, xbi)
+    for base in (chunks - nb * TB, chunks // 2 - nb * TB // 2):
+        for mode in ("baseline", "batched"):
+            torch.testing.assert_close(
+                RC.ryser_cuda_call(A_pads[0], xb_pads[0], base, mode=mode,
+                                   **geo),
+                RC.block_partials_plain(A_pads, xb_pads, base, mode=mode,
+                                        **geo)[0], rtol=0, atol=0)
+        torch.testing.assert_close(
+            RX.ryser_cuda_call_complex(*(p[0] for p in cx), base, **geo),
+            RX.block_partials_plain_complex(*cx, base, **geo)[0],
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            RS.ryser_sparse_cuda_call(A_sp[0], rows[0], vals[0], xb_sp[0],
+                                      base, **geo),
+            RS.block_partials_plain_sparse(A_sp, rows, vals, xb_sp, base,
+                                           **geo)[0], rtol=0, atol=0)
+        torch.testing.assert_close(
+            RS.ryser_sparse_cuda_call_complex(*(t[0] for t in spx_in), base,
+                                              **geo),
+            RS.block_partials_plain_sparse_complex(*spx_in, base, **geo)[0],
+            rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n,cplx", [(40, False), (32, True)])
+def test_campaign_wave_body_at_main_path_lanes_on_card(card, n, cplx):
+    """The campaign wave body at the main path's TB = 128 (small C): kernel
+    #1 in batched mode (#3 for complex) equals its plain version bit for
+    bit, and so do the per-slice sums of two slices from chunk base 0, the
+    middle and the end of the space."""
+    rng = np.random.default_rng(900 + n)
+    A = rng.uniform(-1, 1, (n, n)) / 2
+    if cplx:
+        A = _cgauss(rng, (n, n)) / 2
+    A = torch.as_tensor(A, device=card)
+    cps, C, Wu, TB = 256, 1 << 10, 16, 128
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=2 * cps // TB)
+    slices = (1 << (n - 1)) // C // cps
+    for first in (0, slices // 2 - 1, slices - 2):
+        base = first * cps
+        hi, lo = ops.campaign_slice_sums(A, first, 2, chunks_per_slice=cps,
+                                         chunk_size=C, device=card)
+        if cplx:
+            ins = ops.prepare_complex(A[None])[:4]
+            got = RX.ryser_cuda_call_complex(*(t[0] for t in ins), base,
+                                             **geo)
+            plain = RX.block_partials_plain_complex(*ins, base, **geo)[0]
+            re = ops._slice_sums(plain[:, 0], plain[:, 1], 2)
+            im = ops._slice_sums(plain[:, 2], plain[:, 3], 2)
+            want = (torch.complex(re[0], im[0]), torch.complex(re[1], im[1]))
+        else:
+            A_pads, xb_pads, _ = ops.prepare(A[None])
+            got = RC.ryser_cuda_call(A_pads[0], xb_pads[0], base,
+                                     mode="batched", **geo)
+            plain = RC.block_partials_plain(A_pads, xb_pads, base,
+                                            mode="batched", **geo)[0]
+            want = ops._slice_sums(plain[:, 0], plain[:, 1], 2)
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+        torch.testing.assert_close(hi, want[0], rtol=0, atol=0)
+        torch.testing.assert_close(lo, want[1], rtol=0, atol=0)
+
+
+def test_chunk_size_past_the_space_refused_on_card(card):
+    """A chunk size past the 2^(n-1) step space, or a chunk range past it,
+    is refused by the wrapper (ValueError) and by the C entry (rc 1,
+    cudaErrorInvalidValue) before any launch."""
+    from repro_torch.kernels import build
+    n = 40
+    A_pad = torch.zeros((40, 40), dtype=torch.float64, device=card)
+    xb = torch.ones((40, 1), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="step space"):
+        RC.ryser_cuda_call(A_pad, xb, 0, n=n, TB=32, C=1 << n, Wu=16,
+                           num_blocks=1)
+    with pytest.raises(ValueError, match="step space"):
+        RC.ryser_cuda_call(A_pad, xb, (1 << 33) - 31, n=n, TB=32, C=64,
+                           Wu=16, num_blocks=1)
+    lib = build.load_library()
+    p, s = A_pad.data_ptr(), torch.cuda.current_stream().cuda_stream
+    for base, c_log2 in ((0, n), ((1 << 33) - 31, 6), (1 << 63, 6)):
+        assert lib.ryser_dense_scalar(p, p, p, p, base, n, 40, 32, c_log2,
+                                      4, 1, 2, 1, s) == 1
+        assert lib.ryser_complex_scalar(p, p, p, p, p, p, base, n, 40, 32,
+                                        c_log2, 4, 1, 2, s) == 1
+
+
+def test_campaign_kill_and_resume_on_card(card, tmp_path):
+    """n = 32 through the campaign CLI on the card: SIGKILLed after its
+    first wave and resumed, it prints the value of an uninterrupted run
+    bit for bit; the uninterrupted value is within 1e-9 of the direct
+    scalar kernel.  2048 slices make about 40 waves at the default W, so
+    the kill lands with most of the job pending."""
+    from repro_torch.core.resume import JobState
+    from repro_torch.core.solver import PermanentSolver
+    A = np.random.default_rng(32).uniform(0.2, 1.2, (32, 32))
+    np.save(tmp_path / "A.npy", A)
+    solver = PermanentSolver(preprocess=False, campaign_threshold=-1.0,
+                             campaign_slices=2048, cache=False)
+    ref = solver.execute(solver.plan(A))
+    direct = PermanentSolver(campaign_threshold=None, preprocess=False)
+    want = direct.execute(direct.plan(A))
+    # the value bar: two chunk geometries round apart on this positive
+    # matrix (3.3e-11 between C = 2^13 and the direct kernel's 64) (Ryser's alternating sum cancels
+    # terms two orders above the permanent)
+    assert abs(ref - want) <= 1e-9 * abs(want)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    args = [sys.executable, "-m", "repro_torch.launch.campaign", "--matrix",
+            str(tmp_path / "A.npy"), "--slices", "2048", "--checkpoint",
+            str(tmp_path / "job.npz")]
+    env = dict(os.environ, PYTHONPATH=src)
+    p = subprocess.Popen(args, env=env,
+                         stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    try:
+        for line in p.stdout:
+            if "[campaign] wave" in line:
+                os.kill(p.pid, signal.SIGKILL)
+                break
+        p.wait(timeout=300)
+    finally:
+        p.stdout.close()
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=60)
+    assert 0 < JobState.load(str(tmp_path / "job.npz")).fraction_done() < 1
+    r = subprocess.run(args, env=env, capture_output=True, text=True,
+                       timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr[-3000:]
+    assert f"perm(A) = {ref:+.17e}" in r.stdout
+

@@ -153,6 +153,28 @@ def test_interop_round_trips_reference_config():
 
 @pytest.mark.parametrize("knob", [{"campaign_checkpoint": "job.npz"},
                                   {"campaign_max_waves": 2}])
-def test_interop_rejects_unported_campaign_knobs(knob):
-    with pytest.raises(NotImplementedError, match="Campaign"):
-        interop.config_from_reference(dataclasses.asdict(RefConfig(**knob)))
+def test_interop_rejects_unported_campaign_knobs(knob, tmp_path):
+    """The campaign knobs cross as they are; what the port rejects is a
+    checkpoint the reference wrote: its partial sums name the reference's
+    wave body (``pallas``), so resuming it is a config mismatch."""
+    from repro.core.resume import JobState as RefJobState
+    if "campaign_checkpoint" in knob:
+        knob = {"campaign_checkpoint": str(tmp_path / "job.npz")}
+    cfg = interop.config_from_reference(dataclasses.asdict(RefConfig(
+        backend="pallas", **knob)))
+    for name, value in knob.items():
+        assert getattr(cfg, name) == value
+    ckpt = knob.get("campaign_checkpoint", str(tmp_path / "ref.npz"))
+    A = np.random.default_rng(36).uniform(-1, 1, (9, 9))
+    solver = PermanentSolver(cfg.replace(
+        device="cpu", preprocess=False, campaign_threshold=-1.0,
+        campaign_checkpoint=ckpt))
+    plan = solver.plan(A)
+    spec = plan.leaves[0].campaign
+    assert (spec.backend, spec.geometry) == ("cuda", None)
+    RefJobState.create(A, spec.total_slices, precision=spec.precision,
+                       backend="pallas",
+                       chunks_per_slice=spec.chunks_per_slice,
+                       chunk_size=spec.chunk_size).save(ckpt)
+    with pytest.raises(ValueError, match="config mismatch.*backend"):
+        solver.execute(plan)

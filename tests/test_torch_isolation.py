@@ -1,7 +1,7 @@
 """The port stands alone and never falls back: it imports neither jax nor
 the reference package, a card that is asked for and missing raises, the
-sparse route runs (real and complex), and the routes not ported yet
-(campaign, tuning) raise ``NotImplementedError``."""
+sparse route runs (real and complex), and the route not ported yet
+(tuning) raises ``NotImplementedError``."""
 
 import os
 import subprocess
@@ -26,6 +26,8 @@ import repro_torch, repro_torch.core.engine, repro_torch.kernels.ops
 import repro_torch.kernels.build, repro_torch.launch.permanent
 import repro_torch.interop, repro_torch.core.sparyser
 import repro_torch.kernels.ryser_sparse_cuda
+import repro_torch.core.distributed, repro_torch.core.resume
+import repro_torch.launch.campaign
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -89,9 +91,5 @@ def test_sparse_input_runs_and_matches_oracle():
 
 
 def test_unported_routes_raise():
-    rng = np.random.default_rng(1)
-    solver = PermanentSolver(device="cpu", campaign_threshold=-1.0)
-    with pytest.raises(NotImplementedError, match="campaign"):
-        solver.execute(solver.plan(rng.uniform(-1, 1, (6, 6))))
     with pytest.raises(NotImplementedError, match="[Tt]uning"):
         PermanentSolver(device="cpu", tuning_table="t.json").plan(np.eye(4))
