@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--time-only]
+    python3 chip_smoke.py [--time-only | --serve-only]
 
 Run from the repository root on a machine with a CUDA card and nvcc.  It
 builds the kernels from ``src/repro_torch/kernels/csrc`` (the dense real
@@ -14,8 +14,17 @@ reset just before and read just after each path, checks the values
 (closed forms at full width, Fibonacci on the sparse route, the dense
 kernel and the torch engine against the sparse route, a scalar leaf
 against the same leaf in a bucket), splits each call's host time into
-planning and execution, and times each kernel beside its bound.  A
-summary goes to ``chiprun_out/chip_smoke.json``.
+planning and execution, and times each kernel beside its bound.  Phase
+``entry_parity`` holds kernel #1's schedmat mode and the f32 entries of
+#1 and #2 against their plain versions and drives them through
+``ops.permanent_cuda(_batched)``; phase ``campaign`` runs the step-space
+campaigns; phase ``serve`` drives the always-on service
+(``repro_torch.serve``): warm-up, an open-loop soak of one mixed stream
+(dense real, dense complex, sparse), a soak of ``run_soak`` on random
+masks at density 0.2, ``fill_first``, an interleaved campaign and four
+cold processes (three of its CLI; ``--cold-band ROOT`` is the fourth's
+own entry).  ``--serve-only`` runs the build and phase ``serve`` alone.
+A summary goes to ``chiprun_out/chip_smoke.json``.
 
 The build report gives each kernel instantiation's registers, spills and
 warps per SM, and the SASS instruction mix of the complex body's hot
@@ -88,16 +97,24 @@ PRECISIONS = ("dd", "dq_fast", "dq_acc", "qq", "kahan")
 RTOL_KERNEL, ATOL_KERNEL = 1e-12, 1e-15
 MAIN_REPS = 3
 
-# Data-sheet FP64 (vector, an FMA counted as two) and memory rates by SKU.
-_SKUS = (("H100 PCIe", 25.6e12, 2.0e12), ("H100 NVL", 30.0e12, 3.9e12),
-         ("H100", 34.0e12, 3.35e12), ("H200", 34.0e12, 4.8e12))
+# Data-sheet FP64 and FP32 (vector, an FMA counted as two) and memory
+# rates by SKU.
+_SKUS = (("H100 PCIe", 25.6e12, 51.2e12, 2.0e12),
+         ("H100 NVL", 30.0e12, 60.0e12, 3.9e12),
+         ("H100", 34.0e12, 67.0e12, 3.35e12),
+         ("H200", 34.0e12, 67.0e12, 4.8e12))
 
 
 def _sku(name: str):
-    for key, fp64, bw in _SKUS:
+    """(SKU, FP64 rate, memory rate) of the card; ``_fp32`` the FP32 rate."""
+    for key, fp64, _fp32, bw in _SKUS:
         if key in name:
             return key, fp64, bw
     raise RuntimeError(f"no FP64/memory rates on record for {name!r}")
+
+
+def _fp32(name: str) -> float:
+    return next(fp32 for key, _fp64, fp32, _bw in _SKUS if key in name)
 
 
 def complex_ryser_ops(n: int) -> float:
@@ -153,13 +170,19 @@ def _ulp_gap(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.max(gap)) if gap.size else 0.0
 
 
-KERNELS = ("dense", "complex", "sparse", "sparse_cx")
+# (body, dtype, schedmat) of each family of 32 instantiations (8 NPAD x
+# 4 precisions)
+INSTANTIATIONS = (("dense", "f64", False), ("dense", "f64", True),
+                  ("dense", "f32", False), ("dense", "f32", True),
+                  ("complex", "f64", False), ("sparse", "f64", False),
+                  ("sparse_cx", "f64", False))
 
 
 def _ptxas_summary(log: str) -> list[dict]:
-    """(kernel, npad, precision code, registers, spill bytes) per kernel
-    instantiation: ryser_kernel<NPAD, P, SPARSE> ("dense" in
-    ryser_dense.cu, "sparse" in ryser_sparse.cu) and ryser_cx_kernel
+    """(kernel, npad, precision code, dtype, schedmat, registers, spill
+    bytes) per kernel instantiation: ryser_kernel<NPAD, P, SPARSE, T,
+    SCHED> ("dense" in ryser_dense.cu, f64 and f32, with and without the
+    schedmat mode; "sparse" in ryser_sparse.cu) and ryser_cx_kernel
     ("complex" in ryser_complex.cu, "sparse_cx" in ryser_sparse.cu)."""
     names = {("", "0"): "dense", ("", "1"): "sparse",
              ("cx_", "0"): "complex", ("cx_", "1"): "sparse_cx"}
@@ -167,11 +190,13 @@ def _ptxas_summary(log: str) -> list[dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            t = re.search(r"ryser_(cx_)?kernelILi(\d+)ELi(\d+)ELb([01])E",
-                          m.group(1))
+            t = re.search(r"ryser_(cx_)?kernelILi(\d+)ELi(\d+)ELb([01])E"
+                          r"(?:([df])Lb([01])E)?", m.group(1))
             cur = {"kernel": names[(t.group(1) or "", t.group(4))],
                    "npad": int(t.group(2)),
-                   "prec": int(t.group(3))} if t else None
+                   "prec": int(t.group(3)),
+                   "dtype": "f32" if t.group(5) == "f" else "f64",
+                   "sched": t.group(6) == "1"} if t else None
             continue
         if cur is None:
             continue
@@ -184,7 +209,8 @@ def _ptxas_summary(log: str) -> list[dict]:
             cur["registers"] = int(m.group(1))
             out.append(cur)
             cur = None
-    return sorted(out, key=lambda d: (d["kernel"], d["npad"], d["prec"]))
+    return sorted(out, key=lambda d: (d["kernel"], d["dtype"], d["sched"],
+                                      d["npad"], d["prec"]))
 
 
 def phase_card(smoke: Smoke, torch) -> dict:
@@ -214,14 +240,17 @@ def phase_build(smoke: Smoke) -> None:
     smoke.summary["build_s"] = dt
     smoke.summary["ptxas"] = regs
     for r in regs:
-        print(f"  ptxas {r['kernel']:9s} npad={r['npad']:2d} "
+        print(f"  ptxas {r['kernel']:9s} {r['dtype']}"
+              f"{' schedmat' if r['sched'] else ''} npad={r['npad']:2d} "
               f"prec={r['prec']} registers={r['registers']} "
               f"spill={r.get('spill_stores', 0)}"
               f"/{r.get('spill_loads', 0)} B warps/SM={r['warps_per_sm']} "
               f"(TB={TB})")
-    for kernel in KERNELS:
-        k = [r for r in regs if r["kernel"] == kernel]
-        smoke.check(len(k) == 32, f"32 {kernel} kernel instantiations built "
+    for kernel, dtype, sched in INSTANTIATIONS:
+        k = [r for r in regs if (r["kernel"], r["dtype"], r["sched"]) ==
+             (kernel, dtype, sched)]
+        what = f"{kernel} {dtype}{' schedmat' if sched else ''}"
+        smoke.check(len(k) == 32, f"32 {what} kernel instantiations built "
                                   f"({len(k)})")
     spills = [(r["kernel"], r["npad"], r["prec"]) for r in regs
               if r["npad"] <= 48 and (r.get("spill_stores", 0)
@@ -258,12 +287,14 @@ def _sass_mix(build, prec: int = 2) -> dict:
             ("dense", "ryser_dense", "ryser_kernel", 0, 24, 1),
             ("sparse", "ryser_sparse", "ryser_kernel", 1, 32, 1),
             ("sparse", "ryser_sparse", "ryser_kernel", 1, 24, 1)):
+        # the real body's f64 instantiation without the schedmat mode
+        tail = "dLb0E" if per == 1 else ""
         path = str(build.build_dir() / f"{obj}_n{npad}.o")
         if path not in sass:
             sass[path] = subprocess.run([tool, "-sass", path],
                                         capture_output=True, text=True,
                                         timeout=120).stdout
-        want = f"{fn}ILi{npad}ELi{prec}ELb{sparse}E"
+        want = f"{fn}ILi{npad}ELi{prec}ELb{sparse}E{tail}"
         body = next((b for b in sass[path].split("Function : ")[1:]
                      if b.split(None, 1)[0].find(want) >= 0), "")
         if per == 4:
@@ -1005,7 +1036,8 @@ def _vs_unordered(torch, mp: dict) -> float:
 
 def _timed_inputs(torch, rng, entry: str, n: int, B: int):
     """(kernel call, plain call, input bytes, operation count, mode) of one
-    kernel entry at a main-path shape."""
+    kernel entry at a main-path shape.  A real dense entry name may end in
+    ``_f32`` (f32 input) and the scalar one in ``_schedmat`` (the mode)."""
     from repro_torch.core.ryser import ryser_flops
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     from repro_torch.kernels import ops
@@ -1013,7 +1045,7 @@ def _timed_inputs(torch, rng, entry: str, n: int, B: int):
     from repro_torch.kernels import ryser_cuda as RC
     TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
     geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks, precision="dq_acc")
-    scalar = entry.endswith("_scalar")
+    scalar = "_scalar" in entry
     if entry.startswith("ryser_complex"):
         As = torch.as_tensor(_cgauss(rng, (B, n, n)), device="cuda")
         planes = ops.prepare_complex(As)[:4]
@@ -1025,8 +1057,10 @@ def _timed_inputs(torch, rng, entry: str, n: int, B: int):
             *planes, 0, **geo)
         nbytes = 8 * (sum(p.numel() for p in planes) + 4 * B * blocks)
         return kern, plain, nbytes, B * complex_ryser_ops(n), "batched"
-    mode = "baseline" if scalar else "batched"
-    As = torch.as_tensor(rng.uniform(-1, 1, (B, n, n)), device="cuda")
+    mode = "schedmat" if entry.endswith("_schedmat") else \
+        "baseline" if scalar else "batched"
+    dt = torch.float32 if "_f32" in entry else torch.float64
+    As = torch.as_tensor(rng.uniform(-1, 1, (B, n, n)), device="cuda").to(dt)
     A_pads, xb_pads, _ = ops.prepare(As)
     kern = (lambda: RC.ryser_cuda_call(  # noqa: E731
         A_pads[0], xb_pads[0], 0, mode=mode, **geo)) if scalar else \
@@ -1034,7 +1068,8 @@ def _timed_inputs(torch, rng, entry: str, n: int, B: int):
             A_pads, xb_pads, mode=mode, **geo))
     plain = lambda: RC.block_partials_plain(  # noqa: E731
         A_pads, xb_pads, 0, mode=mode, **geo)
-    nbytes = 8 * (A_pads.numel() + xb_pads.numel() + 2 * B * blocks)
+    nbytes = A_pads.element_size() * (A_pads.numel() + xb_pads.numel()
+                                      + 2 * B * blocks)
     return kern, plain, nbytes, B * ryser_flops(n), mode
 
 
@@ -1117,13 +1152,14 @@ def _dense_at_sparse_shape(smoke: Smoke, torch, msp: dict,
     return out
 
 
-# (entry, n, B, TPU kernel it replaces, source) of the eight timed entries
+# (entry, n, B, TPU kernel it replaces, source) of the timed entries: the
+# eight of the main paths, then kernel #1's schedmat mode and the f32
+# entries of #1 and #2 (the entry-parity path)
 _SP = "src/repro/kernels/ryser_sparse.py"
+_RP = "src/repro/kernels/ryser_pallas.py"
 TIMED = (
-    ("ryser_dense_scalar", N_MAIN, 1,
-     "src/repro/kernels/ryser_pallas.py:305", "ryser_dense.cu"),
-    ("ryser_dense_batched", N_THRU, B_THRU,
-     "src/repro/kernels/ryser_pallas.py:342", "ryser_dense.cu"),
+    ("ryser_dense_scalar", N_MAIN, 1, f"{_RP}:305", "ryser_dense.cu"),
+    ("ryser_dense_batched", N_THRU, B_THRU, f"{_RP}:342", "ryser_dense.cu"),
     ("ryser_complex_scalar", N_MAIN, 1,
      "src/repro/kernels/ryser_complex.py:181", "ryser_complex.cu"),
     ("ryser_complex_batched", N_THRU, B_THRU,
@@ -1133,7 +1169,14 @@ TIMED = (
     ("ryser_sparse_complex_scalar", N_SPARSE, 1, f"{_SP}:400",
      "ryser_sparse.cu"),
     ("ryser_sparse_complex_batched", N_THRU, B_THRU, f"{_SP}:436",
-     "ryser_sparse.cu"))
+     "ryser_sparse.cu"),
+    ("ryser_dense_scalar_schedmat", N_MAIN, 1, f"{_RP}:305",
+     "ryser_dense.cu"),
+    ("ryser_dense_scalar_f32", N_MAIN, 1, f"{_RP}:305", "ryser_dense.cu"),
+    ("ryser_dense_scalar_f32_schedmat", N_MAIN, 1, f"{_RP}:305",
+     "ryser_dense.cu"),
+    ("ryser_dense_batched_f32", N_THRU, B_THRU, f"{_RP}:342",
+     "ryser_dense.cu"))
 ROUNDS, REPS = 3, 5
 
 
@@ -1194,7 +1237,8 @@ def _print_rounds(timed: dict, bounds: dict) -> None:
 
 def _timed_entries(torch, card: dict) -> dict:
     """name -> (kernel call, plain call, bound ms, bound_by, n, B, mode) of
-    the eight entries at the main path's shapes, inputs from one seed."""
+    the timed entries at the main path's shapes, inputs from one seed; an
+    f32 entry's operations go over the FP32 rate."""
     sku, fp64, bw = _sku(card["name"])
     rng = np.random.default_rng(SEED + 3)
     entries = {}
@@ -1202,11 +1246,13 @@ def _timed_entries(torch, card: dict) -> dict:
         kern, plain, nbytes, ops_count, mode = (
             _timed_inputs_sparse if "sparse" in entry else _timed_inputs)(
             torch, rng, entry, n, B)
-        t_ops, t_bytes = ops_count / (fp64 / 2) * 1e3, nbytes / bw * 1e3
+        rate = _fp32(card["name"]) if "_f32" in entry else fp64
+        t_ops, t_bytes = ops_count / (rate / 2) * 1e3, nbytes / bw * 1e3
         entries[entry] = (kern, plain, max(t_ops, t_bytes),
                           "operations" if t_ops >= t_bytes else "bytes", n,
                           B, mode)
-    print(f"bounds from {sku}: FP64 {fp64 / 1e12:g} TFLOP/s / 2, "
+    print(f"bounds from {sku}: FP64 {fp64 / 1e12:g} TFLOP/s / 2, FP32 "
+          f"{_fp32(card['name']) / 1e12:g} TFLOP/s / 2, "
           f"{bw / 1e12:g} TB/s")
     return entries
 
@@ -1229,14 +1275,16 @@ def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
         blocks = DEFAULT_GEOMETRY.kernel_geometry(n)[3]
         got = timed[entry].pop("got")
         plain_ms, want = _time_ms(torch, plain, reps=1)
-        if entry.endswith("_scalar"):
+        if "_scalar" in entry:
             want = want[0]
         full_err[entry] = 0.0
+        dtype = str(got.dtype).replace("torch.", "")
         ok = _agree(got, want, full_err, entry)
         ok &= bool(torch.equal(got, want))
         smoke.check(ok, f"{entry} equals its plain version bit for bit over "
                         f"the full grid of {B} x n={n} ({blocks} blocks, "
-                        f"{mode}, dq_acc): max abs err {full_err[entry]:g}")
+                        f"{mode}, dq_acc, {dtype}): max abs err "
+                        f"{full_err[entry]:g}")
         del plain, got, want
         torch.cuda.empty_cache()
         ms = timed[entry]["ms"]
@@ -1247,7 +1295,8 @@ def phase_timing(smoke: Smoke, torch, card: dict, launches: dict,
             "max_abs_err": max(full_err[entry], window_err[entry]),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": None})
-        print(f"{entry}: {B} x n={n} {mode} dq_acc: kernel {ms:.4f} ms "
+        print(f"{entry}: {B} x n={n} {mode} dq_acc {dtype}: kernel "
+              f"{ms:.4f} ms "
               f"(median of {ROUNDS}), plain {plain_ms:.2f} ms, bound "
               f"{bound:.4f} ms, {ms / bound:.2f}x the bound")
     smoke.summary["kernel_vs_plain_full_grid"] = full_err
@@ -1852,6 +1901,785 @@ def phase_campaign(smoke: Smoke, torch, card: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Kernel-entry parity: kernel #1's schedmat mode, f32 input to #1 and #2
+# ---------------------------------------------------------------------------
+
+PARITY_WINDOW_NS = tuple(n for n in WINDOW_NS if n <= N_MAIN)
+SCHED_ORACLE_NS = (8, 11, 14)        # schedmat values against the oracle
+F32_NS = (10, 16, 20, 24)            # f32 values against the f64 kernel
+ORACLE_BAR, F32_BAR = 1e-9, 5e-4     # the reference's bars (f64, f32)
+PARITY_ROWS = ("ryser_dense_scalar_schedmat", "ryser_dense_scalar_f32",
+               "ryser_dense_scalar_f32_schedmat", "ryser_dense_batched_f32")
+
+
+def _parity_windows(smoke: Smoke, torch) -> dict:
+    """#1 in schedmat mode (f64 and f32) and in baseline and batched mode
+    on f32, and #2 on f32, bit for bit with their plain versions on block
+    windows (the first and the last, all precisions) at n in
+    PARITY_WINDOW_NS, with the same inputs in both dtypes.  The full grids
+    at n = 30 and 256 x n = 24 are the timing phase's."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_cuda as RC
+    rng = np.random.default_rng(SEED + 17)
+    err = dict.fromkeys(PARITY_ROWS, 0.0)
+    equal = True
+    for n in PARITY_WINDOW_NS:
+        geom = DEFAULT_GEOMETRY if n >= N_BUCKET else Geometry(8, 8, 4)
+        TB, C, Wu, blocks = geom.kernel_geometry(n)
+        nb = min(8, blocks)
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+        As = torch.as_tensor(rng.uniform(-1, 1, (3, n, n)), device="cuda")
+        for dt in (torch.float64, torch.float32):
+            f32 = dt == torch.float32
+            A_pads, xb_pads, _ = ops.prepare(As.to(dt))
+            for mode in (("baseline", "batched", "schedmat") if f32
+                         else ("schedmat",)):
+                key = ("ryser_dense_scalar" + ("_f32" if f32 else "")
+                       + ("_schedmat" if mode == "schedmat" else ""))
+                for prec in PRECISIONS:
+                    for base in sorted({0, blocks * TB - nb * TB}):
+                        got = RC.ryser_cuda_call(A_pads[0], xb_pads[0], base,
+                                                 precision=prec, mode=mode,
+                                                 **geo)
+                        want = RC.block_partials_plain(
+                            A_pads[:1], xb_pads[:1], base, precision=prec,
+                            mode=mode, **geo)[0]
+                        equal &= got.dtype == dt and _bits_equal(
+                            torch, got, want, err, key)
+                    if f32 and mode != "schedmat":
+                        got = RC.ryser_cuda_call_batched(
+                            A_pads, xb_pads, precision=prec, mode=mode, **geo)
+                        want = RC.block_partials_plain(
+                            A_pads, xb_pads, 0, precision=prec, mode=mode,
+                            **geo)
+                        equal &= got.dtype == dt and _bits_equal(
+                            torch, got, want, err, "ryser_dense_batched_f32")
+        torch.cuda.synchronize()
+    smoke.check(equal, f"#1 schedmat (f64, f32), #1 baseline/batched f32 and "
+                       f"#2 f32 equal their plain versions bit for bit on "
+                       f"windows at n in {PARITY_WINDOW_NS}, "
+                       f"{len(PRECISIONS)} precisions, first and last "
+                       f"blocks, B = 3: max abs err {err}")
+    return err
+
+
+def phase_entry_parity(smoke: Smoke, torch) -> tuple[dict, dict]:
+    """Kernel #1's schedmat mode and the f32 entries of #1 and #2: windows
+    against their plain versions, then the path a user takes
+    (``ops.permanent_cuda`` / ``permanent_cuda_batched``) with the launch
+    counters reset just before and read just after: schedmat values
+    against the oracle, f32 values (U(0.1, 1)) against the f64 kernel on
+    the same matrices and f32 in dtype; ``perm_ryser_seq`` on the card
+    against the oracle; #1's three modes timed at n = 30 (f64 and f32).
+    Returns (window max abs errors, the path's launches) of PARITY_ROWS."""
+    import repro_torch.core.oracle as oracle
+    from repro_torch.core.ryser import perm_ryser_seq
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_cuda as RC
+    t0 = time.perf_counter()
+    err = _parity_windows(smoke, torch)
+    rng = np.random.default_rng(SEED + 18)
+    sched_rel, f32_rel, dtypes_ok = {}, {}, True
+    RC.reset_counters()
+    for n in SCHED_ORACLE_NS:
+        A = rng.uniform(-1, 1, (n, n))
+        got = float(ops.permanent_cuda(A, mode="schedmat"))
+        want = oracle.perm_ryser_exact(A)
+        sched_rel[n] = abs(got - want) / abs(want)
+    for n in F32_NS:
+        As = rng.uniform(0.1, 1.0, (4, n, n))
+        f64 = ops.permanent_cuda_batched(As).cpu().numpy()
+        A32 = As.astype(np.float32)
+        for mode in ("baseline", "batched"):
+            got = ops.permanent_cuda_batched(A32, mode=mode)
+            dtypes_ok &= got.dtype == torch.float32 and got.shape == (4,)
+            f32_rel[f"#2 {mode} n={n}"] = float(np.max(np.abs(
+                got.cpu().numpy().astype(np.float64) - f64) / np.abs(f64)))
+        for mode in ("baseline", "batched", "schedmat"):
+            got = ops.permanent_cuda(A32[0], mode=mode)
+            dtypes_ok &= got.dtype == torch.float32 and got.ndim == 0
+            f32_rel[f"#1 {mode} n={n}"] = abs(float(got) - f64[0]) / \
+                abs(f64[0])
+    torch.cuda.synchronize()
+    launches = {k: RC.counters[k] for k in PARITY_ROWS}
+    plain = RC.counters["block_partials_plain"]
+    print(f"entry parity path: launches {launches}, f64 batched "
+          f"{RC.counters['ryser_dense_batched']}, plain {plain}")
+    print(f"schedmat vs oracle: {sched_rel}")
+    print(f"f32 vs the f64 kernel (max rel): {f32_rel}")
+    smoke.check(all(v <= ORACLE_BAR for v in sched_rel.values()),
+                f"#1 schedmat within rel {ORACLE_BAR:g} of the oracle at n "
+                f"in {SCHED_ORACLE_NS}: {sched_rel}")
+    smoke.check(all(v <= F32_BAR for v in f32_rel.values()) and dtypes_ok,
+                f"f32 #1 (3 modes) and #2 (2 modes) within rtol {F32_BAR:g} "
+                f"of the f64 kernel at n in {F32_NS}, every result f32: "
+                f"worst {max(f32_rel.values()):.3e}")
+    smoke.check(all(v > 0 for v in launches.values()) and plain == 0,
+                f"the entry-parity path launched each of its kernels and no "
+                f"plain version: {launches}, plain {plain}")
+    A = rng.uniform(-1, 1, (12, 12))
+    t1 = time.perf_counter()
+    seq = perm_ryser_seq(A)
+    seq_s = time.perf_counter() - t1
+    want = oracle.perm_ryser_exact(A)
+    seq_rel = abs(float(seq) - want) / abs(want)
+    smoke.check(seq.is_cuda and seq_rel <= ORACLE_BAR,
+                f"perm_ryser_seq on the card at n = 12 within rel "
+                f"{ORACLE_BAR:g} of the oracle: {seq_rel:.3e} "
+                f"({seq_s:.2f} s)")
+    modes = {}
+    A = torch.as_tensor(rng.uniform(-1, 1, (N_MAIN, N_MAIN)), device="cuda")
+    for dt in (torch.float64, torch.float32):
+        for mode in ("baseline", "batched", "schedmat"):
+            ms, _ = _time_ms(torch, lambda: ops.permanent_cuda(
+                A.to(dt), mode=mode), reps=5)
+            modes[f"{str(dt)[6:]} {mode}"] = ms
+    print(f"#1 modes at n = {N_MAIN}, permanent_cuda ms (CUDA events, mean "
+          f"of 5): {modes}")
+    smoke.summary["entry_parity"] = {
+        "window_err": err, "launches": launches, "schedmat_vs_oracle":
+        sched_rel, "f32_vs_f64": f32_rel, "seq_rel": seq_rel,
+        "seq_s": seq_s, "modes_ms": modes,
+        "seconds": time.perf_counter() - t0}
+    print(f"entry parity phase: {time.perf_counter() - t0:.1f} s")
+    return err, launches
+
+
+# ---------------------------------------------------------------------------
+# The service: warm-up, open-loop soak, fill_first, campaign, cold start
+# ---------------------------------------------------------------------------
+
+N_SERVE, B_SERVE, SERVE_REQUESTS, SERVE_POOL = 24, 64, 2048, 64
+# The mixed stream: a third each of dense real, dense complex and sparse,
+# interleaved in one seeded order.  Its sparse third is a stand-in:
+# permuted circulant bands of BUCKET_DEGREE nonzeros a row and column
+# (density 5/24 = 0.208), half real and half complex, which DM/FM leave
+# whole, so they reach the sparse buckets (#6, #8).  The soak CLI's sparse
+# traffic, random masks at density 0.2, runs as a soak of its own
+# (SERVE_DENSITY_*) through run_soak: at n = 24 DM/FM expand such a mask
+# into thousands of leaves of n <= 7, all dense, planning for up to
+# seconds a matrix (ROADMAP section 3), so it never reaches a sparse
+# bucket and a few requests fill the time it may take.
+SERVE_KINDS = ("dense real", "dense complex", "sparse real (band)",
+               "sparse complex (band)")
+SERVE_SHARES = (3, 3, 1.5, 1.5)           # sixths of the stream
+EXPIRE_EVERY = 16
+SERVE_DENSITY, SERVE_DENSITY_REQUESTS, SERVE_DENSITY_POOL = 0.2, 8, 8
+SERVE_DENSITY_EXPIRE = 4
+SERVE_CAMPAIGN_N, SERVE_CAMPAIGN_SLICES = 34, 256
+COLD_REQUESTS, COLD_RATE = 256, 200.0
+# the cold process on density-0.2 traffic: one matrix (repeat pool 1), so
+# every dispatch plans the same matrix and the first compares like with
+# like; a loose SLO so its seconds of planning shed nothing
+COLD_DENSITY_REQUESTS, COLD_DENSITY_RATE, COLD_DENSITY_SLO_MS = 6, 0.5, 6e4
+# the cuda backend's batch entries; the campaign's wave body is #1 (#3 for
+# a complex campaign).  A bucket of one leaf (a one-request dispatch, or a
+# DM/FM leaf alone at its size) runs the scalar entry of its route, as the
+# reference's executor runs it ("ragged straggler: scalar path").
+SERVE_ENTRIES = ("ryser_dense_batched", "ryser_complex_batched",
+                 "ryser_sparse_batched", "ryser_sparse_complex_batched")
+STRAGGLER_ENTRIES = ("ryser_dense_scalar", "ryser_complex_scalar",
+                     "ryser_sparse_scalar", "ryser_sparse_complex_scalar")
+
+
+def _mixed_stream(n: int, seed: int, requests: int):
+    """(matrices, kind of each) of the mixed stream, in arrival order:
+    SERVE_POOL distinct matrices a kind, picked in a seeded interleaving."""
+    rng = np.random.default_rng(seed)
+    pools = [[rng.uniform(-1.0, 1.0, (n, n)) for _ in range(SERVE_POOL)],
+             [rng.uniform(-1.0, 1.0, (n, n))
+              + 1j * rng.uniform(-1.0, 1.0, (n, n))
+              for _ in range(SERVE_POOL)],
+             [_circulant_sparse(rng, n, BUCKET_DEGREE)
+              for _ in range(SERVE_POOL)],
+             [_circulant_sparse(rng, n, BUCKET_DEGREE, cplx=True)
+              for _ in range(SERVE_POOL)]]
+    counts = [int(requests * s / sum(SERVE_SHARES)) for s in SERVE_SHARES]
+    counts[0] += requests - sum(counts)
+    kinds = rng.permutation(np.repeat(np.arange(len(pools)), counts))
+    picks = rng.integers(0, SERVE_POOL, requests)
+    return ([pools[k][p] for k, p in zip(kinds, picks)],
+            [int(k) for k in kinds])
+
+
+def _density_stream(n: int, seed: int, requests: int) -> list:
+    """The matrices ``run_soak(n=n, density=SERVE_DENSITY,
+    repeat_pool=SERVE_DENSITY_POOL, seed=seed)`` sends, in arrival order
+    (its own draw order: the pool, then the picks)."""
+    rng = np.random.default_rng(seed)
+    pool = []
+    for _ in range(SERVE_DENSITY_POOL):
+        M = rng.uniform(-1.0, 1.0, (n, n))
+        pool.append(M * (rng.uniform(0, 1, (n, n)) < SERVE_DENSITY))
+    return [pool[i] for i in rng.integers(0, len(pool), requests)]
+
+
+def _open_loop(svc, mats: list, rate_hz: float, seed: int,
+               expire_every: int) -> dict:
+    """``run_soak``'s open loop over a given stream: seeded exponential
+    inter-arrival times at ``rate_hz``, the loop stepped between arrivals,
+    lanes round-robin, every ``expire_every``-th request expired on
+    arrival, tickets backdated to their arrival.  ``run_soak`` draws one
+    kind of matrix a call; a mixed stream goes through the same loop
+    here, each request a matrix object of its own."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate_hz, len(mats)))
+    lanes = [lane.name for lane in svc.scfg.lanes]
+    clock = svc._clock
+    t0 = clock()
+    tickets = []
+    for i, M in enumerate(mats):
+        target = t0 + arrivals[i]
+        while clock() < target:
+            if svc.step() == 0:
+                wait = target - clock()
+                if wait <= 0:
+                    break
+                time.sleep(min(wait, 1e-3))
+        kw = {"deadline_s": -1.0} \
+            if expire_every and i % expire_every == expire_every - 1 else {}
+        tickets.append(svc.submit(np.array(M), lane=lanes[i % len(lanes)],
+                                  t_submit=min(target, clock()), **kw))
+    svc.drain()
+    return {"tickets": tickets, "wall_s": clock() - t0}
+
+
+def _record_dispatches(solver) -> list:
+    """Wrap a solver so each plan_batch/execute pair (a service's
+    dispatch, a solver queue's flush) leaves (matrices, executor reports,
+    complex) in the returned list, in order."""
+    log = []
+    plan_batch, execute = solver.plan_batch, solver.execute
+
+    def plan(mats):
+        log.append([list(mats), None,
+                    any(np.iscomplexobj(M) for M in mats)])
+        return plan_batch(mats)
+
+    def run(plan, *, return_report=False):
+        out, reports = execute(plan, return_report=True)
+        log[-1][1] = reports
+        return (out, reports) if return_report else out
+
+    solver.plan_batch, solver.execute = plan, run
+    return log
+
+
+_SCALAR_TAG = re.compile(r"^(dense|sparse)\(n=(\d+)(,cuda)?\)$")
+
+
+def _scalar_launches(log: list) -> dict:
+    """Launches of the scalar entries the recorded dispatches made: one a
+    leaf that ran alone through the scalar path on a kernel (n >= 4; a
+    sparse tag names its producer, and a downgrade is no launch)."""
+    out = dict.fromkeys(STRAGGLER_ENTRIES, 0)
+    for _, reports, cplx in log:
+        for rep in reports:
+            for tag in rep.dispatch:
+                m = _SCALAR_TAG.match(tag)
+                if not m or int(m.group(2)) < 4 or \
+                        (m.group(1) == "sparse" and not m.group(3)):
+                    continue
+                name = {("dense", False): "ryser_dense_scalar",
+                        ("dense", True): "ryser_complex_scalar",
+                        ("sparse", False): "ryser_sparse_scalar",
+                        ("sparse", True): "ryser_sparse_complex_scalar"}[
+                    (m.group(1), cplx)]
+                out[name] += 1
+    return out
+
+
+def _ticket_reports(log: list, tickets) -> dict:
+    """The executor report of each served ticket, by ticket id: the k-th
+    dispatch of the run resolved its tickets at one clock reading, the
+    k-th in order, and within it a ticket's matrix is the first unclaimed
+    entry of the dispatch that is the same object."""
+    done = [t for t in tickets if t.done]
+    times = sorted({t.t_done for t in done})
+    if len(times) != len(log):
+        raise RuntimeError(f"{len(log)} dispatches recorded, "
+                           f"{len(times)} resolved")
+    slot = {tt: k for k, tt in enumerate(times)}
+    claimed = [set() for _ in log]
+    out = {}
+    for t in done:
+        k = slot[t.t_done]
+        mats, reports, _ = log[k]
+        i = next(i for i, M in enumerate(mats)
+                 if M is t.matrix and i not in claimed[k])
+        claimed[k].add(i)
+        out[t.id] = reports[i]
+    return out
+
+
+def _entry_sig(report) -> tuple:
+    """The entries a matrix's leaves ran through (bucket sizes dropped)."""
+    return tuple(sorted(re.sub(r",b=\d+", "", t) for t in report.dispatch))
+
+
+def _serve_values(log: list, tickets, logs: list) -> dict:
+    """Every served value against the same matrix through
+    PermanentSolver.plan_batch/execute (result cache off), one plan for
+    the distinct real matrices and one for the complex.  Where a ticket's
+    leaves ran through the same entries there as in the service (a batch
+    entry for a leaf that shared its bucket in both, the scalar entry for
+    one alone in both), the values must be equal bit for bit.  A leaf
+    alone in its service dispatch but batched in the one plan (or the
+    reverse) ran another entry -- dense real: ``baseline`` mode, not
+    ``batched`` -- and is held to rel 1e-12 instead.  The plans' own
+    launches go into ``logs``."""
+    from repro_torch.core.solver import PermanentSolver, SolverConfig
+    reps = _ticket_reports(log, tickets)
+    done = [t for t in tickets if t.done]
+    solver = PermanentSolver(SolverConfig(cache=False))
+    want = {}
+    for cplx in (False, True):
+        mats = list({id(t.matrix): t.matrix for t in done
+                     if t.is_complex == cplx}.values())
+        if mats:
+            vals, wrep = solver.execute(solver.plan_batch(mats),
+                                        return_report=True)
+            logs.append([(mats, wrep, cplx)])
+            for M, v, r in zip(mats, vals, wrep):
+                want[id(M)] = (v.item(), _entry_sig(r))
+    out = {"bitwise": 0, "bitwise_required": 0, "other": 0,
+           "worst_rel_other": 0.0, "worst_rel_required": 0.0,
+           "other_cases": {}}
+    for t in done:
+        w, wsig = want[id(t.matrix)]
+        sig = _entry_sig(reps[t.id])
+        rel = abs(t.value - w) / max(abs(w), 1e-300)
+        out["bitwise"] += t.value == w
+        if sig == wsig:
+            out["bitwise_required"] += 1
+            out["worst_rel_required"] = max(out["worst_rel_required"], rel)
+        else:
+            out["other"] += 1
+            out["worst_rel_other"] = max(out["worst_rel_other"], rel)
+            case = f"{'/'.join(sig)} vs {'/'.join(wsig)}"
+            out["other_cases"][case] = out["other_cases"].get(case, 0) + 1
+    out["ok"] = out["worst_rel_required"] == 0.0 and \
+        out["worst_rel_other"] <= 1e-12
+    return out
+
+
+def _pct(xs, q):
+    return float(np.percentile(xs, q)) if len(xs) else float("nan")
+
+
+def _sheds(tickets, expire_every: int) -> dict:
+    """The expired-on-arrival set, the shed set, and whether every shed
+    is DEADLINE_EXPIRED."""
+    expired = {k for k in range(len(tickets))
+               if k % expire_every == expire_every - 1}
+    shed = {k for k, t in enumerate(tickets) if t.shed}
+    typed = all(tickets[k].shed_reason.value == "deadline_expired"
+                for k in shed)
+    return {"expired": expired, "shed": shed, "typed": typed}
+
+
+def _service(cfg=None, **kw):
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.serve import PermanentService, ServiceConfig
+    return PermanentService(cfg or SolverConfig(cache=False), ServiceConfig(
+        max_batch=B_SERVE, log_every_s=float("inf"), **kw), log=None)
+
+
+def _serve_mixed(smoke: Smoke, torch, svc, log: list, logs: list) -> dict:
+    """The mixed stream: a closed-loop drain (submit all, then ``drain()``)
+    on a fresh service for its perms/s; then the open loop on the warm
+    service at half that rate, with latencies by kind, the values held
+    against plan_batch/execute and the sheds against the expired set; then
+    the same open loop again under torch.profiler for the device's busy
+    share."""
+    mats, kinds = _mixed_stream(N_SERVE, SEED + 40, SERVE_REQUESTS)
+    closed = _service()
+    logs.append(_record_dispatches(closed.solver))
+    t0 = time.perf_counter()
+    for M in mats:
+        closed.submit(M, deadline_s=None)
+    closed.drain()
+    closed_rate = len(mats) / (time.perf_counter() - t0)
+    rate = closed_rate / 2
+    first, start = len(svc.dispatch_log), len(log)
+    res = _open_loop(svc, mats, rate, SEED + 41, EXPIRE_EVERY)
+    dlog, run = svc.dispatch_log[first:], log[start:]
+    tickets = res["tickets"]
+    done = [t for t in tickets if t.done]
+    sh = _sheds(tickets, EXPIRE_EVERY)
+    vals = _serve_values(run, tickets, logs)
+    ds = [dt for _, _, dt, _ in dlog]
+    by_kind = {}
+    for k, label in enumerate(SERVE_KINDS):
+        lat = [t.latency_s for t, kk in zip(tickets, kinds)
+               if kk == k and t.done]
+        by_kind[label] = {"served": len(lat), "p50_ms": _pct(lat, 50) * 1e3,
+                          "p99_ms": _pct(lat, 99) * 1e3}
+    lat = [t.latency_s for t in done]
+    _, wall_p, dev_p = _profiled(
+        torch, lambda: _open_loop(svc, mats, rate, SEED + 41, EXPIRE_EVERY))
+    row = {"requests": len(mats), "closed_perms_s": closed_rate,
+           "rate_hz": rate, "wall_s": res["wall_s"],
+           "perms_s": len(done) / res["wall_s"],
+           "p50_ms": _pct(lat, 50) * 1e3, "p99_ms": _pct(lat, 99) * 1e3,
+           "by_kind": by_kind,
+           "shed": {"deadline_expired": len(sh["shed"])} if sh["typed"]
+           else sorted(tickets[k].shed_reason.value for k in sh["shed"]),
+           "dispatches": len(dlog),
+           "occupancy": float(np.mean([s / B_SERVE for _, s, _, _ in dlog])),
+           "mixed_route_dispatches": sum(
+               1 for _, reps, _ in run
+               if {tg.split("_batch")[0].split("(")[0]
+                   for r in reps for tg in r.dispatch} >= {"dense",
+                                                           "sparse"}),
+           "first_dispatch_ms": ds[0] * 1e3,
+           "median_dispatch_ms": float(np.median(ds)) * 1e3,
+           "values": vals, "busy_share_profiled": dev_p / wall_p}
+    print(f"serve soak mixed n={N_SERVE} ({len(mats)} requests: "
+          f"{', '.join(SERVE_KINDS)}): closed loop {closed_rate:.1f} "
+          f"perms/s -> open loop at {rate:.1f}/s: {row['perms_s']:.1f} "
+          f"perms/s, p50 {row['p50_ms']:.3f} ms p99 {row['p99_ms']:.3f} ms, "
+          f"sheds {row['shed']}, {len(dlog)} dispatches "
+          f"({row['mixed_route_dispatches']} planned dense and sparse "
+          f"leaves together), occupancy {row['occupancy']:.3f}, first "
+          f"dispatch {row['first_dispatch_ms']:.3f} ms vs median "
+          f"{row['median_dispatch_ms']:.3f} ms, busy share "
+          f"{row['busy_share_profiled']:.3f} (profiled re-run, wall "
+          f"{wall_p:.3f} s)")
+    for label, r in by_kind.items():
+        print(f"  {label}: {r['served']} served, p50 {r['p50_ms']:.3f} ms "
+              f"p99 {r['p99_ms']:.3f} ms")
+    print(f"  values: {vals}")
+    smoke.check(sh["shed"] == sh["expired"] and sh["typed"],
+                f"serve mixed: sheds are DEADLINE_EXPIRED on exactly the "
+                f"{len(sh['expired'])} expired tickets ({len(sh['shed'])})")
+    smoke.check(len(done) == len(mats) - len(sh["expired"]) and vals["ok"],
+                f"serve mixed: every other ticket served; "
+                f"{vals['bitwise_required']} through the same entries as "
+                f"plan_batch/execute, bit for bit (worst rel "
+                f"{vals['worst_rel_required']:.3e}), {vals['other']} "
+                f"through another entry within rel "
+                f"{vals['worst_rel_other']:.3e} <= 1e-12")
+    return row
+
+
+def _serve_density(smoke: Smoke, torch, svc, log: list,
+                   logs: list) -> dict:
+    """The soak CLI's sparse traffic, random masks at density 0.2, through
+    ``run_soak`` itself at SERVE_DENSITY_REQUESTS requests: a closed-loop
+    drain of the same stream for its rate, then the open loop at half of
+    it.  Each dispatch's seconds are mostly DM/FM planning.  Sheds must be
+    typed and cover the expired set; a request queued past its lane's
+    deadline behind a long plan is shed too, and counted."""
+    from repro_torch.serve import run_soak
+    seed, k = SEED + 43, SERVE_DENSITY_REQUESTS
+    mats = _density_stream(N_SERVE, seed, k)
+    closed = _service()
+    logs.append(_record_dispatches(closed.solver))
+    t0 = time.perf_counter()
+    for M in mats:
+        closed.submit(M, deadline_s=None)
+    closed.drain()
+    closed_s = time.perf_counter() - t0
+    rate = k / closed_s / 2
+    first, start = len(svc.dispatch_log), len(log)
+    res = run_soak(svc, requests=k, rate_hz=rate, n=N_SERVE,
+                   density=SERVE_DENSITY, repeat_pool=SERVE_DENSITY_POOL,
+                   seed=seed, expire_every=SERVE_DENSITY_EXPIRE)
+    dlog, run = svc.dispatch_log[first:], log[start:]
+    tickets = res["tickets"]
+    done = [t for t in tickets if t.done]
+    sh = _sheds(tickets, SERVE_DENSITY_EXPIRE)
+    t_v = time.perf_counter()
+    vals = _serve_values(run, tickets, logs)
+    vals_s = time.perf_counter() - t_v
+    lat = [t.latency_s for t in done]
+    ds = [dt for _, _, dt, _ in dlog]
+    leaves = [sum(len(r.dispatch) for r in reps) for _, reps, _ in run]
+    row = {"requests": k, "closed_s": closed_s, "rate_hz": rate,
+           "wall_s": res["wall_s"], "perms_s": len(done) / res["wall_s"],
+           "p50_ms": _pct(lat, 50) * 1e3, "p99_ms": _pct(lat, 99) * 1e3,
+           "shed": len(sh["shed"]), "expired": len(sh["expired"]),
+           "late_sheds": len(sh["shed"] - sh["expired"]),
+           "dispatch_s": ds, "leaves": leaves, "values": vals,
+           "values_check_s": vals_s}
+    print(f"serve soak density {SERVE_DENSITY} n={N_SERVE} (run_soak, {k} "
+          f"requests, pool {SERVE_DENSITY_POOL}): closed loop "
+          f"{closed_s:.3f} s -> open loop at {rate:.3f}/s: "
+          f"{row['perms_s']:.3f} perms/s, p50 {row['p50_ms']:.1f} ms p99 "
+          f"{row['p99_ms']:.1f} ms, sheds {len(sh['shed'])} "
+          f"({row['late_sheds']} queued past their deadline besides the "
+          f"{len(sh['expired'])} expired), dispatch seconds "
+          f"{[round(d, 3) for d in ds]}, leaves a dispatch (fillers "
+          f"included) {leaves}; one plan of the distinct matrices "
+          f"for the values {vals_s:.3f} s")
+    print(f"  values: {vals}")
+    smoke.check(sh["expired"] <= sh["shed"] and sh["typed"],
+                f"serve density: every shed is DEADLINE_EXPIRED and the "
+                f"{len(sh['expired'])} expired tickets are shed "
+                f"({len(sh['shed'])} shed)")
+    smoke.check(len(done) == k - len(sh["shed"]) and vals["ok"],
+                f"serve density: every other ticket served; "
+                f"{vals['bitwise_required']} bit for bit with "
+                f"plan_batch/execute, {vals['other']} through another "
+                f"entry within rel {vals['worst_rel_other']:.3e} <= 1e-12")
+    return row
+
+
+def _serve_fill_first(smoke: Smoke, torch) -> dict:
+    """run_permanent_serving (the service in fill_first mode) against a
+    direct drain of the solver queue over the same stream, bit for bit.
+    Both flush the same buckets (result cache on: a bucket computes each
+    new distinct matrix once), so each launches the scalar entries the
+    recorded drain does; returns the count with the figures."""
+    from repro_torch.core.solver import PermanentSolver, SolverConfig
+    from repro_torch.launch.serve import run_permanent_serving
+    n, batch, requests, pool_n, seed = N_SERVE, B_SERVE, 256, 16, SEED + 50
+    t0 = time.perf_counter()
+    out = run_permanent_serving(n=n, batch=batch, requests=requests,
+                                repeat_pool=pool_n, deadline_s=1e9, seed=seed)
+    rng = np.random.default_rng(seed)
+    pool = [rng.uniform(-1, 1, (n, n)) for _ in range(pool_n)]
+    mats = [pool[i] for i in rng.integers(0, pool_n, requests)]
+    solver = PermanentSolver(SolverConfig(queue_max_batch=batch,
+                                          queue_max_delay_s=1e9))
+    log = _record_dispatches(solver)
+    reqs = [solver.submit(M) for M in mats]
+    solver.flush()
+    ref = np.array([r.result() for r in reqs])
+    ok = bool(np.array_equal(out["values"], ref))
+    print(f"serve fill_first: {requests} requests n={n} batch {batch}: "
+          f"{out['batches']} batches, {out['perms_per_s']:.1f} perms/s "
+          f"steady, bit for bit with the solver queue {ok} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    smoke.check(ok, "serve: run_permanent_serving equals a direct drain of "
+                    "the solver queue bit for bit")
+    return {"batches": out["batches"], "perms_s": out["perms_per_s"],
+            "bitwise": ok, "scalar": {k: 2 * v for k, v in
+                                      _scalar_launches(log).items()}}
+
+
+def _serve_campaign(smoke: Smoke, torch) -> dict:
+    """All-ones n = 34 at 256 slices interleaved with bucket dispatches
+    (3 full buckets of 64: no scalar entry but the wave body), one wave a
+    dispatch, run out by drain: bit for bit with run_campaign at the same
+    spec, and within 1e-10 of 34!."""
+    from repro_torch.core import distributed as Dm
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.serve import CampaignSpec, PermanentService, ServiceConfig
+    n = SERVE_CAMPAIGN_N
+    C = np.ones((n, n))
+    svc = PermanentService(
+        SolverConfig(cache=False),
+        ServiceConfig(max_batch=B_SERVE, log_every_s=float("inf")),
+        campaign=CampaignSpec(matrix=C, waves=1,
+                              slices=SERVE_CAMPAIGN_SLICES), log=None)
+    rng = np.random.default_rng(SEED + 60)
+    for _ in range(3 * B_SERVE):
+        svc.submit(rng.uniform(-1, 1, (N_SERVE, N_SERVE)), deadline_s=None)
+    fractions = []
+    t0 = time.perf_counter()
+    while svc.pending:
+        svc.step()
+        fractions.append(svc.campaign_fraction)
+    svc.drain()
+    dt = time.perf_counter() - t0
+    want, _ = Dm.run_campaign(C, **svc.campaign_body())
+    exact = float(math.factorial(n))
+    rel = abs(svc.campaign_value - exact) / exact
+    ok = svc.campaign_value == want
+    print(f"serve campaign: all-ones n={n}, {SERVE_CAMPAIGN_SLICES} slices, "
+          f"fraction after each dispatch {[round(f, 4) for f in fractions]}, "
+          f"value {svc.campaign_value:.17e} (run_campaign {want:.17e}), rel "
+          f"to {n}! {rel:.3e}, {dt:.2f} s with {len(fractions)} dispatches")
+    smoke.check(ok and rel <= ONES_BAR and 0 < fractions[0] < 1,
+                f"serve: the interleaved campaign advances a wave a dispatch "
+                f"and ends bit for bit on run_campaign's value, rel "
+                f"{rel:.3e} <= {ONES_BAR:g} of {n}!")
+    return {"fractions": fractions, "rel": rel, "bitwise": ok}
+
+
+def cold_band_main(root: str) -> int:
+    """``--cold-band ROOT``: one cold process of the service on the sparse
+    stand-in stream (the mixed stream's band matrices, real, one object a
+    request so every dispatch computes), with the kernel library under
+    ROOT: warm-up, then the open loop; prints its first and median
+    dispatch and the compile counters as one JSON line."""
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.serve import compile_stats
+    t0 = time.perf_counter()
+    svc = _service(SolverConfig(), compile_cache_dir=root,
+                   warmup_ns=(N_SERVE,))
+    warm_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 70)
+    mats = [_circulant_sparse(rng, N_SERVE, BUCKET_DEGREE)
+            for _ in range(COLD_REQUESTS)]
+    res = _open_loop(svc, mats, COLD_RATE, SEED + 71, 0)
+    ds = [dt for _, _, dt, _ in svc.dispatch_log]
+    print(json.dumps({
+        "warmup_s": warm_s, "first_ms": ds[0] * 1e3,
+        "median_ms": float(np.median(ds)) * 1e3, "dispatches": len(ds),
+        "completed": sum(t.done for t in res["tickets"]),
+        "compile": compile_stats()}))
+    return 0
+
+
+def _cold_run(cmd: list, env: dict, label: str, js: str | None) -> dict:
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    print(f"cold start {label} (exit {r.returncode}, {wall:.1f} s):")
+    print("  " + "\n  ".join(r.stdout.strip().splitlines()[-4:]))
+    if r.returncode != 0:
+        print(r.stderr[-3000:])
+        return {"label": label, "rc": r.returncode}
+    if js is None:                       # the --cold-band process
+        out = json.loads(r.stdout.strip().splitlines()[-1])
+        return {"label": label, "rc": 0, "wall_s": wall, **out}
+    m = re.search(r"dispatch: first ([\d.]+)ms, median ([\d.]+)ms",
+                  r.stdout)
+    with open(js) as f:
+        snap = json.load(f)
+    return {"label": label, "rc": 0, "wall_s": wall,
+            "first_ms": float(m.group(1)), "median_ms": float(m.group(2)),
+            "compile": snap["compile_cache"],
+            "completed": snap["requests"]["completed"]}
+
+
+def _serve_cold_start(smoke: Smoke, torch) -> dict:
+    """Cold processes sharing a kernel-library root (seeded with a copy of
+    this run's build, so none pays the nvcc build again) with an ``nvcc``
+    on PATH that fails and leaves a mark: two of the soak CLI on dense
+    traffic (pool 4096, so every dispatch computes), one of the CLI on
+    density-0.2 traffic (one matrix, SLO loose), and one on the sparse
+    stand-in stream (``--cold-band``).  Each must load the library from
+    the root without nvcc; all but the first must serve their first
+    bucket within 2x of their median dispatch."""
+    import shutil
+    from repro_torch.kernels import build
+    root = tempfile.mkdtemp(prefix="serve-cache-")
+    fake = tempfile.mkdtemp(prefix="fake-nvcc-")
+    shutil.copytree(build.build_dir(),
+                    os.path.join(root, build.build_dir().name))
+    mark = os.path.join(fake, "nvcc-ran")
+    with open(os.path.join(fake, "nvcc"), "w") as f:
+        f.write(f"#!/bin/sh\ntouch {mark}\nexit 1\n")
+    os.chmod(os.path.join(fake, "nvcc"), 0o755)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PATH=fake + os.pathsep + os.environ.get("PATH", ""))
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", "--soak",
+           "--perm-n", str(N_SERVE), "--batch", str(B_SERVE),
+           "--compile-cache", root]
+    runs = []
+    try:
+        for k in (1, 2):
+            js = os.path.join(root, f"metrics{k}.json")
+            runs.append(_cold_run(
+                cli + ["--requests", str(COLD_REQUESTS), "--repeat-pool",
+                       "4096", "--rate", str(COLD_RATE), "--metrics-json",
+                       js], env, f"{k} (dense)", js))
+        js = os.path.join(root, "metrics-density.json")
+        runs.append(_cold_run(
+            cli + ["--requests", str(COLD_DENSITY_REQUESTS), "--density",
+                   str(SERVE_DENSITY), "--repeat-pool", "1", "--rate",
+                   str(COLD_DENSITY_RATE), "--slo-ms",
+                   str(COLD_DENSITY_SLO_MS), "--metrics-json", js],
+            env, f"3 (density {SERVE_DENSITY})", js))
+        runs.append(_cold_run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--cold-band", root], env, "4 (sparse stand-in)", None))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        nvcc_ran = os.path.exists(mark)
+        shutil.rmtree(fake, ignore_errors=True)
+    ok = all(r["rc"] == 0 for r in runs) and not nvcc_ran
+    for k, r in enumerate(runs):
+        if r["rc"] != 0:
+            continue
+        c = r["compile"]
+        ok = ok and c["persistent_misses"] == 0 and c["requests"] >= 1 \
+            and c["persistent_hits"] == c["requests"] \
+            and (k == 0 or r["first_ms"] <= 2 * r["median_ms"])
+    smoke.check(ok, f"serve cold start: every process loads the kernel "
+                    f"library without nvcc (persistent_misses 0, nvcc ran "
+                    f"{nvcc_ran}) and each after the first serves its first "
+                    f"bucket within 2x of its median dispatch: {runs}")
+    return {"runs": runs, "nvcc_ran": nvcc_ran}
+
+
+def _deltas(RC, before: dict) -> dict:
+    return {k: RC.counters[k] - before.get(k, 0) for k in STRAGGLER_ENTRIES}
+
+
+def phase_serve(smoke: Smoke, torch) -> None:
+    """The always-on service on the card (``repro_torch.serve``): warm-up
+    over the ladder at n = 24 (real and complex), the open-loop soak of
+    the mixed stream, the density-0.2 soak, fill_first against the solver
+    queue, an interleaved campaign, cold processes.  The launch counters
+    across the phase (this process) may show only the batch entries #2,
+    #4, #6, #8, the scalar entries as often as a leaf ran alone in its
+    bucket (warm-up and soaks), and #1 while the campaign runs."""
+    from repro_torch.kernels import ryser_cuda as RC
+    from repro_torch.serve import compile_stats, quantized_batches
+    t0 = time.perf_counter()
+    RC.reset_counters()
+    svc = _service(warmup_ns=(N_SERVE,), warmup_complex=True)
+    wr = svc.warmup_report
+    ladder = quantized_batches(B_SERVE)
+    print(f"serve warm-up: {wr['geometries']} geometries (n = {N_SERVE}, "
+          f"batches {ladder}, real and complex, then one sparse matrix "
+          f"each) in {wr['seconds']:.3f} s; compile counters of the pass "
+          f"{wr['compile']}, of the process {compile_stats()}")
+    # a one-matrix geometry and the sparse matrix of each kind ran alone
+    b1 = int(1 in ladder)
+    alone = {"ryser_dense_scalar": b1, "ryser_complex_scalar": b1,
+             "ryser_sparse_scalar": 1, "ryser_sparse_complex_scalar": 1}
+    warm = _deltas(RC, {})
+    log = _record_dispatches(svc.solver)
+    logs = [log]
+    before = dict(RC.counters)
+    out = {"warmup": wr,
+           "soak": _serve_mixed(smoke, torch, svc, log, logs),
+           "density": _serve_density(smoke, torch, svc, log, logs)}
+    soaks = _deltas(RC, before)
+    recorded = dict.fromkeys(STRAGGLER_ENTRIES, 0)
+    for log in logs:
+        for k, v in _scalar_launches(log).items():
+            recorded[k] += v
+    before = dict(RC.counters)
+    out["fill_first"] = _serve_fill_first(smoke, torch)
+    fill = _deltas(RC, before)
+    before = dict(RC.counters)
+    out["campaign"] = _serve_campaign(smoke, torch)
+    during = _deltas(RC, before)
+    launches = {k: v for k, v in RC.counters.items() if v}
+    print(f"serve launches (this process): {launches}; scalar entries: "
+          f"warm-up {warm} (one-leaf buckets {alone}), soaks {soaks} "
+          f"(one-leaf buckets in their executor reports {recorded}), "
+          f"fill_first {fill} (twice the recorded drain's "
+          f"{out['fill_first']['scalar']}), campaign {during}")
+    ok = (set(launches) <= set(SERVE_ENTRIES) | set(STRAGGLER_ENTRIES)
+          and all(RC.counters[k] > 0 for k in SERVE_ENTRIES)
+          and warm == alone and soaks == recorded
+          and fill == out["fill_first"]["scalar"]
+          and during["ryser_dense_scalar"] > 0
+          and {k: v for k, v in during.items()
+               if k != "ryser_dense_scalar"} ==
+          {k: 0 for k in STRAGGLER_ENTRIES if k != "ryser_dense_scalar"})
+    smoke.check(ok, f"serve: the four batch entries launch; a scalar entry "
+                    f"launches once for each leaf alone in its bucket "
+                    f"(warm-up and soaks) and #1 for the campaign's waves; "
+                    f"no plain version: {launches}")
+    out["cold_start"] = _serve_cold_start(smoke, torch)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"serve phase: {out['seconds']:.1f} s")
+    smoke.summary["serve"] = out
+
+
 def time_only(smoke: Smoke, torch, card: dict) -> int:
     """``--time-only``: after the build, only the timing rounds of the eight
     entries (no plain pass, no value check, no result line), for comparing
@@ -1879,14 +2707,22 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs a card",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--cold-band"]:
+        return cold_band_main(sys.argv[2])
     smoke = Smoke()
     t_start = time.perf_counter()
     card = phase_card(smoke, torch)
     phase_build(smoke)
     if "--time-only" in sys.argv[1:]:
         return time_only(smoke, torch, card)
+    if "--serve-only" in sys.argv[1:]:
+        phase_serve(smoke, torch)
+        print(f"chip_smoke --serve-only: failures {smoke.failures}")
+        return 1 if smoke.failures else 0
     window_err = {**phase_kernel_vs_plain(smoke, torch),
                   **phase_kernel_vs_plain_complex(smoke, torch)}
+    parity_err, parity_launches = phase_entry_parity(smoke, torch)
+    window_err.update(parity_err)
     mp = phase_main_path(smoke, torch)
     phase_values(smoke, torch, mp)
     mpc = phase_main_path_complex(smoke, torch)
@@ -1901,12 +2737,14 @@ def main() -> int:
     phase_host_split(smoke, torch, calls)
     rows = phase_timing(smoke, torch, card,
                         {**mp["launches"], **mpc["launches"],
-                         **msp["launches"], **mspc["launches"]}, window_err)
+                         **msp["launches"], **mspc["launches"],
+                         **parity_launches}, window_err)
     smoke.summary["dense_at_sparse_shape"] = _dense_at_sparse_shape(
         smoke, torch, msp, mspc)
     campaign_launches = phase_campaign(smoke, torch, card)
     for row in rows:
         row["launches"] += campaign_launches.get(row["name"], 0)
+    phase_serve(smoke, torch)
     smoke.summary.update(card=card, kernels=rows,
                          seconds=time.perf_counter() - t_start,
                          failures=smoke.failures)

@@ -38,6 +38,7 @@ from .stepspace import chunk_geometry
 __all__ = [
     "nw_base_vector",
     "perm_ryser_chunked",
+    "perm_ryser_seq",
     "perm_ryser_batched",
     "batched_values",
     "batched_values_complex",
@@ -435,3 +436,37 @@ def perm_ryser_chunked(A, num_chunks: int = 4096, precision: str = "dq_acc",
         raise ValueError(f"square matrix required, got {tuple(A.shape)}")
     return perm_ryser_batched(A[None], num_chunks, precision,
                               device=device)[0]
+
+
+def perm_ryser_seq(A, *, device="cuda") -> torch.Tensor:
+    """Faithful Algorithm 1 with twofloat accumulation: one sequential
+    Gray walk over all 2^(n-1) - 1 steps from the Nijenhuis-Wilf start
+    vector, each step's product added by ``tf_add_acc``, following the
+    reference's ``_ryser_seq_jit`` step for step.  A 0-d tensor on
+    ``device``, in the input's dtype (f32 or f64; real input only).
+
+    The reference has no kernel for it, so it is plain torch on the
+    caller's device, a Python loop of a few small ops a step; the
+    reference advises n <= ~26, and here n <= ~20 keeps it to seconds."""
+    device = resolve_device(device)
+    if torch.is_tensor(A) and A.dtype == torch.float32 or \
+            not torch.is_tensor(A) and np.asarray(A).dtype == np.float32:
+        A = torch.as_tensor(A, device=device)
+    else:
+        A = as_matrix(A, device)
+    n = A.shape[0]
+    if A.ndim != 2 or A.shape[1] != n:
+        raise ValueError(f"square matrix required, got {tuple(A.shape)}")
+    if n == 1:
+        return A[0, 0]
+    x = nw_base_vector(A)
+    p0 = chain_prod(x[:, None])[0]
+    acc = P.TwoFloat(p0, torch.zeros_like(p0))
+    for g in range(1, 1 << (n - 1)):
+        low = g & -g
+        j = low.bit_length() - 1
+        s = 1.0 if (g ^ (g >> 1)) & low else -1.0
+        x = x + s * A[:, j]
+        prod = chain_prod(x[:, None])[0]
+        acc = P.tf_add_acc(acc, -prod if g & 1 else prod)
+    return (acc.hi + acc.lo) * _final_factor(n)

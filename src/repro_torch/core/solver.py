@@ -19,6 +19,10 @@ checkpointed waves (``SolverConfig.campaign_checkpoint``,
 ``campaign_max_waves``); ``solver.campaign_progress(state, wave)`` is
 called after every checkpointed wave, and a spent wave budget raises
 :class:`~repro_torch.core.distributed.CampaignPaused`.
+
+**Hooks** for the service's observability: ``solver.on_submit(request)``
+fires after a request is queued, ``solver.on_flush(n, served, seconds)``
+after a bucket flush resolved its futures.
 """
 
 from __future__ import annotations
@@ -98,6 +102,12 @@ class PermanentSolver:
         # optional (JobState, Wave) -> None callback fired after every
         # checkpointed wave of a step_sharded (campaign) leaf
         self.campaign_progress: Callable | None = None
+        # admission/flush observability hooks: on_submit(request) fires
+        # after a request is enqueued (before any flush it triggers);
+        # on_flush(n, served, seconds) after a bucket flush resolves its
+        # futures
+        self.on_submit: Callable[[PermanentRequest], None] | None = None
+        self.on_flush: Callable[[int, int, float], None] | None = None
 
     # -- plan ---------------------------------------------------------------
 
@@ -137,6 +147,8 @@ class PermanentSolver:
         req = PermanentRequest(self, A)
         _, reqs = self._queue.setdefault(A.shape[0], (self._clock(), []))
         reqs.append(req)
+        if self.on_submit is not None:
+            self.on_submit(req)
         if len(reqs) >= self.config.queue_max_batch:
             self._flush_bucket(A.shape[0])
         self.poll()
@@ -165,12 +177,15 @@ class PermanentSolver:
             return 0
         # plan + execute BEFORE dequeuing: if either raises, the bucket
         # stays queued and the pending futures remain resolvable
+        t0 = time.perf_counter()
         plan = self.plan_batch([r.matrix for r in reqs])
         _, reports = self.execute(plan, return_report=True)
         self._queue.pop(n, None)
         for req, report in zip(reqs, reports):
             req._resolve(report.value, report)
         self.flushes += 1
+        if self.on_flush is not None:
+            self.on_flush(n, len(reqs), time.perf_counter() - t0)
         return len(reqs)
 
     # -- accounting ---------------------------------------------------------

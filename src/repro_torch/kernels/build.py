@@ -6,19 +6,25 @@ loaded with ``ctypes``.  Each source (``ryser_dense.cu``, real;
 ``ryser_complex.cu``, split-plane complex; ``ryser_sparse.cu``, padded-CCS
 sparse, real and complex) instantiates the block bodies of
 ``ryser_kernels.cuh`` and is compiled as one unit per padded matrix size
-(``-DRYSER_NPAD=k``) plus one unit for its C entry points, every unit in
-its own ``nvcc`` process, all started together; ``nvcc -shared`` then
-links them into one library.
+(``-DRYSER_NPAD=k``; the dense source also once more per size for its f32
+instantiations, ``-DRYSER_F32``) plus one unit for its C entry points,
+every unit in its own ``nvcc`` process, all started together;
+``nvcc -shared`` then links them into one library.
 
-The library lands in ``build/repro_torch/<hash>/`` at the repository root,
-keyed by a hash of the sources and flags, and is built at first use.
-``ptxas -v`` output (registers, spills) is kept beside it as
-``ptxas.log``.  Without ``nvcc`` this module raises; nothing falls back.
+The library lands in ``<root>/<hash>/``, keyed by a hash of the sources and
+flags, and is built at first use.  The root is ``build/repro_torch/`` at
+the repository root unless ``set_build_root`` moved it (the service's
+``enable_compile_cache`` does).  ``ptxas -v`` output (registers, spills) is
+kept beside it as ``ptxas.log``.  ``load_stats`` counts the loads from the
+root: each one found the library on disk (a hit) or built it with
+``nvcc`` (a miss).  Without ``nvcc`` this module raises; nothing falls
+back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -28,7 +34,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["CSRC", "NPADS", "build_dir", "find_nvcc", "load_library",
-           "ptxas_log", "warps_per_sm"]
+           "load_stats", "ptxas_log", "set_build_root", "warps_per_sm"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ryser_dense.cu", "ryser_complex.cu", "ryser_sparse.cu")
@@ -41,6 +47,10 @@ _REPO_ROOT = Path(__file__).resolve().parents[3]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_lib_dir: Path | None = None
+_build_root = _REPO_ROOT / "build" / "repro_torch"
+# loads of the library from the build root: requests = hits + misses
+_loads = {"requests": 0, "hits": 0, "misses": 0}
 
 
 def find_nvcc() -> str:
@@ -56,7 +66,11 @@ def find_nvcc() -> str:
     return nvcc
 
 
+@functools.lru_cache(maxsize=1)
 def _source_hash() -> str:
+    """Hash of the sources and flags, read once a process: load_library
+    asks for the build directory at every launch, and reading and hashing
+    the sources each time would put host time on every kernel call."""
     h = hashlib.sha256()
     for name in SOURCES + HEADERS:
         h.update(name.encode())
@@ -66,8 +80,27 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def set_build_root(path) -> Path:
+    """Build and load the kernel library under ``path`` from now on
+    (created if missing); returns it.  A library loaded from another root
+    stays in use until ``load_library`` is called again."""
+    global _build_root
+    root = Path(path).expanduser().resolve()
+    root.mkdir(parents=True, exist_ok=True)
+    with _lock:
+        _build_root = root
+    return root
+
+
 def build_dir() -> Path:
-    return _REPO_ROOT / "build" / "repro_torch" / _source_hash()
+    return _build_root / _source_hash()
+
+
+def load_stats() -> dict:
+    """Loads of the library from the build root in this process that
+    succeeded: ``requests``, of which ``hits`` found it on disk and
+    ``misses`` built it with nvcc."""
+    return dict(_loads)
 
 
 def ptxas_log() -> str:
@@ -93,6 +126,9 @@ def _units(src: Path):
     yield f"{src.stem}_api.o", ["-DRYSER_API_ONLY"]
     for k in NPADS:
         yield f"{src.stem}_n{k}.o", [f"-DRYSER_NPAD={k}"]
+        if src.name == "ryser_dense.cu":
+            yield f"{src.stem}_f32_n{k}.o", [f"-DRYSER_NPAD={k}",
+                                             "-DRYSER_F32"]
 
 
 def _compile(out_dir: Path) -> Path:
@@ -144,6 +180,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ryser_dense_batched.argtypes = [P, P, P, P, I, I, I, I, I, I, I, I,
                                         I, P]
     lib.ryser_dense_batched.restype = I
+    lib.ryser_dense_scalar_f32.argtypes = lib.ryser_dense_scalar.argtypes
+    lib.ryser_dense_scalar_f32.restype = I
+    lib.ryser_dense_batched_f32.argtypes = lib.ryser_dense_batched.argtypes
+    lib.ryser_dense_batched_f32.restype = I
     lib.ryser_complex_scalar.argtypes = [P, P, P, P, P, P, ctypes.c_uint64,
                                          I, I, I, I, I, I, I, P]
     lib.ryser_complex_scalar.restype = I
@@ -171,12 +211,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load_library() -> ctypes.CDLL:
-    """The kernel library, built from the sources at first use."""
-    global _lib
+    """The kernel library of the current build root, built from the
+    sources at its first use there."""
+    global _lib, _lib_dir
     with _lock:
-        if _lib is None:
-            path = build_dir() / "libryser.so"
-            if not path.exists():
-                path = _compile(build_dir())
+        out_dir = build_dir()
+        if _lib is None or _lib_dir != out_dir:
+            path = out_dir / "libryser.so"
+            hit = path.exists()
+            if not hit:
+                path = _compile(out_dir)
             _lib = _bind(ctypes.CDLL(str(path)))
+            _lib_dir = out_dir
+            _loads["requests"] += 1          # a load that failed counts not
+            _loads["hits" if hit else "misses"] += 1
         return _lib

@@ -1,6 +1,8 @@
 // What the Ryser kernels share: accumulator codes, the block size cap, the
-// entries' step-space guard and _accum_add (kernels/ryser_pallas.py), one
-// product term into a lane's (s, c) accumulator.  Included by
+// entries' step-space guard, fma_rn (the correctly rounded fused op of the
+// scalar type) and _accum_add (kernels/ryser_pallas.py), one product term
+// into a lane's (s, c) accumulator, in the scalar type T of the body (f64,
+// or f32 for the real dense entries' f32 input).  Included by
 // ryser_kernels.cuh, the block bodies every source instantiates, which also
 // holds the row products.
 #pragma once
@@ -23,24 +25,32 @@ inline bool chunks_in_space(uint64_t base, int n, int TB, int C_log2,
   return base <= chunks && (uint64_t)num_blocks * (uint64_t)TB <= chunks - base;
 }
 
-template <int P>
-__device__ __forceinline__ void accum_add(double& s, double& c, double term) {
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+
+template <int P, typename T>
+__device__ __forceinline__ void accum_add(T& s, T& c, T term) {
   if (P == P_KAHAN) {
-    const double y = term - c;
-    const double t = s + y;
+    const T y = term - c;
+    const T t = s + y;
     c = (t - s) - y;
     s = t;
   } else if (P == P_DQ_ACC) {
-    const double hi = s + term;
-    const double bp = hi - s;
-    const double e = (s - (hi - bp)) + (term - bp);
+    const T hi = s + term;
+    const T bp = hi - s;
+    const T e = (s - (hi - bp)) + (term - bp);
     s = hi;
     c = c + e;
   } else if (P == P_DQ_FAST) {
-    const double hi = s + term;
-    const double bp = hi - s;
-    const double e = ((s - (hi - bp)) + (term - bp)) + c;
-    const double s2 = hi + e;
+    const T hi = s + term;
+    const T bp = hi - s;
+    const T e = ((s - (hi - bp)) + (term - bp)) + c;
+    const T s2 = hi + e;
     c = e - (s2 - hi);
     s = s2;
   } else {

@@ -1,7 +1,8 @@
 // The two Gray-code Ryser block bodies every kernel source instantiates:
-// ryser_kernel (real f64) and ryser_cx_kernel (split-plane complex f64).
-// ryser_dense.cu and ryser_complex.cu instantiate them with SPARSE = false,
-// ryser_sparse.cu with SPARSE = true.
+// ryser_kernel (real, f64, or f32 in the dense entries) and ryser_cx_kernel
+// (split-plane complex f64).  ryser_dense.cu and ryser_complex.cu
+// instantiate them with SPARSE = false, ryser_sparse.cu with SPARSE = true;
+// ryser_dense.cu also instantiates the real body's schedmat mode (SCHED).
 //
 // SPARSE says where the kw = log2(Wu) low columns come from, the columns the
 // window states D = low @ cumsig[:kw] and the mid correction read:
@@ -82,7 +83,7 @@
 
 namespace {
 
-enum Mode { M_BASELINE = 0, M_BATCHED = 1 };
+enum Mode { M_BASELINE = 0, M_BATCHED = 1, M_SCHEDMAT = 2 };
 
 // U[j * npad + r] += vals[j][d] over d in order, one thread per column
 // j < kw, no atomics.  Padded entries carry row n: with n < npad they add 0
@@ -102,24 +103,38 @@ __device__ __forceinline__ void scatter_low_columns(
 // Ds[idx][i] = sum_{k < kw} low[k][i] * cumsig[k][idx] in ascending k from
 // 0, once per CTA.  cumsig rows >= kw are zero and its entries are 0 or 1,
 // so each fma adds an exact product.
-template <int NPAD>
-__device__ __forceinline__ void window_states(double* Ds, const double* low,
-                                              const double* c0, int kw,
+template <typename T, int NPAD>
+__device__ __forceinline__ void window_states(T* Ds, const T* low,
+                                              const T* c0, int kw,
                                               int Wu, int lane, int TB) {
   for (int t = lane; t < NPAD * (Wu - 1); t += TB) {
     const int idx = t / NPAD, i = t % NPAD;
-    double acc = 0.0;
+    T acc = 0;
     for (int k = 0; k < kw; ++k)
-      acc = __fma_rn(low[k * NPAD + i], c0[k * (Wu - 1) + idx], acc);
+      acc = fma_rn(low[k * NPAD + i], c0[k * (Wu - 1) + idx], acc);
     Ds[idx * NPAD + i] = acc;
+  }
+}
+
+// The schedmat mode's signed schedule columns, C0 = A @ Sel (n_pad, Wu-1)
+// row-major as the wrapper builds them, into Ds[idx][i], once per CTA.
+template <typename T, int NPAD>
+__device__ __forceinline__ void sched_columns(T* Ds, const T* c0, int Wu,
+                                              int lane, int TB) {
+  for (int t = lane; t < NPAD * (Wu - 1); t += TB) {
+    const int idx = t / NPAD, i = t % NPAD;
+    Ds[idx * NPAD + i] = c0[i * (Wu - 1) + idx];
   }
 }
 
 // Where the state of row i of a real step comes from: X[i] + D[i][idx]
 // before the window's mid step, plus the mid correction col_mid[i] * cm from
 // it on; X[i] itself, advanced beforehand (the boundary step); or X[i]
-// advanced in place by the step's signed column (the baseline mode).
-enum ReState { RE_WINDOW = 0, RE_WINDOW_CORR = 1, RE_X = 2, RE_STEP = 3 };
+// advanced in place by the step's signed column (the baseline mode); or
+// X[i] advanced in place by the step's signed schedule column C0[i][idx],
+// and at the mid step also by col_mid[i] * cm (the schedmat mode).
+enum ReState { RE_WINDOW = 0, RE_WINDOW_CORR = 1, RE_X = 2, RE_STEP = 3,
+               RE_SCHED = 4, RE_SCHED_MID = 5 };
 
 // The real products of K consecutive steps over rows 0..n-1, in one pass
 // over the rows: p[k] = step k's state of row 0, then p[k] <- p[k] * state.
@@ -133,26 +148,30 @@ enum ReState { RE_WINDOW = 0, RE_WINDOW_CORR = 1, RE_X = 2, RE_STEP = 3 };
 // n has its product computed and dropped by select -- never a multiply by a
 // padded row's 1, which could flip the sign of a zero.  With ROW_BRANCHES
 // each row's product sits behind its own i < n branch.
-template <int NPAD, int STATE, int RPAD, int K, int LIVE_FROM,
+template <typename T, int NPAD, int STATE, int RPAD, int K, int LIVE_FROM,
           bool ROW_BRANCHES>
-__device__ __forceinline__ void re_chain(double (&X)[NPAD],
-                                         const double* const (&src)[K],
-                                         const double (&f)[K],
-                                         const double* cmc, double cm, int n,
-                                         double (&p)[K]) {
+__device__ __forceinline__ void re_chain(T (&X)[NPAD],
+                                         const T* const (&src)[K],
+                                         const T (&f)[K],
+                                         const T* cmc, T cm, int n,
+                                         T (&p)[K]) {
 #pragma unroll
   for (int i = 0; i < NPAD; ++i) {
-    double x[K];
+    T x[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (STATE == RE_STEP) {
-        X[i] = __fma_rn(src[k][i], f[k], X[i]);  // exact: f is +-1
+        X[i] = fma_rn(src[k][i], f[k], X[i]);  // exact: f is +-1
+        x[k] = X[i];
+      } else if (STATE == RE_SCHED || STATE == RE_SCHED_MID) {
+        X[i] = X[i] + src[k][i];
+        if (STATE == RE_SCHED_MID) X[i] = fma_rn(cmc[i], cm, X[i]);  // exact: cm is 0 or -2
         x[k] = X[i];
       } else {
         x[k] = X[i];
         if (STATE != RE_X && i < RPAD) {
           x[k] = x[k] + src[k][i];
-          if (STATE == RE_WINDOW_CORR) x[k] = __fma_rn(cmc[i], cm, x[k]);  // exact: cm is 0 or -2
+          if (STATE == RE_WINDOW_CORR) x[k] = fma_rn(cmc[i], cm, x[k]);  // exact: cm is 0 or -2
         }
       }
     }
@@ -163,7 +182,7 @@ __device__ __forceinline__ void re_chain(double (&X)[NPAD],
       if (i == 0) {
         p[k] = x[k];
       } else {
-        const double q = p[k] * x[k];
+        const T q = p[k] * x[k];
         p[k] = live ? q : p[k];
       }
     }
@@ -174,61 +193,61 @@ __device__ __forceinline__ void re_chain(double (&X)[NPAD],
 // branch-free -- all unconditional when n == NPAD, those below NPAD - 8
 // when n > NPAD - 8 (every caller pads to the least multiple of 8 >= n), a
 // select on every row otherwise; above NPAD 32 each row keeps its branch.
-template <int NPAD, int STATE, int RPAD, int K>
-__device__ __forceinline__ void re_chain_rows(double (&X)[NPAD],
-                                              const double* const (&src)[K],
-                                              const double (&f)[K],
-                                              const double* cmc, double cm,
-                                              int n, double (&p)[K]) {
+template <typename T, int NPAD, int STATE, int RPAD, int K>
+__device__ __forceinline__ void re_chain_rows(T (&X)[NPAD],
+                                              const T* const (&src)[K],
+                                              const T (&f)[K],
+                                              const T* cmc, T cm,
+                                              int n, T (&p)[K]) {
   if constexpr (NPAD > 32)
-    re_chain<NPAD, STATE, RPAD, K, 0, true>(X, src, f, cmc, cm, n, p);
+    re_chain<T, NPAD, STATE, RPAD, K, 0, true>(X, src, f, cmc, cm, n, p);
   else if (n == NPAD)
-    re_chain<NPAD, STATE, RPAD, K, NPAD, false>(X, src, f, cmc, cm, n, p);
+    re_chain<T, NPAD, STATE, RPAD, K, NPAD, false>(X, src, f, cmc, cm, n, p);
   else if (n > NPAD - 8)
-    re_chain<NPAD, STATE, RPAD, K, NPAD - 8, false>(X, src, f, cmc, cm, n,
-                                                    p);
+    re_chain<T, NPAD, STATE, RPAD, K, NPAD - 8, false>(X, src, f, cmc, cm, n,
+                                                       p);
   else
-    re_chain<NPAD, STATE, RPAD, K, 0, false>(X, src, f, cmc, cm, n, p);
+    re_chain<T, NPAD, STATE, RPAD, K, 0, false>(X, src, f, cmc, cm, n, p);
 }
 
 // K window steps idx.. from their states into (s_acc, c_acc), in order.
-template <int NPAD, int P, int STATE, int RPAD, int K>
-__device__ __forceinline__ void window_steps(double (&X)[NPAD],
-                                             const double* Ds, int idx,
-                                             const double* col_mid, double cm,
-                                             int n, double& s_acc,
-                                             double& c_acc) {
-  const double* src[K];
-  double f[K], p[K];
+template <typename T, int NPAD, int P, int STATE, int RPAD, int K>
+__device__ __forceinline__ void window_steps(T (&X)[NPAD],
+                                             const T* Ds, int idx,
+                                             const T* col_mid, T cm,
+                                             int n, T& s_acc,
+                                             T& c_acc) {
+  const T* src[K];
+  T f[K], p[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     src[k] = Ds + (idx + k) * NPAD;
-    f[k] = 0.0;
+    f[k] = 0;
   }
-  re_chain_rows<NPAD, STATE, RPAD, K>(X, src, f, col_mid, cm, n, p);
+  re_chain_rows<T, NPAD, STATE, RPAD, K>(X, src, f, col_mid, cm, n, p);
 #pragma unroll
   for (int k = 0; k < K; ++k)
     accum_add<P>(s_acc, c_acc, ((idx + k + 1) & 1) ? -p[k] : p[k]);
 }
 
 // K baseline steps w.. (X advanced in place) into (s_acc, c_acc), in order.
-template <int NPAD, int P, int K>
-__device__ __forceinline__ void baseline_steps(double (&X)[NPAD],
-                                               const double* As, int w,
-                                               int kw, double mid_flip, int n,
-                                               double& s_acc, double& c_acc) {
-  const double* src[K];
-  double f[K], p[K];
+template <typename T, int NPAD, int P, int K>
+__device__ __forceinline__ void baseline_steps(T (&X)[NPAD],
+                                               const T* As, int w,
+                                               int kw, T mid_flip, int n,
+                                               T& s_acc, T& c_acc) {
+  const T* src[K];
+  T f[K], p[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int wk = w + k;
     const int j = __ffs(wk) - 1;
     // host-constant sign, except the mid step's per-lane flip
-    f[k] = (j + 1 < kw) ? (double)(2 * (((wk >> j) ^ (wk >> (j + 1))) & 1) - 1)
+    f[k] = (j + 1 < kw) ? (T)(2 * (((wk >> j) ^ (wk >> (j + 1))) & 1) - 1)
                         : mid_flip;
     src[k] = As + j * NPAD;
   }
-  re_chain_rows<NPAD, RE_STEP, NPAD, K>(X, src, f, nullptr, 0.0, n, p);
+  re_chain_rows<T, NPAD, RE_STEP, NPAD, K>(X, src, f, nullptr, T(0), n, p);
 #pragma unroll
   for (int k = 0; k < K; ++k)
     accum_add<P>(s_acc, c_acc, ((w + k) & 1) ? -p[k] : p[k]);
@@ -240,11 +259,11 @@ __device__ __forceinline__ void baseline_steps(double (&X)[NPAD],
 // chain spills (600-700 B at NPAD 64).  Rows from RPAD on are untouched by
 // D and col_mid (RPAD = NPAD unless the sparse body found fewer rows in its
 // low columns): they neither take the window states nor advance with them.
-template <int NPAD, int P, bool SPARSE, int RPAD>
+template <typename T, int NPAD, int P, bool SPARSE, int RPAD>
 __device__ __forceinline__ void real_windows(
-    double (&X)[NPAD], const double* As, const double* Ds,
-    const double* col_mid, uint64_t start, int M, int Wu_log2, int n,
-    bool batched, double& s_acc, double& c_acc) {
+    T (&X)[NPAD], const T* As, const T* Ds,
+    const T* col_mid, uint64_t start, int M, int Wu_log2, int n,
+    bool batched, T& s_acc, T& c_acc) {
   const int Wu = 1 << Wu_log2;
   const int kw = Wu_log2;
   const int mid_idx = Wu / 2 - 1;
@@ -259,50 +278,52 @@ __device__ __forceinline__ void real_windows(
       asm volatile("" ::: "memory");
     }
     const uint64_t macro = start + ((uint64_t)m << Wu_log2);
-    const double bitk = (double)((macro >> kw) & 1ull);
+    const T bitk = (T)((macro >> kw) & 1ull);
     if (!batched) {
-      const double mid_flip = 1.0 - 2.0 * bitk;
+      const T mid_flip = T(1) - T(2) * bitk;
       int w = 1;
       for (; w + K - 1 < Wu; w += K)
-        baseline_steps<NPAD, P, K>(X, As, w, kw, mid_flip, n, s_acc, c_acc);
+        baseline_steps<T, NPAD, P, K>(X, As, w, kw, mid_flip, n, s_acc,
+                                      c_acc);
       if constexpr (K == 2)     // Wu - 1 steps: one is left
-        baseline_steps<NPAD, P, 1>(X, As, w, kw, mid_flip, n, s_acc, c_acc);
+        baseline_steps<T, NPAD, P, 1>(X, As, w, kw, mid_flip, n, s_acc,
+                                      c_acc);
     } else {
       // states (X + D[:, idx]) + corr, corr = col_mid * (-2 * bitk) from the
       // mid step on; X itself is advanced once per window
-      const double cm = -2.0 * bitk;
+      const T cm = T(-2) * bitk;
       if constexpr (K == 1) {
         // one loop over the steps: split in two as below, the sparse
         // NPAD 40-64 instantiations took 43-74 more registers and spilled
         // at NPAD 56-64
         for (int idx = 0; idx < Wu - 1; ++idx) {
           if (idx >= mid_idx)
-            window_steps<NPAD, P, RE_WINDOW_CORR, RPAD, 1>(
+            window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 1>(
                 X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
           else
-            window_steps<NPAD, P, RE_WINDOW, RPAD, 1>(X, Ds, idx, col_mid,
+            window_steps<T, NPAD, P, RE_WINDOW, RPAD, 1>(X, Ds, idx, col_mid,
                                                       cm, n, s_acc, c_acc);
         }
       } else {
         int idx = 0;
         for (; idx + 1 < mid_idx; idx += 2)
-          window_steps<NPAD, P, RE_WINDOW, RPAD, 2>(X, Ds, idx, col_mid, cm,
+          window_steps<T, NPAD, P, RE_WINDOW, RPAD, 2>(X, Ds, idx, col_mid, cm,
                                                     n, s_acc, c_acc);
         if (idx < mid_idx)
-          window_steps<NPAD, P, RE_WINDOW, RPAD, 1>(X, Ds, idx++, col_mid, cm,
+          window_steps<T, NPAD, P, RE_WINDOW, RPAD, 1>(X, Ds, idx++, col_mid, cm,
                                                     n, s_acc, c_acc);
         for (; idx + 1 < Wu - 1; idx += 2)
-          window_steps<NPAD, P, RE_WINDOW_CORR, RPAD, 2>(X, Ds, idx, col_mid,
+          window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 2>(X, Ds, idx, col_mid,
                                                          cm, n, s_acc, c_acc);
         if (idx < Wu - 1)
-          window_steps<NPAD, P, RE_WINDOW_CORR, RPAD, 1>(X, Ds, idx, col_mid,
+          window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 1>(X, Ds, idx, col_mid,
                                                          cm, n, s_acc, c_acc);
       }
-      const double* Dl = Ds + (Wu - 2) * NPAD;
+      const T* Dl = Ds + (Wu - 2) * NPAD;
 #pragma unroll
       for (int i = 0; i < RPAD; ++i) {
         X[i] = X[i] + Dl[i];
-        X[i] = __fma_rn(col_mid[i], cm, X[i]);
+        X[i] = fma_rn(col_mid[i], cm, X[i]);
       }
     }
 
@@ -310,17 +331,85 @@ __device__ __forceinline__ void real_windows(
     const uint64_t gb = macro + (uint64_t)Wu;
     const int jb = __ffsll((long long)gb) - 1;
     const uint64_t ggb = gb ^ (gb >> 1);
-    const double sb = (double)(2 * (int)((ggb >> jb) & 1ull) - 1);
-    const double live = (gb <= space - 1) ? 1.0 : 0.0;
-    const double f = sb * live;
-    const double* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
+    const T sb = (T)(2 * (int)((ggb >> jb) & 1ull) - 1);
+    const T live = (gb <= space - 1) ? T(1) : T(0);
+    const T f = sb * live;
+    const T* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
 #pragma unroll
-    for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
+    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
     // a separate pass: folded into the chain as an RE_STEP, ptxas takes
     // 174 registers at NPAD 32 (8 warps/SM) and spills at NPAD 24 and 64
-    const double* none[1] = {nullptr};
-    double p[1];
-    re_chain_rows<NPAD, RE_X, NPAD, 1>(X, none, {0.0}, nullptr, 0.0, n, p);
+    const T* none[1] = {nullptr};
+    T p[1];
+    re_chain_rows<T, NPAD, RE_X, NPAD, 1>(X, none, {T(0)}, nullptr, T(0), n,
+                                          p);
+    accum_add<P>(s_acc, c_acc, p[0] * live);
+  }
+}
+
+// The M windows of one chunk in the schedmat mode (_ryser_block's schedmat
+// arm): an inner step adds its signed schedule column C0[:, idx] (Ds, from
+// the wrapper's A @ Sel) to X in place, the mid step also col_mid * cm with
+// cm = -2 bitk, then takes the product; the inner steps run two at a time
+// up to NPAD 32 (the mid step alone), as the baseline mode's do, and one
+// at a time in one loop above, as the batched mode's do there (split
+// around the mid step, NPAD 40-48 took 236 registers and spilled).  The
+// boundary step is real_windows' own, written out again here so that the
+// baseline and batched modes' window loop stays the code it was.
+template <typename T, int NPAD, int P>
+__device__ __forceinline__ void sched_windows(
+    T (&X)[NPAD], const T* As, const T* Ds, const T* col_mid, uint64_t start,
+    int M, int Wu_log2, int n, T& s_acc, T& c_acc) {
+  const int Wu = 1 << Wu_log2;
+  const int kw = Wu_log2;
+  const int mid_idx = Wu / 2 - 1;
+  const uint64_t space = 1ull << (n - 1);
+  constexpr int K = NPAD <= 32 ? 2 : 1;
+  for (int m = 0; m < M; ++m) {
+    const uint64_t macro = start + ((uint64_t)m << Wu_log2);
+    const T cm = T(-2) * (T)((macro >> kw) & 1ull);
+    if constexpr (K == 1) {
+      for (int idx = 0; idx < Wu - 1; ++idx) {
+        if (idx == mid_idx)
+          window_steps<T, NPAD, P, RE_SCHED_MID, NPAD, 1>(X, Ds, idx, col_mid,
+                                                          cm, n, s_acc,
+                                                          c_acc);
+        else
+          window_steps<T, NPAD, P, RE_SCHED, NPAD, 1>(X, Ds, idx, col_mid,
+                                                      cm, n, s_acc, c_acc);
+      }
+    } else {
+      int idx = 0;
+      for (; idx + 1 < mid_idx; idx += 2)
+        window_steps<T, NPAD, P, RE_SCHED, NPAD, 2>(X, Ds, idx, col_mid, cm,
+                                                    n, s_acc, c_acc);
+      if (idx < mid_idx)
+        window_steps<T, NPAD, P, RE_SCHED, NPAD, 1>(X, Ds, idx++, col_mid,
+                                                    cm, n, s_acc, c_acc);
+      window_steps<T, NPAD, P, RE_SCHED_MID, NPAD, 1>(X, Ds, idx++, col_mid,
+                                                      cm, n, s_acc, c_acc);
+      for (; idx + 1 < Wu - 1; idx += 2)
+        window_steps<T, NPAD, P, RE_SCHED, NPAD, 2>(X, Ds, idx, col_mid, cm,
+                                                    n, s_acc, c_acc);
+      if (idx < Wu - 1)
+        window_steps<T, NPAD, P, RE_SCHED, NPAD, 1>(X, Ds, idx, col_mid, cm,
+                                                    n, s_acc, c_acc);
+    }
+
+    // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
+    const uint64_t gb = macro + (uint64_t)Wu;
+    const int jb = __ffsll((long long)gb) - 1;
+    const uint64_t ggb = gb ^ (gb >> 1);
+    const T sb = (T)(2 * (int)((ggb >> jb) & 1ull) - 1);
+    const T live = (gb <= space - 1) ? T(1) : T(0);
+    const T f = sb * live;
+    const T* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
+#pragma unroll
+    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
+    const T* none[1] = {nullptr};
+    T p[1];
+    re_chain_rows<T, NPAD, RE_X, NPAD, 1>(X, none, {T(0)}, nullptr, T(0), n,
+                                          p);
     accum_add<P>(s_acc, c_acc, p[0] * live);
   }
 }
@@ -334,25 +423,34 @@ __device__ __forceinline__ void sparse_windows(
     const double* col_mid, uint64_t start, int M, int Wu_log2, int n,
     double& s_acc, double& c_acc) {
   if constexpr (RPAD >= NPAD) {
-    real_windows<NPAD, P, true, NPAD>(X, As, Ds, col_mid, start, M, Wu_log2,
-                                      n, true, s_acc, c_acc);
+    real_windows<double, NPAD, P, true, NPAD>(X, As, Ds, col_mid, start, M,
+                                              Wu_log2, n, true, s_acc, c_acc);
   } else {
     if (R <= RPAD)
-      real_windows<NPAD, P, true, RPAD>(X, As, Ds, col_mid, start, M,
-                                        Wu_log2, n, true, s_acc, c_acc);
+      real_windows<double, NPAD, P, true, RPAD>(X, As, Ds, col_mid, start, M,
+                                                Wu_log2, n, true, s_acc,
+                                                c_acc);
     else
       sparse_windows<NPAD, P, RPAD + 8>(R, X, As, Ds, col_mid, start, M,
                                         Wu_log2, n, s_acc, c_acc);
   }
 }
 
-template <int NPAD, int P, bool SPARSE>
+// The real block body.  T is the scalar type: double, or float for the
+// real dense entries' f32 input (the reference's dtype follows its input);
+// the sparse instantiations are double.  SCHED instantiates the schedmat
+// mode (the scalar dense entry only), whose window loop is its own, so the
+// other instantiations keep their code; mode picks baseline or batched.
+template <int NPAD, int P, bool SPARSE, typename T = double,
+          bool SCHED = false>
 __global__ void __launch_bounds__(kMaxThreads)
-ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
-             const double* __restrict__ vals, const double* __restrict__ xb,
-             const double* __restrict__ c0, double* __restrict__ out,
+ryser_kernel(const T* __restrict__ A, const int* __restrict__ rows,
+             const double* __restrict__ vals, const T* __restrict__ xb,
+             const T* __restrict__ c0, T* __restrict__ out,
              uint64_t chunk_base, int n, int maxdeg, int C_log2, int Wu_log2,
              int num_blocks, int mode) {
+  static_assert(!SPARSE || (std::is_same_v<T, double> && !SCHED),
+                "the sparse body is f64, batched mode only");
   extern __shared__ double smem[];
   const int TB = blockDim.x;
   const int lane = threadIdx.x;
@@ -363,16 +461,16 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   const int M = 1 << (NPAD <= 32 ? C_log2 - Wu_log2 : 0);
   const bool batched = SPARSE || mode == M_BATCHED;    // sparse: batched only
 
-  double* As = smem;                                   // NPAD * NPAD
-  double* Us = As + NPAD * NPAD;                       // NPAD * kw if SPARSE
-  double* Ds = Us + (SPARSE ? NPAD * kw : 0);          // NPAD * (Wu - 1)
-  double* red = Ds + (batched ? NPAD * (Wu - 1) : 0);  // 2 * TB
+  T* As = reinterpret_cast<T*>(smem);                  // NPAD * NPAD
+  T* Us = As + NPAD * NPAD;                            // NPAD * kw if SPARSE
+  T* Ds = Us + (SPARSE ? NPAD * kw : 0);               // NPAD * (Wu - 1)
+  T* red = Ds + (batched || SCHED ? NPAD * (Wu - 1) : 0);  // 2 * TB
   int* Rs = reinterpret_cast<int*>(red + 2 * TB);      // kw if SPARSE
-  const double* low = SPARSE ? Us : As;                // the kw low columns
+  const T* low = SPARSE ? Us : As;                     // the kw low columns
 
   const int b = blockIdx.y;
-  const double* Ab = A + (size_t)b * NPAD * NPAD;
-  const double* xbb = xb + (size_t)b * NPAD;
+  const T* Ab = A + (size_t)b * NPAD * NPAD;
+  const T* xbb = xb + (size_t)b * NPAD;
   for (int t = lane; t < NPAD * NPAD; t += TB) {
     const int i = t / NPAD, j = t % NPAD;
     As[j * NPAD + i] = Ab[t];
@@ -395,8 +493,9 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   }
   if (batched) {
     __syncthreads();
-    window_states<NPAD>(Ds, low, c0, kw, Wu, lane, TB);
+    window_states<T, NPAD>(Ds, low, c0, kw, Wu, lane, TB);
   }
+  if constexpr (SCHED) sched_columns<T, NPAD>(Ds, c0, Wu, lane, TB);
   __syncthreads();
 
   // ---- chunk id, start step, init X = xb + sum_j A[:, j] * graybit_j ----
@@ -404,18 +503,18 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
   const uint64_t start = chunk << C_log2;
   [[maybe_unused]] const uint64_t stop = start + (1ull << C_log2);  // <= 2^63
   const uint64_t gs = start ^ (start >> 1);
-  double X[NPAD];
+  T X[NPAD];
 #pragma unroll
   for (int i = 0; i < NPAD; ++i) X[i] = xbb[i];
   for (int j = 0; j < n; ++j) {
-    const double bit = (double)((gs >> j) & 1ull);
-    const double* col = As + j * NPAD;
+    const T bit = (T)((gs >> j) & 1ull);
+    const T* col = As + j * NPAD;
 #pragma unroll
-    for (int i = 0; i < NPAD; ++i) X[i] = __fma_rn(col[i], bit, X[i]);  // exact: bit is 0 or 1
+    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(col[i], bit, X[i]);  // exact: bit is 0 or 1
   }
 
-  const double* col_mid = low + (kw - 1) * NPAD;
-  double s_acc = 0.0, c_acc = 0.0;
+  const T* col_mid = low + (kw - 1) * NPAD;
+  T s_acc = 0, c_acc = 0;
   if constexpr (SPARSE) {
     int R = 0;                  // every thread, the same fixed order
     for (int j = 0; j < kw; ++j) R = max(R, Rs[j]);
@@ -426,20 +525,30 @@ ryser_kernel(const double* __restrict__ A, const int* __restrict__ rows,
       for (uint64_t macro = start; macro < stop; macro += (uint64_t)Wu)
         sparse_windows<NPAD, P, 8>(R, X, As, Ds, col_mid, macro, M, Wu_log2,
                                    n, s_acc, c_acc);
-  } else {
+  } else if constexpr (SCHED) {
     if constexpr (NPAD <= 32)
-      real_windows<NPAD, P, false, NPAD>(X, As, Ds, col_mid, start, M,
-                                         Wu_log2, n, batched, s_acc, c_acc);
+      sched_windows<T, NPAD, P>(X, As, Ds, col_mid, start, M, Wu_log2, n,
+                                s_acc, c_acc);
     else
       for (uint64_t macro = start; macro < stop; macro += (uint64_t)Wu)
-        real_windows<NPAD, P, false, NPAD>(X, As, Ds, col_mid, macro, M,
-                                           Wu_log2, n, batched, s_acc, c_acc);
+        sched_windows<T, NPAD, P>(X, As, Ds, col_mid, macro, M, Wu_log2, n,
+                                  s_acc, c_acc);
+  } else {
+    if constexpr (NPAD <= 32)
+      real_windows<T, NPAD, P, false, NPAD>(X, As, Ds, col_mid, start, M,
+                                            Wu_log2, n, batched, s_acc,
+                                            c_acc);
+    else
+      for (uint64_t macro = start; macro < stop; macro += (uint64_t)Wu)
+        real_windows<T, NPAD, P, false, NPAD>(X, As, Ds, col_mid, macro, M,
+                                              Wu_log2, n, batched, s_acc,
+                                              c_acc);
   }
 
   // ---- fixed-order lane tree over hi and lo (no atomics) ----
   const bool two_limb = (P == P_DQ_ACC || P == P_DQ_FAST);
   red[lane] = s_acc;
-  red[TB + lane] = two_limb ? c_acc : 0.0;
+  red[TB + lane] = two_limb ? c_acc : T(0);
   __syncthreads();
   for (int stride = TB / 2; stride > 0; stride >>= 1) {
     if (lane < stride) {
@@ -585,8 +694,8 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   // pass per plane: with the dense instantiation's fused pass ptxas spills
   // it at NPAD 8 (dq_fast) and NPAD 48.
   if constexpr (SPARSE) {
-    window_states<NPAD>(Drs, low_r, c0, kw, Wu, lane, TB);
-    window_states<NPAD>(Dis, low_i, c0, kw, Wu, lane, TB);
+    window_states<double, NPAD>(Drs, low_r, c0, kw, Wu, lane, TB);
+    window_states<double, NPAD>(Dis, low_i, c0, kw, Wu, lane, TB);
   } else {
     for (int t = lane; t < NPAD * (Wu - 1); t += TB) {
       const int idx = t / NPAD, i = t % NPAD;

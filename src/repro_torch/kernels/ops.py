@@ -3,7 +3,8 @@ complex.
 
 The port of the reference package's ``kernels/ops.py``.
 ``permanent_cuda(A)`` computes perm(A) with the dense scalar kernel entry
-(``mode="baseline"``); ``permanent_cuda_batched(As)`` covers a same-size
+(``mode="baseline"``, or ``batched`` or ``schedmat``);
+``permanent_cuda_batched(As)`` covers a same-size
 stack with one (block, batch)-grid launch (``mode="batched"``).  Both go
 through ``_cuda_values``: geometry, padding, NW base vectors and the
 twofloat cross-block epilogue ``kernel_reduce`` are shared, only the
@@ -34,7 +35,11 @@ base (real: ``batched`` mode, complex: the split-plane kernel), or from
 the torch engine's chunk partials at the same offset.
 
 ``device=None`` means the card.  On a CPU tensor the kernel wrappers run
-their plain PyTorch versions instead.  f32 input is not ported yet.
+their plain PyTorch versions instead.  Real dense input keeps its dtype,
+f64 or f32, through kernel, partials and ``kernel_reduce`` (the f32
+entries of ``ryser_dense.cu``), as the reference's follows its input;
+other real input is taken as f64, complex input as complex128 and sparse
+input as f64 or complex128.  A campaign's wave body runs in f64.
 """
 
 from __future__ import annotations
@@ -218,10 +223,19 @@ def prepare_sparse(As, rows, vals, Wu: int):
     return A_pads, rows, vals, xb_pads, xbs
 
 
+def _is_f32(A) -> bool:
+    return (A.dtype == torch.float32) if torch.is_tensor(A) \
+        else np.asarray(A).dtype == np.float32
+
+
 def _as_input(A, device):
-    """f64 tensor on ``device``, complex128 for complex input."""
-    return torch.complex(*as_planes(A, device)) if is_complex(A) \
-        else as_matrix(A, device)
+    """A tensor on ``device`` in the dtype the dense kernels take for
+    ``A``: f32 for f32 input, complex128 for complex input, f64 else."""
+    if is_complex(A):
+        return torch.complex(*as_planes(A, device))
+    if _is_f32(A):
+        return torch.as_tensor(A, device=resolve_device(device))
+    return as_matrix(A, device)
 
 
 def _reduce_real(out, xbs, n: int):
@@ -304,8 +318,11 @@ def block_partials_cuda(A, *, dev_chunk_base: int = 0,
                         precision: str = "dq_acc", mode: str = "baseline",
                         device=None):
     """Run the scalar kernel over ``num_blocks`` blocks from chunk
-    ``dev_chunk_base``; returns ((num_blocks, 2) partials, geometry)."""
-    A = as_matrix(A, device)
+    ``dev_chunk_base``; returns ((num_blocks, 2) partials, geometry), in
+    the dtype of a real ``A`` (f32 or f64)."""
+    if is_complex(A):
+        raise TypeError("block_partials_cuda takes a real matrix")
+    A = _as_input(A, device)
     n = A.shape[0]
     TB, C, Wu, full_blocks = (geometry or DEFAULT_GEOMETRY).kernel_geometry(n)
     A_pads, xb_pads, _ = prepare(A)
@@ -393,6 +410,8 @@ def campaign_slice_sums(A, first_slice: int, num_slices: int, *,
     (``_slice_sums``).  ``events``, when given, collects a (start, end)
     pair of CUDA events around the kernel launch on the card."""
     A = _as_input(A, device)
+    if A.dtype == torch.float32:
+        A = A.double()
     n = A.shape[-1]
     if A.ndim != 2 or A.shape[0] != n:
         raise ValueError(f"square matrix required, got {tuple(A.shape)}")
@@ -431,9 +450,11 @@ def campaign_slice_sums(A, first_slice: int, num_slices: int, *,
 
 def permanent_cuda(A, *, precision: str = "dq_acc", mode: str = "baseline",
                    geometry: Geometry | None = None, device=None):
-    """perm(A) via the scalar kernel entry (full step space, one card);
-    a 0-d f64 tensor on ``device`` (default: the card), complex128 for
-    complex input, which runs the split-plane kernel in ``batched`` mode."""
+    """perm(A) via the scalar kernel entry (full step space, one card) in
+    ``mode`` baseline, batched or schedmat; a 0-d tensor on ``device``
+    (default: the card), f32 for f32 input and f64 for other real input,
+    complex128 for complex input, which runs the split-plane kernel in
+    ``batched`` mode."""
     A = _as_input(A, device)
     n = A.shape[0]
     if A.ndim != 2 or A.shape[1] != n:
@@ -447,9 +468,10 @@ def permanent_cuda(A, *, precision: str = "dq_acc", mode: str = "baseline",
 def permanent_cuda_batched(As, *, precision: str = "dq_acc",
                            mode: str = "batched",
                            geometry: Geometry | None = None, device=None):
-    """perms of a (B, n, n) stack via ONE batch-grid kernel launch; a (B,)
-    f64 tensor on ``device`` (default: the card), complex128 for complex
-    input."""
+    """perms of a (B, n, n) stack via ONE batch-grid kernel launch in
+    ``mode`` baseline or batched; a (B,) tensor on ``device`` (default: the
+    card), f32 for an f32 stack, f64 for another real one, complex128 for
+    complex input."""
     As = _as_input(As, device)
     if As.ndim != 3 or As.shape[1] != As.shape[2]:
         raise ValueError(f"(B, n, n) stack required, got {tuple(As.shape)}")

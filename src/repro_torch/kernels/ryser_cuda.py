@@ -11,15 +11,21 @@ Geometry: block = TB chunks (one thread each), chunk = C = Wu * M Gray
 steps.  Every entry returns per-block ``(hi, lo)`` partial sums WITHOUT
 the g = 0 term; ``kernels/ops.py::kernel_reduce`` closes the sum.
 
-Modes: ``baseline`` (sequential X updates, paper Alg. 3) and ``batched``
-(window states ``(X + A @ cumsig) + corr``).  The Pallas ``schedmat``
-mode is not ported yet.  Precisions follow ``_accum_add``: ``dd``,
-``kahan``, ``dq_acc``, ``dq_fast``; ``qq`` runs as ``dd``.  Input is f64.
+Modes: ``baseline`` (sequential X updates, paper Alg. 3), ``batched``
+(window states ``(X + A @ cumsig) + corr``) and, in the scalar entry only,
+``schedmat`` (each inner step adds its signed schedule column
+``C0 = A @ Sel``, built by ``sched_columns``; the batch entry refuses it,
+as ``ryser_pallas_call_batched`` does).  Precisions follow ``_accum_add``:
+``dd``, ``kahan``, ``dq_acc``, ``dq_fast``; ``qq`` runs as ``dd``.  Input
+is f64 or f32, and the partials come back in the input's dtype, as the
+reference's follow its input (f32 launches the ``_f32`` entries).
 
 A wrapper takes the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; a failed build or launch
 propagates.  ``counters`` counts kernel launches per entry and plain
-calls, so a run can show which path served it.
+calls, so a run can show which path served it; the scalar entry's
+schedmat launches count apart (``ryser_dense_scalar_schedmat``,
+``..._f32_schedmat``), as they run an instantiation of their own.
 """
 
 from __future__ import annotations
@@ -34,14 +40,19 @@ from ..core import gray as G
 
 __all__ = ["ryser_cuda_call", "ryser_cuda_call_batched",
            "block_partials_plain", "counters", "reset_counters",
-           "ctas_per_sm", "PRECISION_CODES"]
+           "ctas_per_sm", "sched_columns", "PRECISION_CODES"]
 
 # _accum_add's modes; qq has no twofloat product in-kernel and runs as dd
 PRECISION_CODES = {"dd": 0, "qq": 0, "kahan": 1, "dq_acc": 2, "dq_fast": 3}
-_MODE_CODES = {"baseline": 0, "batched": 1}
+_MODE_CODES = {"baseline": 0, "batched": 1, "schedmat": 2}
+_BATCH_MODES = ("baseline", "batched")   # one schedule input for the grid
+_DTYPES = (torch.float64, torch.float32)
 
 # one dict for every entry of the port, so one reset covers them all
 counters = {"ryser_dense_scalar": 0, "ryser_dense_batched": 0,
+            "ryser_dense_scalar_f32": 0, "ryser_dense_batched_f32": 0,
+            "ryser_dense_scalar_schedmat": 0,
+            "ryser_dense_scalar_f32_schedmat": 0,
             "block_partials_plain": 0, "ryser_complex_scalar": 0,
             "ryser_complex_batched": 0, "block_partials_plain_complex": 0,
             "ryser_sparse_scalar": 0, "ryser_sparse_batched": 0,
@@ -75,6 +86,19 @@ def _signed_const_schedule(Wu: int):
             is_mid = True
         out.append((j, 2 * bit - 1, is_mid, w & 1))
     return out
+
+
+def sched_columns(A_pads, Wu: int) -> torch.Tensor:
+    """The schedmat mode's signed schedule columns ``C0 = A @ Sel``
+    (B, n_pad, Wu-1) of a (B, n_pad, n_pad) stack, in its dtype and on its
+    device: column idx is ``s_const * A[:, j]`` of inner step idx.  Each
+    column of Sel holds one +-1, so a gather and a multiply by +-1 give
+    the product exactly (the reference forms it with ``A_pad @ sel``)."""
+    sched = _signed_const_schedule(Wu)
+    cols = torch.tensor([j for j, _s, _m, _p in sched], device=A_pads.device)
+    signs = torch.tensor([float(s) for _j, s, _m, _p in sched],
+                         dtype=A_pads.dtype, device=A_pads.device)
+    return (A_pads[:, :, cols] * signs).contiguous()
 
 
 def _cumsig_host(sched, n_pad: int) -> np.ndarray:
@@ -187,19 +211,25 @@ def block_partials_plain(A_pads, xb_pads, chunk_base: int, *, n: int,
     """
     counters["block_partials_plain"] += 1
     if mode not in _MODE_CODES:
-        raise ValueError(f"mode must be baseline|batched, got {mode!r}")
+        raise ValueError(f"mode must be baseline|batched|schedmat, got "
+                         f"{mode!r}")
     low = A_pads if mode == "batched" else None
+    C0 = sched_columns(A_pads, Wu) if mode == "schedmat" else None
     return _plain_partials(A_pads, xb_pads, low, chunk_base, n=n, TB=TB, C=C,
-                           Wu=Wu, num_blocks=num_blocks, precision=precision)
+                           Wu=Wu, num_blocks=num_blocks, precision=precision,
+                           sched_cols=C0)
 
 
 def _plain_partials(A_pads, xb_pads, low, chunk_base: int, *, n: int,
                     TB: int, C: int, Wu: int, num_blocks: int,
-                    precision: str) -> torch.Tensor:
-    """The body of the real plain versions.  ``low`` is None for the
-    baseline mode (sequential X updates); otherwise the window states and
-    the mid column come from its kw low columns: ``A_pads`` itself in the
-    dense batched mode, the scattered CCS columns U in the sparse kernel.
+                    precision: str, sched_cols=None) -> torch.Tensor:
+    """The body of the real plain versions, in the dtype of ``A_pads``.
+    ``low`` is None for the baseline and schedmat modes (sequential X
+    updates: by the step's signed column, or with ``sched_cols`` (B, n_pad,
+    Wu-1) by its signed schedule column and at the mid step by
+    ``col_mid * (-2 bitk)``); otherwise the window states and the mid
+    column come from its kw low columns: ``A_pads`` itself in the dense
+    batched mode, the scattered CCS columns U in the sparse kernel.
     ``A_pads`` always serves the init and the boundary column."""
     B, n_pad, _ = A_pads.shape
     dev, dt = A_pads.device, A_pads.dtype
@@ -229,7 +259,15 @@ def _plain_partials(A_pads, xb_pads, low, chunk_base: int, *, n: int,
         macro = starts + np.uint64(m * Wu)
         bitk = tensor(((macro >> np.uint64(kw)) & np.uint64(1))
                       .astype(np.float64))
-        if low is None:
+        if sched_cols is not None:
+            col_mid = A_pads[:, :, kw - 1:kw]
+            for idx, (_j, s, is_mid, parity) in enumerate(sched):
+                X = X + sched_cols[:, :, idx:idx + 1]
+                if is_mid:
+                    X = X + col_mid * (-2.0 * s * bitk)
+                p = prod(X)
+                acc = _accum(*acc, -p if parity else p, precision)
+        elif low is None:
             mid_flip = 1.0 - 2.0 * bitk
             for (j, s, is_mid, parity) in sched:
                 sl = mid_flip if is_mid else float(s)
@@ -259,10 +297,15 @@ def _plain_partials(A_pads, xb_pads, low, chunk_base: int, *, n: int,
 # ---------------------------------------------------------------------------
 
 def _check(A, xb, *, n: int, TB: int, C: int, Wu: int, num_blocks: int,
-           precision: str, mode: str, batched: bool) -> None:
-    if A.dtype != torch.float64 or xb.dtype != torch.float64:
-        raise TypeError(f"f64 input required, got {A.dtype}/{xb.dtype} "
-                        "(f32 is not ported yet)")
+           precision: str, mode: str, batched: bool,
+           dtypes=(torch.float64,)) -> None:
+    """Shapes, geometry, precision and mode of a real entry's input;
+    ``dtypes`` are the ones the entry takes (the dense real entries f64
+    and f32, the others f64)."""
+    if A.dtype not in dtypes or xb.dtype != A.dtype:
+        names = " or ".join(f"f{d.itemsize * 8}" for d in dtypes)
+        raise TypeError(f"{names} input of one dtype required, got "
+                        f"{A.dtype}/{xb.dtype}")
     if xb.device != A.device:
         raise ValueError(f"A on {A.device}, xb on {xb.device}")
     if A.ndim != (3 if batched else 2) or A.shape[-1] != A.shape[-2]:
@@ -285,8 +328,10 @@ def _check(A, xb, *, n: int, TB: int, C: int, Wu: int, num_blocks: int,
                          f"2^{n - 1} step space of n={n}")
     if precision not in PRECISION_CODES:
         raise ValueError(f"unknown precision {precision!r}")
-    if mode not in _MODE_CODES:
-        raise ValueError(f"mode must be baseline|batched, got {mode!r}")
+    modes = _BATCH_MODES if batched else tuple(_MODE_CODES)
+    if mode not in modes:
+        raise ValueError(f"{'batch grid' if batched else 'scalar entry'} "
+                         f"supports {'|'.join(modes)}, got {mode!r}")
 
 
 def _on_card(t) -> None:
@@ -310,17 +355,24 @@ def _check_range(base: int, num_blocks: int, TB: int, C: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _cumsig_device(Wu: int, n_pad: int, device: torch.device) -> torch.Tensor:
+def _cumsig_device(Wu: int, n_pad: int, device: torch.device,
+                   dtype: torch.dtype = torch.float64) -> torch.Tensor:
     """The batched mode's cumsig on the card, copied there once per
-    (Wu, n_pad, device) rather than at every launch."""
+    (Wu, n_pad, device, dtype) rather than at every launch."""
     return torch.as_tensor(_cumsig_host(_signed_const_schedule(Wu), n_pad),
-                           device=device)
+                           dtype=dtype, device=device)
 
 
-def _c0_ptr(mode: str, Wu: int, n_pad: int, device: torch.device):
-    """cumsig pointer for the kernel; baseline mode never reads it (NULL)."""
-    return _cumsig_device(Wu, n_pad, device).data_ptr() \
-        if mode == "batched" else None
+def _c0(mode: str, A_pads, Wu: int):
+    """The kernel's schedule input: cumsig for the batched mode, the
+    signed schedule columns of the (one) matrix for schedmat, None for the
+    baseline mode, which reads none (NULL)."""
+    if mode == "batched":
+        return _cumsig_device(Wu, A_pads.shape[-1], A_pads.device,
+                              A_pads.dtype)
+    if mode == "schedmat":
+        return sched_columns(A_pads.reshape(-1, *A_pads.shape[-2:]), Wu)[0]
+    return None
 
 
 def _occupancy(entry: str, *args) -> int:
@@ -348,7 +400,14 @@ def ctas_per_sm(n_pad: int, *, TB: int, Wu: int, precision: str = "dq_acc",
                       _MODE_CODES[mode])
 
 
-def _launch(entry: str, A, xb, out, *args) -> None:
+def _entry(name: str, A) -> str:
+    """The C entry for ``A``'s dtype: ``name`` for f64, ``name_f32``."""
+    return name if A.dtype == torch.float64 else f"{name}_f32"
+
+
+def _launch(entry: str, A, xb, out, *args, counter: str | None = None) -> None:
+    """Call the C entry ``entry`` on A's stream; count the launch under
+    ``counter`` (default: the entry's name)."""
     from .build import load_library
     lib = load_library()
     rc = getattr(lib, entry)(*args,
@@ -356,7 +415,7 @@ def _launch(entry: str, A, xb, out, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{entry} failed: "
                            f"{lib.ryser_error_string(rc).decode()} ({rc})")
-    counters[entry] += 1
+    counters[counter or entry] += 1
 
 
 def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
@@ -365,9 +424,10 @@ def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
                     mode: str = "baseline") -> torch.Tensor:
     """(num_blocks, 2) per-block (hi, lo) partials of one matrix over
     blocks [0, num_blocks) from chunk ``dev_chunk_base`` (g = 0 term NOT
-    included).  ``A_pad`` is (n_pad, n_pad), ``x_base_pad`` (n_pad, 1)."""
+    included), in the input's dtype.  ``A_pad`` is (n_pad, n_pad),
+    ``x_base_pad`` (n_pad, 1), f64 or f32; every mode."""
     _check(A_pad, x_base_pad, n=n, TB=TB, C=C, Wu=Wu, num_blocks=num_blocks,
-           precision=precision, mode=mode, batched=False)
+           precision=precision, mode=mode, batched=False, dtypes=_DTYPES)
     base = int(dev_chunk_base)
     _check_range(base, num_blocks, TB, C, n)
     if A_pad.device.type == "cpu":
@@ -377,14 +437,17 @@ def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
                                     precision=precision, mode=mode)[0]
     _on_card(A_pad)
     A_pad, x_base_pad = A_pad.contiguous(), x_base_pad.contiguous()
-    out = torch.empty((num_blocks, 2), dtype=torch.float64,
+    out = torch.empty((num_blocks, 2), dtype=A_pad.dtype,
                       device=A_pad.device)
-    _launch("ryser_dense_scalar", A_pad, x_base_pad, out,
+    c0 = _c0(mode, A_pad, Wu)
+    entry = _entry("ryser_dense_scalar", A_pad)
+    _launch(entry, A_pad, x_base_pad, out,
             A_pad.data_ptr(), x_base_pad.data_ptr(),
-            _c0_ptr(mode, Wu, A_pad.shape[0], A_pad.device),
-            out.data_ptr(), base, n, A_pad.shape[0], TB,
+            None if c0 is None else c0.data_ptr(), out.data_ptr(),
+            base, n, A_pad.shape[0], TB,
             int(math.log2(C)), int(math.log2(Wu)), num_blocks,
-            PRECISION_CODES[precision], _MODE_CODES[mode])
+            PRECISION_CODES[precision], _MODE_CODES[mode],
+            counter=f"{entry}_schedmat" if mode == "schedmat" else None)
     return out
 
 
@@ -394,10 +457,11 @@ def ryser_cuda_call_batched(A_pads, x_base_pads, *, n: int, TB: int, C: int,
                             mode: str = "batched") -> torch.Tensor:
     """(B, num_blocks, 2) partials of a (B, n_pad, n_pad) stack in ONE
     launch, grid (num_blocks, B), chunk base 0 (g = 0 terms NOT
-    included).  ``x_base_pads`` is (B, n_pad, 1)."""
+    included), in the input's dtype.  ``x_base_pads`` is (B, n_pad, 1).
+    ``schedmat`` raises ``ValueError``: its columns are per matrix."""
     _check(A_pads, x_base_pads, n=n, TB=TB, C=C, Wu=Wu,
            num_blocks=num_blocks, precision=precision, mode=mode,
-           batched=True)
+           batched=True, dtypes=_DTYPES)
     _check_range(0, num_blocks, TB, C, n)
     if A_pads.device.type == "cpu":
         return block_partials_plain(A_pads, x_base_pads, 0, n=n, TB=TB, C=C,
@@ -407,12 +471,13 @@ def ryser_cuda_call_batched(A_pads, x_base_pads, *, n: int, TB: int, C: int,
     B = A_pads.shape[0]
     _check_batch(B)
     A_pads, x_base_pads = A_pads.contiguous(), x_base_pads.contiguous()
-    out = torch.empty((B, num_blocks, 2), dtype=torch.float64,
+    out = torch.empty((B, num_blocks, 2), dtype=A_pads.dtype,
                       device=A_pads.device)
-    _launch("ryser_dense_batched", A_pads, x_base_pads, out,
+    c0 = _c0(mode, A_pads, Wu)
+    _launch(_entry("ryser_dense_batched", A_pads), A_pads, x_base_pads, out,
             A_pads.data_ptr(), x_base_pads.data_ptr(),
-            _c0_ptr(mode, Wu, A_pads.shape[1], A_pads.device),
-            out.data_ptr(), B, n, A_pads.shape[1], TB,
-            int(math.log2(C)), int(math.log2(Wu)), num_blocks,
-            PRECISION_CODES[precision], _MODE_CODES[mode])
+            None if c0 is None else c0.data_ptr(), out.data_ptr(),
+            B, n, A_pads.shape[1], TB, int(math.log2(C)),
+            int(math.log2(Wu)), num_blocks, PRECISION_CODES[precision],
+            _MODE_CODES[mode])
     return out

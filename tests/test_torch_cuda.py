@@ -1,6 +1,7 @@
 """Tests that need the card: the CUDA kernels (dense real, split-plane
-complex, and sparse real and complex) against their plain versions, bit
-for bit, also from chunk bases at the end of the step space; the main
+complex, and sparse real and complex; the dense real one also in schedmat
+mode and on f32 input) against their plain versions, bit for bit, also
+from chunk bases at the end of the step space; the main
 path against the torch engines, on the device; the refusal of a chunk
 size past the step space; a campaign killed and resumed.
 They skip where no card is present; on a machine with one run
@@ -54,6 +55,61 @@ def test_kernel_matches_plain_on_card(card, n, mode):
     want = RC.block_partials_plain(A_pads, xb_pads, 0, **geo)
     np.testing.assert_allclose(got.sum(-1).cpu(), want.sum(-1).cpu(),
                                rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [5, 13, 22, 30, 40])
+def test_schedmat_and_f32_entries_equal_plain_on_card(card, n, dtype):
+    """Kernel #1 in schedmat mode (f64 and f32) and in baseline and batched
+    mode on f32, and kernel #2 on f32, bit for bit with their plain
+    versions, from chunk 0 and from the top of the step space; the batch
+    entry refuses schedmat.  Entries U(0.1, 1) * 2 / n keep every f32
+    product in range."""
+    As = torch.as_tensor(np.random.default_rng(n).uniform(0.1, 1, (2, n, n))
+                         * 2 / n, device=card).to(dtype)
+    A_pads, xb_pads, _ = ops.prepare(As)
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    nb = min(4, blocks)
+    modes = ("baseline", "batched", "schedmat") \
+        if dtype == torch.float32 else ("schedmat",)
+    for mode in modes:
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb, mode=mode)
+        for base in (0, blocks * TB - nb * TB):
+            got = RC.ryser_cuda_call(A_pads[0], xb_pads[0], base, **geo)
+            want = RC.block_partials_plain(A_pads[:1], xb_pads[:1], base,
+                                           **geo)[0]
+            assert got.dtype == dtype
+            assert torch.equal(got, want), (mode, base)
+        if mode != "schedmat":
+            got = RC.ryser_cuda_call_batched(A_pads, xb_pads, **geo)
+            want = RC.block_partials_plain(A_pads, xb_pads, 0, **geo)
+            assert got.dtype == dtype and torch.equal(got, want), mode
+    with pytest.raises(ValueError, match="batch grid supports"):
+        RC.ryser_cuda_call_batched(A_pads, xb_pads, n=n, TB=TB, C=C, Wu=Wu,
+                                   num_blocks=nb, mode="schedmat")
+
+
+def test_f32_values_and_sequential_engine_on_card(card):
+    """f32 through permanent_cuda(_batched) stays f32 and within rtol 5e-4
+    of the f64 value; perm_ryser_seq on the card within 1e-9 of the
+    oracle."""
+    from repro_torch.core import oracle
+    from repro_torch.core.ryser import perm_ryser_seq
+    rng = np.random.default_rng(12)
+    for n in (10, 16, 24):
+        A = rng.uniform(0.1, 1, (3, n, n))
+        f64 = ops.permanent_cuda_batched(A).cpu().numpy()
+        for mode in ("baseline", "batched"):
+            got = ops.permanent_cuda_batched(A.astype(np.float32), mode=mode)
+            assert got.dtype == torch.float32
+            np.testing.assert_allclose(got.cpu().numpy(), f64, rtol=5e-4)
+        for mode in ("baseline", "batched", "schedmat"):
+            one = ops.permanent_cuda(A[0].astype(np.float32), mode=mode)
+            assert one.dtype == torch.float32 and one.ndim == 0
+            np.testing.assert_allclose(float(one), f64[0], rtol=5e-4)
+    A = rng.uniform(-1, 1, (12, 12))
+    np.testing.assert_allclose(float(perm_ryser_seq(A)),
+                               oracle.perm_ryser_exact(A), rtol=1e-9)
 
 
 def test_main_path_on_card_matches_torch_engine(card):

@@ -28,6 +28,8 @@ import repro_torch.interop, repro_torch.core.sparyser
 import repro_torch.kernels.ryser_sparse_cuda
 import repro_torch.core.distributed, repro_torch.core.resume
 import repro_torch.launch.campaign
+import repro_torch.serve, repro_torch.serve.compile_cache
+import repro_torch.launch.serve
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -176,10 +176,13 @@ def test_padding_matches_reference():
 
 
 def test_wrapper_checks_inputs():
-    A = torch.zeros(16, 16, dtype=torch.float32)
-    xb = torch.ones(16, 1, dtype=torch.float32)
-    with pytest.raises(TypeError, match="f64"):
+    A = torch.zeros(16, 16, dtype=torch.float16)
+    xb = torch.ones(16, 1, dtype=torch.float16)
+    with pytest.raises(TypeError, match="f64 or f32"):
         RC.ryser_cuda_call(A, xb, 0, n=10, TB=8, C=8, Wu=4, num_blocks=8)
+    with pytest.raises(TypeError, match="one dtype"):
+        RC.ryser_cuda_call(A.double(), xb.float(), 0, n=10, TB=8, C=8, Wu=4,
+                           num_blocks=8)
     with pytest.raises(ValueError, match="step space"):
         RC.ryser_cuda_call(A.double(), xb.double(), 8, n=10, TB=8, C=8,
                            Wu=4, num_blocks=8)
