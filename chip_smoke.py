@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--time-only | --serve-only]
+    python3 chip_smoke.py [--time-only | --serve-only | --tune-only]
 
 Run from the repository root on a machine with a CUDA card and nvcc.  It
 builds the kernels from ``src/repro_torch/kernels/csrc`` (the dense real
@@ -16,14 +16,18 @@ kernel and the torch engine against the sparse route, a scalar leaf
 against the same leaf in a bucket), splits each call's host time into
 planning and execution, and times each kernel beside its bound.  Phase
 ``entry_parity`` holds kernel #1's schedmat mode and the f32 entries of
-#1 and #2 against their plain versions and drives them through
-``ops.permanent_cuda(_batched)``; phase ``campaign`` runs the step-space
-campaigns; phase ``serve`` drives the always-on service
+#1-#8 (f32 and complex64 input) against their plain versions and drives
+them through ``ops.permanent_cuda(_batched)`` and
+``ops.permanent_cuda_sparse(_batched)``; phase ``campaign`` runs the
+step-space campaigns; phase ``tune`` runs the tune CLI at the main path's
+sizes and its table through the planner and the service; phase ``serve``
+drives the always-on service
 (``repro_torch.serve``): warm-up, an open-loop soak of one mixed stream
 (dense real, dense complex, sparse), a soak of ``run_soak`` on random
 masks at density 0.2, ``fill_first``, an interleaved campaign and four
 cold processes (three of its CLI; ``--cold-band ROOT`` is the fourth's
-own entry).  ``--serve-only`` runs the build and phase ``serve`` alone.
+own entry).  ``--serve-only`` runs the build and phase ``serve`` alone,
+``--tune-only`` the build and phase ``tune``.
 A summary goes to ``chiprun_out/chip_smoke.json``.
 
 The build report gives each kernel instantiation's registers, spills and
@@ -97,45 +101,9 @@ PRECISIONS = ("dd", "dq_fast", "dq_acc", "qq", "kahan")
 RTOL_KERNEL, ATOL_KERNEL = 1e-12, 1e-15
 MAIN_REPS = 3
 
-# Data-sheet FP64 and FP32 (vector, an FMA counted as two) and memory
-# rates by SKU.
-_SKUS = (("H100 PCIe", 25.6e12, 51.2e12, 2.0e12),
-         ("H100 NVL", 30.0e12, 60.0e12, 3.9e12),
-         ("H100", 34.0e12, 67.0e12, 3.35e12),
-         ("H200", 34.0e12, 67.0e12, 4.8e12))
-
-
-def _sku(name: str):
-    """(SKU, FP64 rate, memory rate) of the card; ``_fp32`` the FP32 rate."""
-    for key, fp64, _fp32, bw in _SKUS:
-        if key in name:
-            return key, fp64, bw
-    raise RuntimeError(f"no FP64/memory rates on record for {name!r}")
-
-
-def _fp32(name: str) -> float:
-    return next(fp32 for key, _fp64, fp32, _bw in _SKUS if key in name)
-
-
-def complex_ryser_ops(n: int) -> float:
-    """FP64 instructions of one split-plane complex permanent: per Gray
-    step 2n adds for the two column updates and 6(n - 1) for the complex
-    product (rounded up to 8n), over 2^(n-1) steps."""
-    return 8.0 * n * 2.0 ** (n - 1)
-
-
-def sparse_ryser_ops(rows, n: int, cplx: bool) -> float:
-    """FP64 operations SpaRyser needs for the matrices whose padded CCS rows
-    are ``rows`` (B, n, maxdeg), counted from their column degrees: Gray
-    step g changes column j = ctz(g), which 2^(n-2-j) of the 2^(n-1) - 1
-    steps do (j <= n - 2), and costs deg(j) adds for that column's nonzeros
-    and n - 1 multiplies for the product; complex 2 deg(j) adds and
-    6 (n - 1) for the complex product."""
-    deg = (np.asarray(rows) < n).sum(axis=-1)[..., :n - 1]     # (B, n - 1)
-    flips = 2.0 ** (n - 2 - np.arange(n - 1))
-    adds, prod = (2, 6 * (n - 1)) if cplx else (1, n - 1)
-    return float(adds * (deg * flips).sum()
-                 + deg.shape[0] * (2.0 ** (n - 1) - 1) * prod)
+# Data-sheet rates and the Ryser kernels' operation counts come from one
+# place, repro_torch/utils/roofline.py (HW_SPECS, detect_hw, ryser_ops,
+# complex_ryser_ops, sparse_ryser_ops), which the tuner's model reads too.
 
 
 class Smoke:
@@ -174,16 +142,18 @@ def _ulp_gap(a: np.ndarray, b: np.ndarray) -> float:
 # 4 precisions)
 INSTANTIATIONS = (("dense", "f64", False), ("dense", "f64", True),
                   ("dense", "f32", False), ("dense", "f32", True),
-                  ("complex", "f64", False), ("sparse", "f64", False),
-                  ("sparse_cx", "f64", False))
+                  ("complex", "f64", False), ("complex", "f32", False),
+                  ("sparse", "f64", False), ("sparse", "f32", False),
+                  ("sparse_cx", "f64", False), ("sparse_cx", "f32", False))
 
 
 def _ptxas_summary(log: str) -> list[dict]:
     """(kernel, npad, precision code, dtype, schedmat, registers, spill
     bytes) per kernel instantiation: ryser_kernel<NPAD, P, SPARSE, T,
-    SCHED> ("dense" in ryser_dense.cu, f64 and f32, with and without the
-    schedmat mode; "sparse" in ryser_sparse.cu) and ryser_cx_kernel
-    ("complex" in ryser_complex.cu, "sparse_cx" in ryser_sparse.cu)."""
+    SCHED> ("dense" in ryser_dense.cu, with and without the schedmat mode;
+    "sparse" in ryser_sparse.cu) and ryser_cx_kernel<NPAD, P, SPARSE, T>
+    ("complex" in ryser_complex.cu, "sparse_cx" in ryser_sparse.cu), each
+    f64 and f32."""
     names = {("", "0"): "dense", ("", "1"): "sparse",
              ("cx_", "0"): "complex", ("cx_", "1"): "sparse_cx"}
     out, cur = [], None
@@ -191,7 +161,7 @@ def _ptxas_summary(log: str) -> list[dict]:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"ryser_(cx_)?kernelILi(\d+)ELi(\d+)ELb([01])E"
-                          r"(?:([df])Lb([01])E)?", m.group(1))
+                          r"(?:([df])(?:Lb([01])E)?)?", m.group(1))
             cur = {"kernel": names[(t.group(1) or "", t.group(4))],
                    "npad": int(t.group(2)),
                    "prec": int(t.group(3)),
@@ -287,8 +257,8 @@ def _sass_mix(build, prec: int = 2) -> dict:
             ("dense", "ryser_dense", "ryser_kernel", 0, 24, 1),
             ("sparse", "ryser_sparse", "ryser_kernel", 1, 32, 1),
             ("sparse", "ryser_sparse", "ryser_kernel", 1, 24, 1)):
-        # the real body's f64 instantiation without the schedmat mode
-        tail = "dLb0E" if per == 1 else ""
+        # the f64 instantiation (the real body's without the schedmat mode)
+        tail = "dLb0E" if per == 1 else "dE"
         path = str(build.build_dir() / f"{obj}_n{npad}.o")
         if path not in sass:
             sass[path] = subprocess.run([tool, "-sass", path],
@@ -729,14 +699,18 @@ def _extent_sparse(rng, n: int, R: int, kw: int, extra: int = 0,
     return A
 
 
-def _sparse_inputs(torch, mats, cplx: bool, Wu: int | None = None):
+def _sparse_inputs(torch, mats, cplx: bool, Wu: int | None = None,
+                   single: bool = False):
     """Kernel inputs of a sparse stack on the card, packed to the
     bucket-wide maxdeg: the real ``(A_pads, rows, vals, xb_pads)`` or the
-    complex ``(Ar, Ai, rows, vals_r, vals_i, xbr, xbi)``.  Given the
-    window ``Wu``, real leaves are ordered as the main path orders them
-    (``ops.prepare_sparse``); without it they go as they come."""
+    complex ``(Ar, Ai, rows, vals_r, vals_i, xbr, xbi)``, f32 planes when
+    ``single``.  Given the window ``Wu``, real leaves are ordered as the
+    main path orders them (``ops.prepare_sparse``); without it they go as
+    they come."""
     from repro_torch.core.sparyser import SparseMatrix, pack_padded_ccs
     from repro_torch.kernels import ops
+    if single:
+        mats = [A.astype(np.complex64 if cplx else np.float32) for A in mats]
     A_np, rows_np, vals_np = pack_padded_ccs(
         [SparseMatrix.from_dense(A) for A in mats])
     As = torch.as_tensor(A_np, device="cuda")
@@ -1036,18 +1010,22 @@ def _vs_unordered(torch, mp: dict) -> float:
 
 def _timed_inputs(torch, rng, entry: str, n: int, B: int):
     """(kernel call, plain call, input bytes, operation count, mode) of one
-    kernel entry at a main-path shape.  A real dense entry name may end in
-    ``_f32`` (f32 input) and the scalar one in ``_schedmat`` (the mode)."""
-    from repro_torch.core.ryser import ryser_flops
+    kernel entry at a main-path shape.  An entry name may hold ``_f32``
+    (f32 or complex64 input) and the real scalar one end in ``_schedmat``
+    (the mode)."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY
     from repro_torch.kernels import ops
     from repro_torch.kernels import ryser_complex_cuda as RX
     from repro_torch.kernels import ryser_cuda as RC
+    from repro_torch.utils.roofline import complex_ryser_ops, ryser_ops
     TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
     geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks, precision="dq_acc")
     scalar = "_scalar" in entry
+    single = "_f32" in entry
     if entry.startswith("ryser_complex"):
         As = torch.as_tensor(_cgauss(rng, (B, n, n)), device="cuda")
+        if single:
+            As = As.to(torch.complex64)
         planes = ops.prepare_complex(As)[:4]
         kern = (lambda: RX.ryser_cuda_call_complex(  # noqa: E731
             *(p[0] for p in planes), 0, **geo)) if scalar else \
@@ -1055,11 +1033,12 @@ def _timed_inputs(torch, rng, entry: str, n: int, B: int):
                 *planes, **geo))
         plain = lambda: RX.block_partials_plain_complex(  # noqa: E731
             *planes, 0, **geo)
-        nbytes = 8 * (sum(p.numel() for p in planes) + 4 * B * blocks)
+        nbytes = planes[0].element_size() * (
+            sum(p.numel() for p in planes) + 4 * B * blocks)
         return kern, plain, nbytes, B * complex_ryser_ops(n), "batched"
     mode = "schedmat" if entry.endswith("_schedmat") else \
         "baseline" if scalar else "batched"
-    dt = torch.float32 if "_f32" in entry else torch.float64
+    dt = torch.float32 if single else torch.float64
     As = torch.as_tensor(rng.uniform(-1, 1, (B, n, n)), device="cuda").to(dt)
     A_pads, xb_pads, _ = ops.prepare(As)
     kern = (lambda: RC.ryser_cuda_call(  # noqa: E731
@@ -1070,7 +1049,7 @@ def _timed_inputs(torch, rng, entry: str, n: int, B: int):
         A_pads, xb_pads, 0, mode=mode, **geo)
     nbytes = A_pads.element_size() * (A_pads.numel() + xb_pads.numel()
                                       + 2 * B * blocks)
-    return kern, plain, nbytes, B * ryser_flops(n), mode
+    return kern, plain, nbytes, B * ryser_ops(n), mode
 
 
 def _timed_inputs_sparse(torch, rng, entry: str, n: int, B: int):
@@ -1084,13 +1063,15 @@ def _timed_inputs_sparse(torch, rng, entry: str, n: int, B: int):
     are what SpaRyser needs for these matrices' column degrees
     (``sparse_ryser_ops``)."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY
+    from repro_torch.utils.roofline import sparse_ryser_ops
     cplx = "complex" in entry
     scalar_call, batched_call, plain_call = _sparse_calls(cplx)
     TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
     geo = dict(n=n, TB=TB, C=C, Wu=Wu, precision="dq_acc")
     degree = SPARSE_DEGREE if B == 1 else BUCKET_DEGREE
     ins = _sparse_inputs(torch, [_circulant_sparse(rng, n, degree, cplx)
-                                 for _ in range(B)], cplx, Wu)
+                                 for _ in range(B)], cplx, Wu,
+                         single="_f32" in entry)
     if not cplx:
         rr = sorted({tuple(x) for x in _rows_rpad(ins[1], Wu, n)})
         print(f"{entry}: {B} x n={n} timed inputs, [R, RPAD] {rr}")
@@ -1107,7 +1088,7 @@ def _timed_inputs_sparse(torch, rng, entry: str, n: int, B: int):
         plain = lambda: plain_call(*ins, 0, num_blocks=blocks,  # noqa: E731
                                    **geo)
     nbytes = sum(t.numel() * t.element_size() for t in ins) \
-        + 8 * B * blocks * (4 if cplx else 2)
+        + ins[0].element_size() * B * blocks * (4 if cplx else 2)
     ops_count = sparse_ryser_ops(ins[2 if cplx else 1].cpu().numpy(), n,
                                  cplx)
     return kern, plain, nbytes, ops_count, "batched"
@@ -1154,7 +1135,7 @@ def _dense_at_sparse_shape(smoke: Smoke, torch, msp: dict,
 
 # (entry, n, B, TPU kernel it replaces, source) of the timed entries: the
 # eight of the main paths, then kernel #1's schedmat mode and the f32
-# entries of #1 and #2 (the entry-parity path)
+# entries of #1-#8 (the entry-parity path; #3/#4 and #7/#8 on complex64)
 _SP = "src/repro/kernels/ryser_sparse.py"
 _RP = "src/repro/kernels/ryser_pallas.py"
 TIMED = (
@@ -1176,7 +1157,18 @@ TIMED = (
     ("ryser_dense_scalar_f32_schedmat", N_MAIN, 1, f"{_RP}:305",
      "ryser_dense.cu"),
     ("ryser_dense_batched_f32", N_THRU, B_THRU, f"{_RP}:342",
-     "ryser_dense.cu"))
+     "ryser_dense.cu"),
+    ("ryser_complex_scalar_f32", N_MAIN, 1,
+     "src/repro/kernels/ryser_complex.py:181", "ryser_complex.cu"),
+    ("ryser_complex_batched_f32", N_THRU, B_THRU,
+     "src/repro/kernels/ryser_complex.py:216", "ryser_complex.cu"),
+    ("ryser_sparse_scalar_f32", N_SPARSE, 1, f"{_SP}:331", "ryser_sparse.cu"),
+    ("ryser_sparse_batched_f32", N_THRU, B_THRU, f"{_SP}:367",
+     "ryser_sparse.cu"),
+    ("ryser_sparse_complex_scalar_f32", N_SPARSE, 1, f"{_SP}:400",
+     "ryser_sparse.cu"),
+    ("ryser_sparse_complex_batched_f32", N_THRU, B_THRU, f"{_SP}:436",
+     "ryser_sparse.cu"))
 ROUNDS, REPS = 3, 5
 
 
@@ -1239,21 +1231,22 @@ def _timed_entries(torch, card: dict) -> dict:
     """name -> (kernel call, plain call, bound ms, bound_by, n, B, mode) of
     the timed entries at the main path's shapes, inputs from one seed; an
     f32 entry's operations go over the FP32 rate."""
-    sku, fp64, bw = _sku(card["name"])
+    from repro_torch.utils.roofline import detect_hw
+    hw = detect_hw(card["name"])
+    fp64, fp32, bw = hw.fp64_flops, hw.fp32_flops, hw.mem_bw
     rng = np.random.default_rng(SEED + 3)
     entries = {}
     for entry, n, B, _replaces, _source in TIMED:
         kern, plain, nbytes, ops_count, mode = (
             _timed_inputs_sparse if "sparse" in entry else _timed_inputs)(
             torch, rng, entry, n, B)
-        rate = _fp32(card["name"]) if "_f32" in entry else fp64
+        rate = fp32 if "_f32" in entry else fp64
         t_ops, t_bytes = ops_count / (rate / 2) * 1e3, nbytes / bw * 1e3
         entries[entry] = (kern, plain, max(t_ops, t_bytes),
                           "operations" if t_ops >= t_bytes else "bytes", n,
                           B, mode)
-    print(f"bounds from {sku}: FP64 {fp64 / 1e12:g} TFLOP/s / 2, FP32 "
-          f"{_fp32(card['name']) / 1e12:g} TFLOP/s / 2, "
-          f"{bw / 1e12:g} TB/s")
+    print(f"bounds from {hw.name}: FP64 {fp64 / 1e12:g} TFLOP/s / 2, FP32 "
+          f"{fp32 / 1e12:g} TFLOP/s / 2, {bw / 1e12:g} TB/s")
     return entries
 
 
@@ -1616,7 +1609,8 @@ def _campaign_main_path(smoke: Smoke, torch, card: dict) -> tuple:
     from repro_torch.core.oracle import all_ones_permanent
     from repro_torch.core.solver import PermanentSolver, SolverConfig
     from repro_torch.kernels import ryser_cuda as RC
-    _sku_name, fp64, _bw = _sku(card["name"])
+    from repro_torch.utils.roofline import detect_hw
+    fp64 = detect_hw(card["name"]).fp64_flops
     n = N_CAMPAIGN
     J = np.ones((n, n))
     exact = all_ones_permanent(n)
@@ -1902,7 +1896,7 @@ def phase_campaign(smoke: Smoke, torch, card: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Kernel-entry parity: kernel #1's schedmat mode, f32 input to #1 and #2
+# Kernel-entry parity: kernel #1's schedmat mode, f32 input to #1-#8
 # ---------------------------------------------------------------------------
 
 PARITY_WINDOW_NS = tuple(n for n in WINDOW_NS if n <= N_MAIN)
@@ -1910,7 +1904,13 @@ SCHED_ORACLE_NS = (8, 11, 14)        # schedmat values against the oracle
 F32_NS = (10, 16, 20, 24)            # f32 values against the f64 kernel
 ORACLE_BAR, F32_BAR = 1e-9, 5e-4     # the reference's bars (f64, f32)
 PARITY_ROWS = ("ryser_dense_scalar_schedmat", "ryser_dense_scalar_f32",
-               "ryser_dense_scalar_f32_schedmat", "ryser_dense_batched_f32")
+               "ryser_dense_scalar_f32_schedmat", "ryser_dense_batched_f32",
+               "ryser_complex_scalar_f32", "ryser_complex_batched_f32",
+               "ryser_sparse_scalar_f32", "ryser_sparse_batched_f32",
+               "ryser_sparse_complex_scalar_f32",
+               "ryser_sparse_complex_batched_f32")
+SINGLE_ROWS = PARITY_ROWS[4:]        # the _f32 entries of #3-#8
+SPARSE_F32_NS = (16, 20, 24)         # f32 sparse values against f64
 
 
 def _parity_windows(smoke: Smoke, torch) -> dict:
@@ -1965,21 +1965,133 @@ def _parity_windows(smoke: Smoke, torch) -> dict:
     return err
 
 
+def _phased(rng, shape):
+    """U(0.1, 1) magnitudes with phases in [-pi/4, pi/4]: the complex
+    analogue of the U(0.1, 1) inputs the reference's f32 bar is set on
+    (Ryser's terms cancel little, so f32 rounding stays near 1e-6)."""
+    return rng.uniform(0.1, 1.0, shape) * np.exp(
+        1j * rng.uniform(-np.pi / 4, np.pi / 4, shape))
+
+
+def _single_windows(smoke: Smoke, torch) -> dict:
+    """The _f32 entries of #3/#4 (complex64 planes), #5/#6 (f32, leaves
+    ordered as the main path orders them) and #7/#8 (complex64) bit for
+    bit with their plain versions on block windows (the first and the
+    last, every precision) and over a B = 3 batch grid, at n in
+    PARITY_WINDOW_NS and 40 (dense) and SPARSE_WINDOW_NS up to 40
+    (sparse; NPAD 40 runs the f32 complex rows branch-free), each
+    returning f32 partials.  The full grids of the main path's shapes are
+    the timing phase's."""
+    from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_complex_cuda as RX
+    rng = np.random.default_rng(SEED + 19)
+    err = dict.fromkeys(SINGLE_ROWS, 0.0)
+    equal = True
+    cases = [("complex", n) for n in PARITY_WINDOW_NS + (40,)] + \
+        [(kind, n) for kind in ("sparse", "sparse_complex")
+         for n in SPARSE_WINDOW_NS if n <= 40]
+    for kind, n in cases:
+        geom = DEFAULT_GEOMETRY if n >= N_BUCKET else Geometry(8, 8, 4)
+        TB, C, Wu, blocks = geom.kernel_geometry(n)
+        nb = min(8, blocks)
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+        cplx = kind != "sparse"
+        if kind == "complex":
+            ins = ops.prepare_complex(torch.as_tensor(
+                _cgauss(rng, (3, n, n)), device="cuda").to(
+                    torch.complex64))[:4]
+            calls = (RX.ryser_cuda_call_complex,
+                     RX.ryser_cuda_call_complex_batched,
+                     RX.block_partials_plain_complex)
+        else:
+            ins = _sparse_inputs(torch, [_circulant_sparse(
+                rng, n, min(BUCKET_DEGREE, n - 1), cplx) for _ in range(3)],
+                cplx, None if cplx else Wu, single=True)
+            calls = _sparse_calls(cplx)
+        scalar, batched, plain = calls
+        for prec in PRECISIONS:
+            for base in sorted({0, blocks * TB - nb * TB}):
+                got = scalar(*(t[0] for t in ins), base, precision=prec,
+                             **geo)
+                want = plain(*(t[:1] for t in ins), base, precision=prec,
+                             **geo)[0]
+                equal &= got.dtype == torch.float32 and _bits_equal(
+                    torch, got, want, err, f"ryser_{kind}_scalar_f32")
+            got = batched(*ins, precision=prec, **geo)
+            want = plain(*ins, 0, precision=prec, **geo)
+            equal &= got.dtype == torch.float32 and _bits_equal(
+                torch, got, want, err, f"ryser_{kind}_batched_f32")
+        torch.cuda.synchronize()
+    smoke.check(equal, f"the _f32 entries of #3-#8 (complex64, f32 sparse, "
+                       f"complex64 sparse) equal their plain versions bit "
+                       f"for bit on windows, {len(PRECISIONS)} precisions, "
+                       f"first and last blocks, B = 3, f32 partials: max "
+                       f"abs err {err}")
+    return err
+
+
+def _single_values(rng, torch) -> tuple[dict, bool]:
+    """The path a user takes with complex64 and f32 sparse input:
+    ``ops.permanent_cuda(_batched)`` on complex64 (#3, #4) and
+    ``ops.permanent_cuda_sparse(_batched)`` on f32 and complex64 bands
+    (#5-#8), each held within rtol F32_BAR of the f64 entry on the same
+    input and checked for its dtype.  Returns (max rel by case, dtypes
+    right)."""
+    from repro_torch.core.sparyser import SparseMatrix
+    from repro_torch.kernels import ops
+    rel, ok = {}, True
+
+    def gap(got, want):
+        got = np.asarray(got.cpu().numpy(), dtype=np.complex128)
+        want = np.asarray(want.cpu().numpy(), dtype=np.complex128)
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+
+    for n in F32_NS:
+        As = _phased(rng, (4, n, n))
+        f64 = ops.permanent_cuda_batched(As)
+        got = ops.permanent_cuda_batched(As.astype(np.complex64))
+        ok &= got.dtype == torch.complex64 and got.shape == (4,)
+        rel[f"#4 n={n}"] = gap(got, f64)
+        one = ops.permanent_cuda(As[0].astype(np.complex64))
+        ok &= one.dtype == torch.complex64 and one.ndim == 0
+        rel[f"#3 n={n}"] = gap(one, f64[0])
+    for n in SPARSE_F32_NS:
+        for cplx, dt, tag in ((False, np.float32, "#5/#6"),
+                              (True, np.complex64, "#7/#8")):
+            mats = [_circulant_sparse(rng, n, BUCKET_DEGREE) for _ in
+                    range(4)]
+            if cplx:
+                mats = [A * np.exp(1j * rng.uniform(-np.pi / 4, np.pi / 4,
+                                                    A.shape)) for A in mats]
+            f64 = ops.permanent_cuda_sparse_batched(
+                [SparseMatrix.from_dense(A) for A in mats])
+            sps = [SparseMatrix.from_dense(A.astype(dt)) for A in mats]
+            got = ops.permanent_cuda_sparse_batched(sps)
+            one = ops.permanent_cuda_sparse(sps[0])
+            want_dt = torch.complex64 if cplx else torch.float32
+            ok &= got.dtype == want_dt and one.dtype == want_dt
+            rel[f"{tag} batched n={n}"] = gap(got, f64)
+            rel[f"{tag} scalar n={n}"] = gap(one, f64[0])
+    return rel, ok
+
+
 def phase_entry_parity(smoke: Smoke, torch) -> tuple[dict, dict]:
-    """Kernel #1's schedmat mode and the f32 entries of #1 and #2: windows
+    """Kernel #1's schedmat mode and the f32 entries of #1-#8: windows
     against their plain versions, then the path a user takes
-    (``ops.permanent_cuda`` / ``permanent_cuda_batched``) with the launch
-    counters reset just before and read just after: schedmat values
-    against the oracle, f32 values (U(0.1, 1)) against the f64 kernel on
-    the same matrices and f32 in dtype; ``perm_ryser_seq`` on the card
-    against the oracle; #1's three modes timed at n = 30 (f64 and f32).
-    Returns (window max abs errors, the path's launches) of PARITY_ROWS."""
+    (``ops.permanent_cuda(_batched)``, ``permanent_cuda_sparse(_batched)``)
+    with the launch counters reset just before and read just after:
+    schedmat values against the oracle, f32 and complex64 values against
+    the f64 entries on the same matrices and in their dtype;
+    ``perm_ryser_seq`` on the card against the oracle; #1's three modes
+    timed at n = 30 (f64 and f32).  Returns (window max abs errors, the
+    path's launches) of PARITY_ROWS."""
     import repro_torch.core.oracle as oracle
     from repro_torch.core.ryser import perm_ryser_seq
     from repro_torch.kernels import ops
     from repro_torch.kernels import ryser_cuda as RC
     t0 = time.perf_counter()
-    err = _parity_windows(smoke, torch)
+    err = {**_parity_windows(smoke, torch), **_single_windows(smoke, torch)}
     rng = np.random.default_rng(SEED + 18)
     sched_rel, f32_rel, dtypes_ok = {}, {}, True
     RC.reset_counters()
@@ -2002,13 +2114,17 @@ def phase_entry_parity(smoke: Smoke, torch) -> tuple[dict, dict]:
             dtypes_ok &= got.dtype == torch.float32 and got.ndim == 0
             f32_rel[f"#1 {mode} n={n}"] = abs(float(got) - f64[0]) / \
                 abs(f64[0])
+    single_rel, single_ok = _single_values(rng, torch)
     torch.cuda.synchronize()
     launches = {k: RC.counters[k] for k in PARITY_ROWS}
-    plain = RC.counters["block_partials_plain"]
+    plain = sum(v for k, v in RC.counters.items()
+                if k.startswith("block_partials_plain"))
     print(f"entry parity path: launches {launches}, f64 batched "
           f"{RC.counters['ryser_dense_batched']}, plain {plain}")
     print(f"schedmat vs oracle: {sched_rel}")
     print(f"f32 vs the f64 kernel (max rel): {f32_rel}")
+    print(f"complex64 / f32 sparse vs the f64 entries (max rel): "
+          f"{single_rel}")
     smoke.check(all(v <= ORACLE_BAR for v in sched_rel.values()),
                 f"#1 schedmat within rel {ORACLE_BAR:g} of the oracle at n "
                 f"in {SCHED_ORACLE_NS}: {sched_rel}")
@@ -2016,6 +2132,10 @@ def phase_entry_parity(smoke: Smoke, torch) -> tuple[dict, dict]:
                 f"f32 #1 (3 modes) and #2 (2 modes) within rtol {F32_BAR:g} "
                 f"of the f64 kernel at n in {F32_NS}, every result f32: "
                 f"worst {max(f32_rel.values()):.3e}")
+    smoke.check(all(v <= F32_BAR for v in single_rel.values()) and single_ok,
+                f"complex64 #3/#4, f32 #5/#6 and complex64 #7/#8 within "
+                f"rtol {F32_BAR:g} of the f64 entries, results complex64 / "
+                f"f32: worst {max(single_rel.values()):.3e}")
     smoke.check(all(v > 0 for v in launches.values()) and plain == 0,
                 f"the entry-parity path launched each of its kernels and no "
                 f"plain version: {launches}, plain {plain}")
@@ -2040,11 +2160,339 @@ def phase_entry_parity(smoke: Smoke, torch) -> tuple[dict, dict]:
           f"of 5): {modes}")
     smoke.summary["entry_parity"] = {
         "window_err": err, "launches": launches, "schedmat_vs_oracle":
-        sched_rel, "f32_vs_f64": f32_rel, "seq_rel": seq_rel,
+        sched_rel, "f32_vs_f64": f32_rel, "single_vs_f64": single_rel,
+        "seq_rel": seq_rel,
         "seq_s": seq_s, "modes_ms": modes,
         "seconds": time.perf_counter() - t0}
     print(f"entry parity phase: {time.perf_counter() - t0:.1f} s")
     return err, launches
+
+
+# ---------------------------------------------------------------------------
+# Kernel-geometry tuning: the tune CLI on the card, its table in the planner
+# ---------------------------------------------------------------------------
+
+N_TUNE_CAMPAIGN = 34                 # one wave of an n = 34 campaign
+TUNE_TOP_K, TUNE_REPEATS, TUNE_DENSITY = 6, 5, 0.2
+TUNE_ROUTES = {"dense": ("dense", "<f8"), "complex": ("dense", "<c16"),
+               "sparse": ("sparse", "<f8"),
+               "campaign": ("step_sharded", "<f8")}
+ORACLE_CHECKS = 4                    # closed-form members of each bucket
+# Another geometry sums the same terms in another order, so a tuned plan's
+# values differ from the default geometry's at the rounding level.  The gap
+# is held against perm(|A|), the scale of the terms' rounding: on an NVIDIA
+# H100 80GB HBM3 it read 1.87e-12 of perm(|A|) at worst over 256
+# random-sign n = 24 values (9.2e-12 relative to the value, which cancels).
+TUNE_GEOMETRY_BAR = 1e-11
+TUNE_ENTRIES = ("ryser_dense_batched", "ryser_complex_batched",
+                "ryser_sparse_batched", "ryser_dense_scalar")
+
+
+def _tune_window(torch, route: str, n: int, tag: str, err: dict) -> bool:
+    """One measured candidate at its geometry: its kernel on a window of
+    blocks against the plain version, bit for bit -- the batch entry of
+    the route on B = 2 matrices over the first two blocks, or for
+    ``campaign`` the wave body's launch (the scalar entry, ``batched``
+    mode, the campaign's chunk size) on the last block of the space."""
+    from repro_torch.core.stepspace import Geometry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_cuda as RC
+    from repro_torch.tune.search import _campaign_spec
+    g = Geometry.from_tag(tag)
+    rng = np.random.default_rng(SEED + 29)
+    if route == "campaign":
+        _ts, cps, C = _campaign_spec(n)
+        TB, Wu = ops.wave_geometry(cps, C, g)
+        A_pad, xb_pad, _ = ops.prepare(torch.as_tensor(
+            rng.uniform(-1, 1, (n, n)), device="cuda"))
+        base = (1 << (n - 1)) // C - TB
+        geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=1, mode="batched")
+        got = RC.ryser_cuda_call(A_pad, xb_pad, base, **geo)
+        want = RC.block_partials_plain(A_pad[None], xb_pad[None], base,
+                                       **geo)[0]
+        return _bits_equal(torch, got, want, err, f"{route} {tag}")
+    TB, C, Wu, blocks = g.kernel_geometry(n)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=min(2, blocks))
+    if route == "sparse":
+        ins = _sparse_inputs(torch, [_circulant_sparse(rng, n, BUCKET_DEGREE)
+                                     for _ in range(2)], False, Wu)
+        _scalar, batched, plain = _sparse_calls(False)
+        got, want = batched(*ins, **geo), plain(*ins, 0, **geo)
+    elif route == "complex":
+        from repro_torch.kernels import ryser_complex_cuda as RX
+        planes = ops.prepare_complex(torch.as_tensor(
+            _cgauss(rng, (2, n, n)), device="cuda"))[:4]
+        got = RX.ryser_cuda_call_complex_batched(*planes, **geo)
+        want = RX.block_partials_plain_complex(*planes, 0, **geo)
+    else:
+        A_pads, xb_pads, _ = ops.prepare(torch.as_tensor(
+            rng.uniform(-1, 1, (2, n, n)), device="cuda"))
+        got = RC.ryser_cuda_call_batched(A_pads, xb_pads, mode="batched",
+                                         **geo)
+        want = RC.block_partials_plain(A_pads, xb_pads, 0, mode="batched",
+                                       **geo)
+    return _bits_equal(torch, got, want, err, f"{route} {tag}")
+
+
+def _tune_buckets(rng, n: int) -> dict:
+    """route -> (matrices, [(index, exact permanent)]) of the tuned plans:
+    256 x n = 24 buckets whose first ORACLE_CHECKS members have closed
+    forms -- a J (real n! a^n, complex n! c^n; ``oracle.
+    all_ones_permanent``) and I + P on the sparse route (2^cycles) -- and
+    the rest U(-1, 1), complex Gaussian and degree-5 bands."""
+    import repro_torch.core.oracle as oracle
+    k, out = ORACLE_CHECKS, {}
+    a = rng.uniform(0.5, 1.5, k)
+    dense = [a[i] * np.ones((n, n)) for i in range(k)] + \
+        list(rng.uniform(-1, 1, (B_THRU - k, n, n)))
+    out["dense"] = (dense, [(i, oracle.all_ones_permanent(n, a[i]))
+                            for i in range(k)])
+    c = a * np.exp(1j * rng.uniform(-np.pi, np.pi, k))
+    cplx = [c[i] * np.ones((n, n)) for i in range(k)] + \
+        list(_cgauss(rng, (B_THRU - k, n, n)))
+    out["complex"] = (cplx, [(i, oracle.all_ones_permanent(n) * c[i] ** n)
+                             for i in range(k)])
+    pairs = [_derangement_plus_identity(rng, n) for _ in range(k)]
+    sparse = [A for A, _ in pairs] + [
+        _circulant_sparse(rng, n, BUCKET_DEGREE) for _ in range(B_THRU - k)]
+    out["sparse"] = (sparse, [(i, v) for i, (_, v) in enumerate(pairs)])
+    return out
+
+
+def _plans_recorded():
+    """Wrap the solver module's ``build_plan`` so every plan it makes is
+    kept; returns (the list, a function that restores it)."""
+    import repro_torch.core.solver as S
+    plans, build_plan = [], S.build_plan
+
+    def record(*a, **kw):
+        plans.append(build_plan(*a, **kw))
+        return plans[-1]
+    S.build_plan = record
+    return plans, lambda: setattr(S, "build_plan", build_plan)
+
+
+def phase_tune(smoke: Smoke, torch, card: dict) -> dict:
+    """The tune CLI (``repro_torch.launch.tune``'s ``tune_main``, in this
+    process, so the launch counters read its path) on the card at the
+    main path's sizes (dense, complex and sparse at 256 x n = 24, a
+    campaign wave at n = 34) into a table under ``chiprun_out/tune``, then
+    its table in the planner.  Gates: the path launches #2, #4, #6 and the
+    wave body #1 and no plain version; every measured candidate, at its
+    plain version bit for bit on a window; each winner measured at most
+    the default's time; a solver with the table plans and launches the
+    winners (leaf and CampaignSpec geometry, launch counters, values equal
+    to the entry's own at the winner's geometry bit for bit), its values
+    within TUNE_GEOMETRY_BAR perm(|A|) of the default geometry's and
+    within the value bar ORACLE_BAR of the closed forms of
+    ``core/oracle.py``; a table whose kernels hash is edited is refused;
+    a service with the table warms the tuned geometries and serves a
+    first bucket with no library miss."""
+    import repro_torch.core.oracle as oracle
+    from repro_torch.core.solver import PermanentSolver, SolverConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ryser_cuda as RC
+    from repro_torch.serve import compile_stats
+    from repro_torch.tune.table import TuningTable
+    t0 = time.perf_counter()
+    out_dir = os.path.join(ROOT, "chiprun_out", "tune")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "table.json")
+    from repro_torch.launch.tune import tune_main
+    # two runs of the CLI, the bucket routes at the buckets' n and the
+    # campaign route at a campaign's, merged into one table
+    runs = ((",".join(r for r in TUNE_ROUTES if r != "campaign"), N_THRU),
+            ("campaign", N_TUNE_CAMPAIGN))
+    table, rows, rc = TuningTable(), [], 0
+    RC.reset_counters()
+    for k, (routes, n) in enumerate(runs):
+        part, part_report = (os.path.join(out_dir, f"{what}{k}.json")
+                             for what in ("table", "report"))
+        argv = ["--routes", routes, "--n", str(n), "--batch", str(B_THRU),
+                "--density", str(TUNE_DENSITY), "--top-k", str(TUNE_TOP_K),
+                "--repeats", str(TUNE_REPEATS), "--out", part, "--report",
+                part_report]
+        print(f"python -m repro_torch.launch.tune {' '.join(argv)}")
+        try:
+            rc = tune_main(argv)
+        except Exception as e:               # noqa: BLE001 -- a failed gate
+            rc = repr(e)
+        if rc != 0:
+            break
+        for e in TuningTable.load(part).entries.values():
+            table.put(e)
+        rows += json.load(open(part_report))["rows"]
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in RC.counters.items() if v}
+    cli_s = time.perf_counter() - t0
+    smoke.check(rc == 0, f"tune CLI on the card, routes "
+                         f"{','.join(TUNE_ROUTES)}: {rc} in {cli_s:.1f} s")
+    if rc != 0:
+        return {}
+    smoke.check(set(launches) == set(TUNE_ENTRIES),
+                f"the tune path launched #2, #4, #6 and the campaign wave "
+                f"body #1, and no plain version: {launches}")
+    table.save(path)
+    print(f"tune results on {card['nvidia_smi']} (dq_acc, CUDA events, "
+          f"median of {TUNE_REPEATS} after a warm-up):")
+    keys = {}
+    for route, (plan_route, dtype) in TUNE_ROUTES.items():
+        n = N_TUNE_CAMPAIGN if route == "campaign" else N_THRU
+        dens = TUNE_DENSITY if route == "sparse" else 1.0
+        e = table.get(plan_route, n, dens, dtype, "dq_acc")
+        mine = [r for r in rows if r["route"] == route]
+        keys[route] = {"key": e.key(), "winner": e.geometry.tag(),
+                       "default_ms": e.default_s * 1e3,
+                       "winner_ms": e.measured_s * 1e3,
+                       "speedup": e.speedup,
+                       "model_over_measured": e.mispredict_ratio,
+                       "measured": {r["geometry"]: r["measured_s"] * 1e3
+                                    for r in mine},
+                       "modeled": {r["geometry"]: r["modeled_s"] * 1e3
+                                   for r in mine}}
+        print(f"  tune {e.key()}: winner {e.geometry.tag()}, default "
+              f"{e.default_s * 1e3:.4f} ms, winner {e.measured_s * 1e3:.4f} "
+              f"ms, speedup {e.speedup:.4f}x, model/measured "
+              f"{e.mispredict_ratio:.3f}; candidates (ms) "
+              f"{keys[route]['measured']}")
+    smoke.check(all(k["winner_ms"] <= k["default_ms"] and
+                    "128x64x16" in k["measured"] for k in keys.values()),
+                "each key measured the default geometry and its winner is "
+                "no slower")
+    err, ok = {}, True
+    for r in rows:
+        ok &= _tune_window(torch, r["route"], r["n"], r["geometry"], err)
+    torch.cuda.synchronize()
+    smoke.check(ok, f"every measured candidate ({len(rows)}) equals its "
+                    f"plain version bit for bit on a window at its "
+                    f"geometry: max abs err {max(err.values()):g}")
+
+    # the table in the planner: the winners planned and launched
+    rng = np.random.default_rng(SEED + 31)
+    base = dict(cache=False, preprocess=False)
+    tuned = PermanentSolver(SolverConfig(tuning_table=path, **base))
+    plain = PermanentSolver(SolverConfig(**base))
+    vals, rel_default, rel_oracle, ok = {}, {}, {}, True
+    for route, (mats, exact) in _tune_buckets(rng, N_THRU).items():
+        winner = table.get(*TUNE_ROUTES[route][:1], N_THRU,
+                           TUNE_DENSITY if route == "sparse" else 1.0,
+                           TUNE_ROUTES[route][1], "dq_acc").geometry
+        plan = tuned.plan_batch(mats)
+        geoms = {l.geometry for l in plan.leaves}
+        RC.reset_counters()
+        got = np.asarray(tuned.execute(plan))
+        launched = {k: v for k, v in RC.counters.items() if v}
+        entry = {"dense": "ryser_dense_batched",
+                 "complex": "ryser_complex_batched",
+                 "sparse": "ryser_sparse_batched"}[route]
+        if route == "sparse":
+            from repro_torch.core.sparyser import (SparseMatrix,
+                                                   pack_padded_ccs)
+            direct = ops.sparse_batched_values_cuda(
+                *pack_padded_ccs([SparseMatrix.from_dense(A) for A in mats]),
+                geometry=winner)
+        else:
+            direct = ops.permanent_cuda_batched(np.stack(mats),
+                                                geometry=winner)
+        want = np.asarray(plain.execute(plain.plan_batch(mats)))
+        scale = np.asarray(plain.execute(plain.plan_batch(
+            [np.abs(A) for A in mats])))
+        rel_default[route] = float(np.max(np.abs(got - want) / scale))
+        rel_oracle[route] = max(abs(got[i] - v) / abs(v) for i, v in exact)
+        same = bool(np.array_equal(got, direct.cpu().numpy()))
+        ok &= (geoms == {winner} and launched == {entry: 1} and same
+               and rel_default[route] <= TUNE_GEOMETRY_BAR
+               and rel_oracle[route] <= ORACLE_BAR)
+        vals[route] = {"winner": winner.tag(), "launched": launched,
+                       "equal_direct_entry": same}
+        print(f"tuned plan {route} {B_THRU} x n={N_THRU}: leaf geometry "
+              f"{sorted(g.tag() for g in geoms)} (winner {winner.tag()}), "
+              f"launches {launched}, values == the entry's at the winner: "
+              f"{same}, gap to the default geometry's values over "
+              f"perm(|A|) {rel_default[route]:.3e}, rel to the closed forms "
+              f"{rel_oracle[route]:.3e}")
+    n = N_TUNE_CAMPAIGN
+    J = np.ones((n, n))
+    winner = table.get("step_sharded", n, 1.0, "<f8", "dq_acc").geometry
+    plan = tuned.plan(J)
+    spec = plan.leaves[0].campaign
+    RC.reset_counters()
+    got = tuned.execute(plan)
+    launched = {k: v for k, v in RC.counters.items() if v}
+    want = plain.execute(plain.plan(J))
+    exact = oracle.all_ones_permanent(n)
+    rel_default["campaign"] = abs(got - want) / abs(want)   # J = |J|
+    rel_oracle["campaign"] = abs(got - exact) / exact
+    ok &= (spec is not None and spec.geometry == winner
+           and set(launched) == {"ryser_dense_scalar"}
+           and rel_default["campaign"] <= TUNE_GEOMETRY_BAR
+           and rel_oracle["campaign"] <= ORACLE_BAR)
+    vals["campaign"] = {"winner": winner.tag(), "launched": launched}
+    print(f"tuned plan campaign ones({n}): CampaignSpec geometry "
+          f"{spec.geometry.tag() if spec and spec.geometry else None} "
+          f"(winner {winner.tag()}), launches {launched}, rel to the "
+          f"default geometry {rel_default['campaign']:.3e}, to n! "
+          f"{rel_oracle['campaign']:.3e}")
+    smoke.check(ok, f"a solver with the table plans and launches each "
+                    f"winner, values within {TUNE_GEOMETRY_BAR:g} perm(|A|) "
+                    f"of the default geometry's and rel {ORACLE_BAR:g} of "
+                    f"the closed forms: {rel_default}, {rel_oracle}")
+
+    stale = os.path.join(out_dir, "stale.json")
+    doc = json.load(open(path))
+    doc["kernels_hash"] = "0" * 16
+    json.dump(doc, open(stale, "w"))
+    refused = []
+    for load in (lambda: TuningTable.load(stale),
+                 lambda: PermanentSolver(SolverConfig(
+                     tuning_table=stale, **base)).plan(J[:N_THRU, :N_THRU])):
+        try:
+            load()
+            refused.append(False)
+        except ValueError:
+            refused.append(True)
+    smoke.check(all(refused), f"a table with an edited kernels hash is "
+                              f"refused (load, planner): {refused}")
+
+    # a service with the table: warm-up plans the winners, first bucket
+    from repro_torch.serve import quantized_batches
+    before = compile_stats()
+    plans, restore = _plans_recorded()
+    try:
+        svc = _service(SolverConfig(cache=False, tuning_table=path),
+                       warmup_ns=(N_THRU,), warmup_complex=True)
+        warm = {l.geometry for p in plans for l in p.leaves
+                if l.n == N_THRU and l.route == "dense"}
+        del plans[:]
+        mats = list(rng.uniform(-1, 1, (B_SERVE, N_THRU, N_THRU)))
+        tickets = [svc.submit(A) for A in mats]
+        svc.drain()
+        first = {l.geometry for p in plans for l in p.leaves}
+    finally:
+        restore()
+    values = np.array([t.value for t in tickets])
+    direct = ops.permanent_cuda_batched(np.stack(mats), geometry=table.get(
+        "dense", N_THRU, 1.0, "<f8", "dq_acc").geometry).cpu().numpy()
+    after = compile_stats()
+    winners = {table.get("dense", N_THRU, 1.0, dt, "dq_acc").geometry
+               for dt in ("<f8", "<c16")}
+    misses = after["persistent_misses"] - before["persistent_misses"]
+    ok = warm == winners and first <= winners and misses == 0 and \
+        np.array_equal(values, direct)
+    smoke.check(ok, f"a service with the table warms the tuned geometries "
+                    f"({sorted(g.tag() for g in warm)}, ladder "
+                    f"{quantized_batches(B_SERVE)}) and serves a first "
+                    f"bucket at them ({sorted(g.tag() for g in first)}) with "
+                    f"no library miss ({misses}), values equal to the entry's "
+                    f"at the winner")
+    out = {"cli_s": cli_s, "launches": launches, "keys": keys, "rows": rows,
+           "window_err": err,
+           "plans": vals, "rel_default": rel_default,
+           "rel_oracle": rel_oracle, "stale_refused": refused,
+           "seconds": time.perf_counter() - t0}
+    print(f"tune phase: {out['seconds']:.1f} s (CLI {cli_s:.1f} s)")
+    smoke.summary["tune"] = out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2681,7 +3129,7 @@ def phase_serve(smoke: Smoke, torch) -> None:
 
 
 def time_only(smoke: Smoke, torch, card: dict) -> int:
-    """``--time-only``: after the build, only the timing rounds of the eight
+    """``--time-only``: after the build, only the timing rounds of the timed
     entries (no plain pass, no value check, no result line), for comparing
     versions of a kernel source on one card in one call."""
     entries = _timed_entries(torch, card)
@@ -2719,6 +3167,10 @@ def main() -> int:
         phase_serve(smoke, torch)
         print(f"chip_smoke --serve-only: failures {smoke.failures}")
         return 1 if smoke.failures else 0
+    if "--tune-only" in sys.argv[1:]:
+        phase_tune(smoke, torch, card)
+        print(f"chip_smoke --tune-only: failures {smoke.failures}")
+        return 1 if smoke.failures else 0
     window_err = {**phase_kernel_vs_plain(smoke, torch),
                   **phase_kernel_vs_plain_complex(smoke, torch)}
     parity_err, parity_launches = phase_entry_parity(smoke, torch)
@@ -2742,8 +3194,10 @@ def main() -> int:
     smoke.summary["dense_at_sparse_shape"] = _dense_at_sparse_shape(
         smoke, torch, msp, mspc)
     campaign_launches = phase_campaign(smoke, torch, card)
+    tune_launches = phase_tune(smoke, torch, card).get("launches", {})
     for row in rows:
-        row["launches"] += campaign_launches.get(row["name"], 0)
+        row["launches"] += campaign_launches.get(row["name"], 0) + \
+            tune_launches.get(row["name"], 0)
     phase_serve(smoke, torch)
     smoke.summary.update(card=card, kernels=rows,
                          seconds=time.perf_counter() - t_start,

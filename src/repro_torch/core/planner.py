@@ -83,9 +83,10 @@ class SolverConfig:
     # torch engine and the kernels' plain versions on the host.
     device: str | None = None
     # CUDA kernel geometry (None = kernel defaults): ``geometry`` pins one
-    # explicit Geometry for every kernel leaf.  ``tuning_table`` is not
-    # ported yet: setting it raises.  The *resolved* per-leaf geometry is
-    # part of numeric identity (fingerprints, cache keys).
+    # explicit Geometry for every kernel leaf; ``tuning_table`` names a
+    # ``repro_torch.tune`` table resolved per leaf (config geometry > table
+    # hit > defaults).  The *resolved* per-leaf geometry is part of numeric
+    # identity (fingerprints, cache keys).
     geometry: Geometry | None = None
     tuning_table: str | None = None
     # Step-space campaign routing: a single leaf whose Ryser-step estimate
@@ -376,6 +377,30 @@ def _route(m: np.ndarray, batched: bool) -> str:
 _KERNEL_FLOOR_N = 4
 
 
+def _resolve_geometry(config: SolverConfig, route: str, n: int,
+                      density: float, dtype_str: str,
+                      precision: str) -> Geometry | None:
+    """config override > tuning-table hit > None (kernel defaults).
+
+    The table import is lazy and only happens when a table is configured:
+    the default planning path stays file-I/O-free.  The table's device
+    kind is the plan's device's (``host_device_kind(config.device)``).
+    """
+    if config.geometry is not None:
+        return config.geometry
+    if config.tuning_table is None:
+        return None
+    from ..tune.table import host_device_kind, resolve_geometry
+    kind = host_device_kind(config.device)
+    g = resolve_geometry(config.tuning_table, route, n, density,
+                         dtype_str, precision, kind)
+    if g is None and route == ROUTE_CAMPAIGN:
+        # campaign wave bodies fall back to the dense-route entry
+        g = resolve_geometry(config.tuning_table, ROUTE_DENSE, n, density,
+                             dtype_str, precision, kind)
+    return g
+
+
 def _leaf_cost(m: np.ndarray, route: str) -> float:
     n = m.shape[0]
     if route == ROUTE_INLINE or n <= 2:
@@ -395,10 +420,6 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
     is the bucketed dispatcher shape (n <= 2 leaves fold inline, same-size
     same-route leaves share a bucket).
     """
-    if config.tuning_table is not None:
-        raise NotImplementedError(
-            "tuning tables are not ported yet (ROADMAP.md, modules queue: "
-            "'Tuning')")
     mats = [np.asarray(M) for M in mats]
     for M in mats:
         if M.ndim != 2 or M.shape[0] != M.shape[1]:
@@ -445,8 +466,10 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
                     total_slices=ts, chunks_per_slice=cps, chunk_size=C,
                     precision=precision,
                     backend=cbackend,
-                    geometry=config.geometry if cbackend == "cuda"
-                    else None)
+                    geometry=_resolve_geometry(
+                        config, ROUTE_CAMPAIGN, leaf.n,
+                        _density_of(leaf.matrix), leaf.matrix.dtype.str,
+                        precision) if cbackend == "cuda" else None)
                 leaf.geometry = None   # identity lives on the CampaignSpec
 
     # Kernel geometry resolution: only leaves a CUDA kernel will actually
@@ -456,7 +479,9 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
         for leaf in leaves:
             if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
                     leaf.n >= _KERNEL_FLOOR_N:
-                leaf.geometry = config.geometry
+                leaf.geometry = _resolve_geometry(
+                    config, leaf.route, leaf.n, _density_of(leaf.matrix),
+                    leaf.matrix.dtype.str, precision)
 
     buckets: dict[tuple[str, int], list[int]] = {}
     for j, leaf in enumerate(leaves):

@@ -355,27 +355,30 @@ def sparse_batched_values_complex(Ar_stack, Ai_stack, rows_stack,
 def sparse_values(A_stack, rows_stack, vals_stack, num_chunks: int = 4096,
                   precision: str = "dq_acc", *, device="cuda") -> torch.Tensor:
     """(B,) permanents of a packed same-size stack, the dense forms and
-    their padded CCS arrays (``pack_padded_ccs`` or ``padded_ccs``): f64 on
-    ``device``, complex128 for complex input."""
+    their padded CCS arrays (``pack_padded_ccs`` or ``padded_ccs``) on
+    ``device``: f32 or complex64 for values of those dtypes (the
+    reference's dtype follows its input), else f64 or complex128."""
     device = resolve_device(device)
     A_np, rows_np, vals_np = (np.asarray(a) for a in (A_stack, rows_stack,
                                                       vals_stack))
     n = A_np.shape[-1]
     cplx = np.iscomplexobj(vals_np)
+    single = vals_np.dtype in (np.float32, np.complex64)
+    real_dt = np.float32 if single else np.float64
     if n <= 2:
         return _small_n(torch.as_tensor(
-            A_np.astype(np.complex128 if cplx else np.float64),
+            A_np.astype(np.result_type(real_dt, vals_np.dtype)),
             device=device))
     T, C, _ = chunk_geometry(n, num_chunks)
     rows = torch.as_tensor(rows_np, dtype=torch.int64, device=device)
-    as_f64 = lambda a: torch.as_tensor(  # noqa: E731
-        np.ascontiguousarray(a, dtype=np.float64), device=device)
+    as_real = lambda a: torch.as_tensor(  # noqa: E731
+        np.ascontiguousarray(a, dtype=real_dt), device=device)
     if cplx:
         vr, vi = sparse_batched_values_complex(
-            as_f64(A_np.real), as_f64(A_np.imag), rows, as_f64(vals_np.real),
-            as_f64(vals_np.imag), T, C, precision)
+            as_real(A_np.real), as_real(A_np.imag), rows,
+            as_real(vals_np.real), as_real(vals_np.imag), T, C, precision)
         return torch.complex(vr, vi)
-    return sparse_batched_values(as_f64(A_np), rows, as_f64(vals_np), T, C,
+    return sparse_batched_values(as_real(A_np), rows, as_real(vals_np), T, C,
                                  precision)
 
 
@@ -383,7 +386,7 @@ def perm_sparyser_batched(sps: list[SparseMatrix], num_chunks: int = 4096,
                           precision: str = "dq_acc", *,
                           device="cuda") -> torch.Tensor:
     """Permanents of a bucket of same-size sparse matrices in one pass: a
-    (B,) f64 tensor on ``device``, complex128 for complex input.  Columns
+    (B,) tensor on ``device`` in the dtype ``sparse_values`` gives.  Columns
     are padded to the bucket-wide max degree (inert, see
     ``pack_padded_ccs``)."""
     return sparse_values(*pack_padded_ccs(sps), num_chunks, precision,
@@ -393,8 +396,8 @@ def perm_sparyser_batched(sps: list[SparseMatrix], num_chunks: int = 4096,
 def perm_sparyser_chunked(sp: SparseMatrix, num_chunks: int = 4096,
                           precision: str = "dq_acc", *,
                           device="cuda") -> torch.Tensor:
-    """perm of one sparse matrix by chunked SpaRyser: a 0-d f64 tensor
-    (complex128 for complex input).  Runs as a one-matrix bucket, so it
+    """perm of one sparse matrix by chunked SpaRyser: a 0-d tensor in the
+    dtype ``sparse_values`` gives.  Runs as a one-matrix bucket, so it
     equals the same matrix's entry of ``perm_sparyser_batched`` bit for
     bit."""
     return perm_sparyser_batched([sp], num_chunks, precision,

@@ -2,7 +2,7 @@
 // entries' step-space guard, fma_rn (the correctly rounded fused op of the
 // scalar type) and _accum_add (kernels/ryser_pallas.py), one product term
 // into a lane's (s, c) accumulator, in the scalar type T of the body (f64,
-// or f32 for the real dense entries' f32 input).  Included by
+// or f32 for the _f32 entries).  Included by
 // ryser_kernels.cuh, the block bodies every source instantiates, which also
 // holds the row products.
 #pragma once

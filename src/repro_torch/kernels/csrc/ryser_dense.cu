@@ -78,11 +78,11 @@ int launch(const T* A, const T* xb, const T* c0, T* out, uint64_t base, int n,
   if (mode == M_SCHEDMAT)
     return launch_kernel(ryser_kernel<NPAD, P, false, T, true>, smem,
                          num_blocks, B, TB, stream, A, (const int*)nullptr,
-                         (const double*)nullptr, xb, c0, out, base, n, 0,
+                         (const T*)nullptr, xb, c0, out, base, n, 0,
                          C_log2, Wu_log2, num_blocks, mode);
   return launch_kernel(ryser_kernel<NPAD, P, false, T>, smem, num_blocks, B,
                        TB, stream, A, (const int*)nullptr,
-                       (const double*)nullptr, xb, c0, out, base, n, 0,
+                       (const T*)nullptr, xb, c0, out, base, n, 0,
                        C_log2, Wu_log2, num_blocks, mode);
 }
 

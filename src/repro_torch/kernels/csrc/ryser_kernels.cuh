@@ -1,8 +1,10 @@
 // The two Gray-code Ryser block bodies every kernel source instantiates:
-// ryser_kernel (real, f64, or f32 in the dense entries) and ryser_cx_kernel
-// (split-plane complex f64).  ryser_dense.cu and ryser_complex.cu
-// instantiate them with SPARSE = false, ryser_sparse.cu with SPARSE = true;
-// ryser_dense.cu also instantiates the real body's schedmat mode (SCHED).
+// ryser_kernel (real) and ryser_cx_kernel (split-plane complex), each in
+// f64 and in f32 (the _f32 entries: f32 and complex64 input, whose dtype
+// the reference keeps through kernel, partials and epilogue).  ryser_dense.cu
+// and ryser_complex.cu instantiate them with SPARSE = false, ryser_sparse.cu
+// with SPARSE = true; ryser_dense.cu also instantiates the real body's
+// schedmat mode (SCHED).
 //
 // SPARSE says where the kw = log2(Wu) low columns come from, the columns the
 // window states D = low @ cumsig[:kw] and the mid correction read:
@@ -89,9 +91,10 @@ enum Mode { M_BASELINE = 0, M_BATCHED = 1, M_SCHEDMAT = 2 };
 // j < kw, no atomics.  Padded entries carry row n: with n < npad they add 0
 // to a padded row, which stays 0; with n == npad they lie past U and are
 // skipped.
+template <typename T>
 __device__ __forceinline__ void scatter_low_columns(
-    double* Us, const int* rows, const double* vals, int kw, int maxdeg,
-    int npad, int lane, int TB) {
+    T* Us, const int* rows, const T* vals, int kw, int maxdeg, int npad,
+    int lane, int TB) {
   for (int j = lane; j < kw; j += TB) {
     for (int d = 0; d < maxdeg; ++d) {
       const int r = rows[j * maxdeg + d];
@@ -417,40 +420,37 @@ __device__ __forceinline__ void sched_windows(
 // The sparse body's CTA-uniform switch on R, the rows its low columns
 // touch: the window loop compiled for RPAD, the least multiple of 8 >= R,
 // found by a chain of uniform branches from RPAD = 8 up.
-template <int NPAD, int P, int RPAD>
+template <typename T, int NPAD, int P, int RPAD>
 __device__ __forceinline__ void sparse_windows(
-    int R, double (&X)[NPAD], const double* As, const double* Ds,
-    const double* col_mid, uint64_t start, int M, int Wu_log2, int n,
-    double& s_acc, double& c_acc) {
+    int R, T (&X)[NPAD], const T* As, const T* Ds, const T* col_mid,
+    uint64_t start, int M, int Wu_log2, int n, T& s_acc, T& c_acc) {
   if constexpr (RPAD >= NPAD) {
-    real_windows<double, NPAD, P, true, NPAD>(X, As, Ds, col_mid, start, M,
-                                              Wu_log2, n, true, s_acc, c_acc);
+    real_windows<T, NPAD, P, true, NPAD>(X, As, Ds, col_mid, start, M,
+                                         Wu_log2, n, true, s_acc, c_acc);
   } else {
     if (R <= RPAD)
-      real_windows<double, NPAD, P, true, RPAD>(X, As, Ds, col_mid, start, M,
-                                                Wu_log2, n, true, s_acc,
-                                                c_acc);
+      real_windows<T, NPAD, P, true, RPAD>(X, As, Ds, col_mid, start, M,
+                                           Wu_log2, n, true, s_acc, c_acc);
     else
-      sparse_windows<NPAD, P, RPAD + 8>(R, X, As, Ds, col_mid, start, M,
-                                        Wu_log2, n, s_acc, c_acc);
+      sparse_windows<T, NPAD, P, RPAD + 8>(R, X, As, Ds, col_mid, start, M,
+                                           Wu_log2, n, s_acc, c_acc);
   }
 }
 
 // The real block body.  T is the scalar type: double, or float for the
-// real dense entries' f32 input (the reference's dtype follows its input);
-// the sparse instantiations are double.  SCHED instantiates the schedmat
+// f32 input of the dense and sparse entries (the reference's dtype follows
+// its input).  SCHED instantiates the schedmat
 // mode (the scalar dense entry only), whose window loop is its own, so the
 // other instantiations keep their code; mode picks baseline or batched.
 template <int NPAD, int P, bool SPARSE, typename T = double,
           bool SCHED = false>
 __global__ void __launch_bounds__(kMaxThreads)
 ryser_kernel(const T* __restrict__ A, const int* __restrict__ rows,
-             const double* __restrict__ vals, const T* __restrict__ xb,
+             const T* __restrict__ vals, const T* __restrict__ xb,
              const T* __restrict__ c0, T* __restrict__ out,
              uint64_t chunk_base, int n, int maxdeg, int C_log2, int Wu_log2,
              int num_blocks, int mode) {
-  static_assert(!SPARSE || (std::is_same_v<T, double> && !SCHED),
-                "the sparse body is f64, batched mode only");
+  static_assert(!SPARSE || !SCHED, "the sparse body is batched mode only");
   extern __shared__ double smem[];
   const int TB = blockDim.x;
   const int lane = threadIdx.x;
@@ -477,7 +477,7 @@ ryser_kernel(const T* __restrict__ A, const int* __restrict__ rows,
   }
   if constexpr (SPARSE) {
     const int* rb = rows + (size_t)b * n * maxdeg;
-    for (int t = lane; t < NPAD * kw; t += TB) Us[t] = 0.0;
+    for (int t = lane; t < NPAD * kw; t += TB) Us[t] = T(0);
     __syncthreads();
     scatter_low_columns(Us, rb, vals + (size_t)b * n * maxdeg, kw, maxdeg,
                         NPAD, lane, TB);
@@ -519,12 +519,12 @@ ryser_kernel(const T* __restrict__ A, const int* __restrict__ rows,
     int R = 0;                  // every thread, the same fixed order
     for (int j = 0; j < kw; ++j) R = max(R, Rs[j]);
     if constexpr (NPAD <= 32)
-      sparse_windows<NPAD, P, 8>(R, X, As, Ds, col_mid, start, M, Wu_log2, n,
-                                 s_acc, c_acc);
+      sparse_windows<T, NPAD, P, 8>(R, X, As, Ds, col_mid, start, M, Wu_log2,
+                                    n, s_acc, c_acc);
     else
       for (uint64_t macro = start; macro < stop; macro += (uint64_t)Wu)
-        sparse_windows<NPAD, P, 8>(R, X, As, Ds, col_mid, macro, M, Wu_log2,
-                                   n, s_acc, c_acc);
+        sparse_windows<T, NPAD, P, 8>(R, X, As, Ds, col_mid, macro, M,
+                                      Wu_log2, n, s_acc, c_acc);
   } else if constexpr (SCHED) {
     if constexpr (NPAD <= 32)
       sched_windows<T, NPAD, P>(X, As, Ds, col_mid, start, M, Wu_log2, n,
@@ -578,11 +578,10 @@ enum CxState { CX_WINDOW = 0, CX_WINDOW_CORR = 1, CX_X = 2 };
 // 1 + 0i, which could flip the sign of a zero.  With ROW_BRANCHES each row
 // sits behind its own i < n branch, which keeps every row's loads and
 // states in place: fewer registers, no overlap.
-template <int NPAD, int STATE, int LIVE_FROM, bool ROW_BRANCHES>
+template <typename T, int NPAD, int STATE, int LIVE_FROM, bool ROW_BRANCHES>
 __device__ __forceinline__ void cx_chain(
-    const double (&Xr)[NPAD], const double (&Xi)[NPAD], const double* Dr,
-    const double* Di, const double* cmr, const double* cmi, double cm, int n,
-    double& pr, double& pi) {
+    const T (&Xr)[NPAD], const T (&Xi)[NPAD], const T* Dr, const T* Di,
+    const T* cmr, const T* cmi, T cm, int n, T& pr, T& pi) {
   if constexpr (NPAD == 8) {
     // keeps the step's loads after the previous step's accumulation: with
     // them hoisted, ptxas fits the sparse instantiation into 128 registers
@@ -592,22 +591,22 @@ __device__ __forceinline__ void cx_chain(
 #pragma unroll
   for (int i = 0; i < NPAD; ++i) {
     if (ROW_BRANCHES && i >= n) continue;
-    double xr = Xr[i], xi = Xi[i];
+    T xr = Xr[i], xi = Xi[i];
     if (STATE != CX_X) {
       xr = xr + Dr[i];
       xi = xi + Di[i];
     }
     if (STATE == CX_WINDOW_CORR) {
-      xr = __fma_rn(cmr[i], cm, xr);  // exact: cm is 0 or -2
-      xi = __fma_rn(cmi[i], cm, xi);
+      xr = fma_rn(cmr[i], cm, xr);  // exact: cm is 0 or -2
+      xi = fma_rn(cmi[i], cm, xi);
     }
     if (i == 0) {
       pr = xr;
       pi = xi;
       continue;
     }
-    const double r = pr * xr - pi * xi;
-    const double q = pr * xi + pi * xr;
+    const T r = pr * xr - pi * xi;
+    const T q = pr * xi + pi * xr;
     const bool live = ROW_BRANCHES || i < LIVE_FROM || i < n;
     pr = live ? r : pr;
     pi = live ? q : pi;
@@ -618,35 +617,38 @@ __device__ __forceinline__ void cx_chain(
 // branch-free, those below NPAD - 8 unconditional when n > NPAD - 8 (n_pad
 // the least multiple of 8 >= n, as every caller pads).  Above NPAD 32
 // (campaign sizes, where X alone takes 4 NPAD registers and rows run ahead
-// would spill) each row keeps its branch.
-template <int NPAD, int STATE>
+// would spill) each row keeps its branch -- in f64.  f32 planes take half
+// the registers, so their rows run branch-free up to NPAD 48: with a
+// branch a row, ptxas fits the f32 NPAD 40 instantiations into 128
+// registers and spills 12-48 B; branch-free they take 134-144 and none.
+template <typename T, int NPAD, int STATE>
 __device__ __forceinline__ void cx_chain_rows(
-    const double (&Xr)[NPAD], const double (&Xi)[NPAD], const double* Dr,
-    const double* Di, const double* cmr, const double* cmi, double cm, int n,
-    double& pr, double& pi) {
-  if constexpr (NPAD > 32)
-    cx_chain<NPAD, STATE, 0, true>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr, pi);
+    const T (&Xr)[NPAD], const T (&Xi)[NPAD], const T* Dr, const T* Di,
+    const T* cmr, const T* cmi, T cm, int n, T& pr, T& pi) {
+  if constexpr (NPAD > (sizeof(T) == 8 ? 32 : 48))
+    cx_chain<T, NPAD, STATE, 0, true>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr,
+                                      pi);
   else if (n > NPAD - 8)
-    cx_chain<NPAD, STATE, NPAD - 8, false>(Xr, Xi, Dr, Di, cmr, cmi, cm, n,
-                                           pr, pi);
+    cx_chain<T, NPAD, STATE, NPAD - 8, false>(Xr, Xi, Dr, Di, cmr, cmi, cm, n,
+                                              pr, pi);
   else
-    cx_chain<NPAD, STATE, 0, false>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr, pi);
+    cx_chain<T, NPAD, STATE, 0, false>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr,
+                                       pi);
 }
 
 // The split-plane body runs the window-batched mode only, as the Pallas
 // complex kernels do.  An inner step streams the product row by row from
 // Xr[i] + Dr[i][idx] (+ cm_r[i] * corr), never materialising the state.
-template <int NPAD, int P, bool SPARSE>
+// T is the planes' scalar type: double, or float for complex64 input (the
+// reference keeps f32 planes for it).
+template <int NPAD, int P, bool SPARSE, typename T = double>
 __global__ void __launch_bounds__(kMaxThreads)
-ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
-                const int* __restrict__ rows,
-                const double* __restrict__ vals_r,
-                const double* __restrict__ vals_i,
-                const double* __restrict__ xbr,
-                const double* __restrict__ xbi,
-                const double* __restrict__ c0, double* __restrict__ out,
-                uint64_t chunk_base, int n, int maxdeg, int C_log2,
-                int Wu_log2, int num_blocks) {
+ryser_cx_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
+                const int* __restrict__ rows, const T* __restrict__ vals_r,
+                const T* __restrict__ vals_i, const T* __restrict__ xbr,
+                const T* __restrict__ xbi, const T* __restrict__ c0,
+                T* __restrict__ out, uint64_t chunk_base, int n, int maxdeg,
+                int C_log2, int Wu_log2, int num_blocks) {
   extern __shared__ double smem[];
   const int TB = blockDim.x;
   const int lane = threadIdx.x;
@@ -657,24 +659,24 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   const Count M = Count(1) << (C_log2 - Wu_log2);
   const uint64_t space = 1ull << (n - 1);
 
-  double* Ars = smem;                                  // NPAD * NPAD
-  double* Ais = Ars + NPAD * NPAD;                     // NPAD * NPAD
-  double* Urs = Ais + NPAD * NPAD;                     // NPAD * kw if SPARSE
-  double* Uis = Urs + (SPARSE ? NPAD * kw : 0);        // NPAD * kw if SPARSE
-  double* Drs = Uis + (SPARSE ? NPAD * kw : 0);        // NPAD * (Wu - 1)
-  double* Dis = Drs + NPAD * (Wu - 1);                 // NPAD * (Wu - 1)
-  double* red = Dis + NPAD * (Wu - 1);                 // 4 * TB
-  const double* low_r = SPARSE ? Urs : Ars;            // the kw low columns
-  const double* low_i = SPARSE ? Uis : Ais;
+  T* Ars = reinterpret_cast<T*>(smem);                 // NPAD * NPAD
+  T* Ais = Ars + NPAD * NPAD;                          // NPAD * NPAD
+  T* Urs = Ais + NPAD * NPAD;                          // NPAD * kw if SPARSE
+  T* Uis = Urs + (SPARSE ? NPAD * kw : 0);             // NPAD * kw if SPARSE
+  T* Drs = Uis + (SPARSE ? NPAD * kw : 0);             // NPAD * (Wu - 1)
+  T* Dis = Drs + NPAD * (Wu - 1);                      // NPAD * (Wu - 1)
+  T* red = Dis + NPAD * (Wu - 1);                      // 4 * TB
+  const T* low_r = SPARSE ? Urs : Ars;                 // the kw low columns
+  const T* low_i = SPARSE ? Uis : Ais;
 
   const int b = blockIdx.y;
-  const double* Arb = Ar + (size_t)b * NPAD * NPAD;
-  const double* Aib = Ai + (size_t)b * NPAD * NPAD;
+  const T* Arb = Ar + (size_t)b * NPAD * NPAD;
+  const T* Aib = Ai + (size_t)b * NPAD * NPAD;
   const int* rb = rows + (size_t)b * n * maxdeg;       // maxdeg 0 if dense
-  const double* vrb = vals_r + (size_t)b * n * maxdeg;
-  const double* vib = vals_i + (size_t)b * n * maxdeg;
-  const double* xbrb = xbr + (size_t)b * NPAD;
-  const double* xbib = xbi + (size_t)b * NPAD;
+  const T* vrb = vals_r + (size_t)b * n * maxdeg;
+  const T* vib = vals_i + (size_t)b * n * maxdeg;
+  const T* xbrb = xbr + (size_t)b * NPAD;
+  const T* xbib = xbi + (size_t)b * NPAD;
   for (int t = lane; t < NPAD * NPAD; t += TB) {
     const int i = t / NPAD, j = t % NPAD;
     Ars[j * NPAD + i] = Arb[t];
@@ -682,8 +684,8 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   }
   if constexpr (SPARSE) {
     for (int t = lane; t < NPAD * kw; t += TB) {
-      Urs[t] = 0.0;
-      Uis[t] = 0.0;
+      Urs[t] = T(0);
+      Uis[t] = T(0);
     }
     __syncthreads();
     scatter_low_columns(Urs, rb, vrb, kw, maxdeg, NPAD, lane, TB);
@@ -694,16 +696,16 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   // pass per plane: with the dense instantiation's fused pass ptxas spills
   // it at NPAD 8 (dq_fast) and NPAD 48.
   if constexpr (SPARSE) {
-    window_states<double, NPAD>(Drs, low_r, c0, kw, Wu, lane, TB);
-    window_states<double, NPAD>(Dis, low_i, c0, kw, Wu, lane, TB);
+    window_states<T, NPAD>(Drs, low_r, c0, kw, Wu, lane, TB);
+    window_states<T, NPAD>(Dis, low_i, c0, kw, Wu, lane, TB);
   } else {
     for (int t = lane; t < NPAD * (Wu - 1); t += TB) {
       const int idx = t / NPAD, i = t % NPAD;
-      double dr = 0.0, di = 0.0;
+      T dr = 0, di = 0;
       for (int k = 0; k < kw; ++k) {
-        const double c = c0[k * (Wu - 1) + idx];
-        dr = __fma_rn(low_r[k * NPAD + i], c, dr);
-        di = __fma_rn(low_i[k * NPAD + i], c, di);
+        const T c = c0[k * (Wu - 1) + idx];
+        dr = fma_rn(low_r[k * NPAD + i], c, dr);
+        di = fma_rn(low_i[k * NPAD + i], c, di);
       }
       Drs[idx * NPAD + i] = dr;
       Dis[idx * NPAD + i] = di;
@@ -715,73 +717,73 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   const uint64_t chunk = chunk_base + (uint64_t)blockIdx.x * TB + lane;
   const uint64_t start = chunk << C_log2;
   const uint64_t gs = start ^ (start >> 1);
-  double Xr[NPAD], Xi[NPAD];
+  T Xr[NPAD], Xi[NPAD];
 #pragma unroll
   for (int i = 0; i < NPAD; ++i) {
     Xr[i] = xbrb[i];
     Xi[i] = xbib[i];
   }
   for (int j = 0; j < n; ++j) {
-    const double bit = (double)((gs >> j) & 1ull);
-    const double* cr = Ars + j * NPAD;
-    const double* ci = Ais + j * NPAD;
+    const T bit = (T)((gs >> j) & 1ull);
+    const T* cr = Ars + j * NPAD;
+    const T* ci = Ais + j * NPAD;
 #pragma unroll
     for (int i = 0; i < NPAD; ++i) {
-      Xr[i] = __fma_rn(cr[i], bit, Xr[i]);  // exact: bit is 0 or 1
-      Xi[i] = __fma_rn(ci[i], bit, Xi[i]);
+      Xr[i] = fma_rn(cr[i], bit, Xr[i]);  // exact: bit is 0 or 1
+      Xi[i] = fma_rn(ci[i], bit, Xi[i]);
     }
   }
 
-  const double* cmr = low_r + (kw - 1) * NPAD;
-  const double* cmi = low_i + (kw - 1) * NPAD;
+  const T* cmr = low_r + (kw - 1) * NPAD;
+  const T* cmi = low_i + (kw - 1) * NPAD;
   const int mid_idx = Wu / 2 - 1;
-  double sr = 0.0, cr_acc = 0.0, si = 0.0, ci_acc = 0.0;
+  T sr = 0, cr_acc = 0, si = 0, ci_acc = 0;
   for (Count m = 0; m < M; ++m) {
     const uint64_t macro = start + ((uint64_t)m << Wu_log2);
     // states (X + D[:, idx]) + corr, corr = cm_col * (-2 * bitk) from the mid
     // step on; X itself is advanced once per window
-    const double cm = -2.0 * (double)((macro >> kw) & 1ull);
+    const T cm = T(-2) * (T)((macro >> kw) & 1ull);
     for (int idx = 0; idx < Wu - 1; ++idx) {
-      const double* Dr = Drs + idx * NPAD;
-      const double* Di = Dis + idx * NPAD;
-      double pr, pi;
+      const T* Dr = Drs + idx * NPAD;
+      const T* Di = Dis + idx * NPAD;
+      T pr, pi;
       if (idx >= mid_idx)
-        cx_chain_rows<NPAD, CX_WINDOW_CORR>(Xr, Xi, Dr, Di, cmr, cmi, cm, n,
-                                            pr, pi);
+        cx_chain_rows<T, NPAD, CX_WINDOW_CORR>(Xr, Xi, Dr, Di, cmr, cmi, cm,
+                                               n, pr, pi);
       else
-        cx_chain_rows<NPAD, CX_WINDOW>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr,
-                                       pi);
+        cx_chain_rows<T, NPAD, CX_WINDOW>(Xr, Xi, Dr, Di, cmr, cmi, cm, n, pr,
+                                          pi);
       const bool neg = ((idx + 1) & 1) != 0;
       accum_add<P>(sr, cr_acc, neg ? -pr : pr);
       accum_add<P>(si, ci_acc, neg ? -pi : pi);
     }
-    const double* Drl = Drs + (Wu - 2) * NPAD;
-    const double* Dil = Dis + (Wu - 2) * NPAD;
+    const T* Drl = Drs + (Wu - 2) * NPAD;
+    const T* Dil = Dis + (Wu - 2) * NPAD;
 #pragma unroll
     for (int i = 0; i < NPAD; ++i) {
       Xr[i] = Xr[i] + Drl[i];
-      Xr[i] = __fma_rn(cmr[i], cm, Xr[i]);
+      Xr[i] = fma_rn(cmr[i], cm, Xr[i]);
       Xi[i] = Xi[i] + Dil[i];
-      Xi[i] = __fma_rn(cmi[i], cm, Xi[i]);
+      Xi[i] = fma_rn(cmi[i], cm, Xi[i]);
     }
 
     // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
     const uint64_t gb = macro + (uint64_t)Wu;
     const int jb = __ffsll((long long)gb) - 1;
     const uint64_t ggb = gb ^ (gb >> 1);
-    const double sb = (double)(2 * (int)((ggb >> jb) & 1ull) - 1);
-    const double live = (gb <= space - 1) ? 1.0 : 0.0;
-    const double f = sb * live;
-    const double* cbr = Ars + jb * NPAD;  // jb <= n - 1 < NPAD
-    const double* cbi = Ais + jb * NPAD;
+    const T sb = (T)(2 * (int)((ggb >> jb) & 1ull) - 1);
+    const T live = (gb <= space - 1) ? T(1) : T(0);
+    const T f = sb * live;
+    const T* cbr = Ars + jb * NPAD;  // jb <= n - 1 < NPAD
+    const T* cbi = Ais + jb * NPAD;
 #pragma unroll
     for (int i = 0; i < NPAD; ++i) {
-      Xr[i] = __fma_rn(cbr[i], f, Xr[i]);  // exact: f is 0 or +-1
-      Xi[i] = __fma_rn(cbi[i], f, Xi[i]);
+      Xr[i] = fma_rn(cbr[i], f, Xr[i]);  // exact: f is 0 or +-1
+      Xi[i] = fma_rn(cbi[i], f, Xi[i]);
     }
-    double pr, pi;
-    cx_chain_rows<NPAD, CX_X>(Xr, Xi, nullptr, nullptr, nullptr, nullptr, 0.0,
-                              n, pr, pi);
+    T pr, pi;
+    cx_chain_rows<T, NPAD, CX_X>(Xr, Xi, nullptr, nullptr, nullptr, nullptr,
+                                 T(0), n, pr, pi);
     accum_add<P>(sr, cr_acc, pr * live);
     accum_add<P>(si, ci_acc, pi * live);
   }
@@ -789,9 +791,9 @@ ryser_cx_kernel(const double* __restrict__ Ar, const double* __restrict__ Ai,
   // ---- fixed-order lane tree over the four sums (no atomics) ----
   const bool two_limb = (P == P_DQ_ACC || P == P_DQ_FAST);
   red[lane] = sr;
-  red[TB + lane] = two_limb ? cr_acc : 0.0;
+  red[TB + lane] = two_limb ? cr_acc : T(0);
   red[2 * TB + lane] = si;
-  red[3 * TB + lane] = two_limb ? ci_acc : 0.0;
+  red[3 * TB + lane] = two_limb ? ci_acc : T(0);
   __syncthreads();
   for (int stride = TB / 2; stride > 0; stride >>= 1) {
     if (lane < stride) {

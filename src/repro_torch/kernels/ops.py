@@ -35,11 +35,11 @@ base (real: ``batched`` mode, complex: the split-plane kernel), or from
 the torch engine's chunk partials at the same offset.
 
 ``device=None`` means the card.  On a CPU tensor the kernel wrappers run
-their plain PyTorch versions instead.  Real dense input keeps its dtype,
-f64 or f32, through kernel, partials and ``kernel_reduce`` (the f32
-entries of ``ryser_dense.cu``), as the reference's follows its input;
-other real input is taken as f64, complex input as complex128 and sparse
-input as f64 or complex128.  A campaign's wave body runs in f64.
+their plain PyTorch versions instead.  f32 and complex64 input, dense and
+sparse, keep their dtype through kernel, partials and ``kernel_reduce``
+(the ``_f32`` entries), as the reference's follows its input; other real
+input is taken as f64, other complex input as complex128.  A campaign's
+wave body runs in f64.
 """
 
 from __future__ import annotations
@@ -50,8 +50,8 @@ import numpy as np
 import torch
 
 from ..core import precision as P
-from ..core.ryser import (_final_factor, _small_n, as_matrix, as_planes,
-                          chain_prod, chain_prod_complex,
+from ..core.ryser import (_final_factor, _small_n, chain_prod,
+                          chain_prod_complex,
                           chunk_partial_sums, chunk_partial_sums_complex,
                           is_complex, nw_base_vector, resolve_device)
 from ..core.sparyser import pack_padded_ccs
@@ -223,19 +223,31 @@ def prepare_sparse(As, rows, vals, Wu: int):
     return A_pads, rows, vals, xb_pads, xbs
 
 
-def _is_f32(A) -> bool:
-    return (A.dtype == torch.float32) if torch.is_tensor(A) \
-        else np.asarray(A).dtype == np.float32
+_NUMPY = {torch.float32: np.float32, torch.float64: np.float64,
+          torch.complex64: np.complex64, torch.complex128: np.complex128}
 
 
-def _as_input(A, device):
-    """A tensor on ``device`` in the dtype the dense kernels take for
-    ``A``: f32 for f32 input, complex128 for complex input, f64 else."""
+def _kernel_dtype(A) -> torch.dtype:
+    """The dtype the kernels take for ``A``: f32 and complex64 keep theirs
+    (the ``_f32`` entries); other complex input is complex128, other real
+    input f64."""
+    if torch.is_tensor(A):
+        single = A.dtype in (torch.float32, torch.complex64)
+    else:
+        single = np.asarray(A).dtype in (np.float32, np.complex64)
     if is_complex(A):
-        return torch.complex(*as_planes(A, device))
-    if _is_f32(A):
-        return torch.as_tensor(A, device=resolve_device(device))
-    return as_matrix(A, device)
+        return torch.complex64 if single else torch.complex128
+    return torch.float32 if single else torch.float64
+
+
+def _as_input(A, device, dtype: torch.dtype | None = None):
+    """A tensor on ``device`` in ``dtype`` (default: ``_kernel_dtype``)."""
+    device = resolve_device(device)
+    dtype = dtype or _kernel_dtype(A)
+    if torch.is_tensor(A):
+        return A.to(device=device, dtype=dtype)
+    return torch.as_tensor(np.asarray(A).astype(_NUMPY[dtype]),
+                           device=device)
 
 
 def _reduce_real(out, xbs, n: int):
@@ -319,7 +331,7 @@ def block_partials_cuda(A, *, dev_chunk_base: int = 0,
                         device=None):
     """Run the scalar kernel over ``num_blocks`` blocks from chunk
     ``dev_chunk_base``; returns ((num_blocks, 2) partials, geometry), in
-    the dtype of a real ``A`` (f32 or f64)."""
+    the dtype of a real ``A`` (f32, else f64)."""
     if is_complex(A):
         raise TypeError("block_partials_cuda takes a real matrix")
     A = _as_input(A, device)
@@ -409,9 +421,8 @@ def campaign_slice_sums(A, first_slice: int, num_slices: int, *,
     Either way each slice reduces over its own partials
     (``_slice_sums``).  ``events``, when given, collects a (start, end)
     pair of CUDA events around the kernel launch on the card."""
-    A = _as_input(A, device)
-    if A.dtype == torch.float32:
-        A = A.double()
+    A = _as_input(A, device, torch.complex128 if is_complex(A)
+                  else torch.float64)
     n = A.shape[-1]
     if A.ndim != 2 or A.shape[0] != n:
         raise ValueError(f"square matrix required, got {tuple(A.shape)}")
@@ -452,9 +463,9 @@ def permanent_cuda(A, *, precision: str = "dq_acc", mode: str = "baseline",
                    geometry: Geometry | None = None, device=None):
     """perm(A) via the scalar kernel entry (full step space, one card) in
     ``mode`` baseline, batched or schedmat; a 0-d tensor on ``device``
-    (default: the card), f32 for f32 input and f64 for other real input,
-    complex128 for complex input, which runs the split-plane kernel in
-    ``batched`` mode."""
+    (default: the card) in ``_kernel_dtype(A)``: f32 or f64 for real
+    input, complex64 or complex128 for complex input, which runs the
+    split-plane kernel in ``batched`` mode."""
     A = _as_input(A, device)
     n = A.shape[0]
     if A.ndim != 2 or A.shape[1] != n:
@@ -470,8 +481,7 @@ def permanent_cuda_batched(As, *, precision: str = "dq_acc",
                            geometry: Geometry | None = None, device=None):
     """perms of a (B, n, n) stack via ONE batch-grid kernel launch in
     ``mode`` baseline or batched; a (B,) tensor on ``device`` (default: the
-    card), f32 for an f32 stack, f64 for another real one, complex128 for
-    complex input."""
+    card) in ``_kernel_dtype(As)``."""
     As = _as_input(As, device)
     if As.ndim != 3 or As.shape[1] != As.shape[2]:
         raise ValueError(f"(B, n, n) stack required, got {tuple(As.shape)}")
@@ -483,14 +493,14 @@ def permanent_cuda_batched(As, *, precision: str = "dq_acc",
 
 def _sparse_entry(A, rows, vals, *, batched: bool, precision: str,
                   geometry: Geometry | None, device):
-    """The dense form(s) and padded CCS arrays to the card (f64 or
-    complex128 values, int32 rows), then the scalar or batched entry:
-    (n, n) -> 0-d, (B, n, n) -> (B,)."""
+    """The dense form(s) and padded CCS arrays to the card (the values'
+    ``_kernel_dtype`` for both, int32 rows), then the scalar or batched
+    entry: (n, n) -> 0-d, (B, n, n) -> (B,)."""
     device = resolve_device(device)
-    dt = np.complex128 if np.iscomplexobj(vals) else np.float64
-    As = torch.as_tensor(np.asarray(A, dtype=dt), device=device)
-    rows = torch.as_tensor(np.asarray(rows, dtype=np.int32), device=device)
-    vals = torch.as_tensor(np.asarray(vals, dtype=dt), device=device)
+    dt = _kernel_dtype(vals)
+    As = _as_input(A, device, dt)
+    rows = torch.as_tensor(rows, dtype=torch.int32, device=device)
+    vals = _as_input(vals, device, dt)
     if As.ndim != (3 if batched else 2) or As.shape[-1] != As.shape[-2]:
         raise ValueError(f"{'(B, n, n) stack' if batched else 'square matrix'}"
                          f" required, got {tuple(As.shape)}")
@@ -505,8 +515,8 @@ def sparse_value_cuda(A, rows, vals, *, precision: str = "dq_acc",
                       geometry: Geometry | None = None, device=None):
     """perm of one matrix via the scalar SpaRyser entry from its dense form
     ``A`` (init, NW base vector, boundary column) and its (n, maxdeg)
-    padded CCS arrays (window states); a 0-d tensor, complex128 for
-    complex input."""
+    padded CCS arrays (window states); a 0-d tensor in the values'
+    ``_kernel_dtype``."""
     return _sparse_entry(A, rows, vals, batched=False, precision=precision,
                          geometry=geometry, device=device)
 
@@ -526,7 +536,7 @@ def sparse_batched_values_cuda(A_stack, rows_stack, vals_stack, *,
 def permanent_cuda_sparse(sp, *, precision: str = "dq_acc",
                           geometry: Geometry | None = None, device=None):
     """perm of one ``sparyser.SparseMatrix`` via the scalar SpaRyser kernel
-    entry; a 0-d f64 tensor (complex128 for complex input)."""
+    entry; a 0-d tensor in its values' ``_kernel_dtype``."""
     return sparse_value_cuda(sp.to_dense(), *sp.padded_columns(),
                              precision=precision, geometry=geometry,
                              device=device)

@@ -6,9 +6,11 @@ The port of ``kernels/ryser_complex.py``.  The kernel
 over blocks from a u64 chunk base) and
 ``ryser_pallas_call_complex_batched`` (grid over (batch, block), chunk base
 0); both run one block body, as ``_ryser_block_cx`` serves both Pallas
-kernels.  The matrix travels as (re, im) f64 planes; padded rows of the
-base planes are (1 + 0i).  The window-batched mode is the only one, as in
-the reference.
+kernels.  The matrix travels as (re, im) planes, f64 or f32 (complex64
+input: the ``_f32`` entries), and the partials come back in the planes'
+dtype, as the reference's follow its input; padded rows of the base
+planes are (1 + 0i).  The window-batched mode is the only one, as in the
+reference.
 
 Every entry returns per-block ``(re_hi, re_err, im_hi, im_err)`` partials
 WITHOUT the g = 0 term; ``kernels/ops.py::kernel_reduce`` closes each
@@ -30,9 +32,9 @@ import torch
 from ..core import gray as G
 from .ryser_cuda import (PRECISION_CODES, _accum, _block_sums, _boundary,
                          _check, _check_batch, _check_range, _cumsig_device,
-                         _cumsig_host, _init_state, _lane_starts, _launch,
-                         _occupancy, _on_card, _signed_const_schedule,
-                         _window_states, counters)
+                         _cumsig_host, _entry, _init_state, _lane_starts,
+                         _launch, _occupancy, _on_card,
+                         _signed_const_schedule, _window_states, counters)
 
 __all__ = ["ryser_cuda_call_complex", "ryser_cuda_call_complex_batched",
            "block_partials_plain_complex", "ctas_per_sm_complex"]
@@ -52,9 +54,9 @@ def block_partials_plain_complex(Ar_pads, Ai_pads, xbr_pads, xbi_pads,
                                  chunk_base: int, *, n: int, TB: int, C: int,
                                  Wu: int, num_blocks: int,
                                  precision: str = "dq_acc") -> torch.Tensor:
-    """(B, num_blocks, 4) partials of a (B, n_pad, n_pad) plane pair, op
-    for op the kernel's: same init order, same D sums, the product streamed
-    row by row, the same lane tree."""
+    """(B, num_blocks, 4) partials of a (B, n_pad, n_pad) plane pair in
+    the planes' dtype, op for op the kernel's: same init order, same D
+    sums, the product streamed row by row, the same lane tree."""
     counters["block_partials_plain_complex"] += 1
     return _plain_partials_complex(Ar_pads, Ai_pads, xbr_pads, xbi_pads,
                                    Ar_pads, Ai_pads, chunk_base, n=n, TB=TB,
@@ -135,7 +137,8 @@ def ryser_cuda_call_complex(Ar_pad, Ai_pad, xbr, xbi, dev_chunk_base: int, *,
                             precision: str = "dq_acc") -> torch.Tensor:
     """(num_blocks, 4) ``(re_hi, re_err, im_hi, im_err)`` partials of one
     matrix over blocks [0, num_blocks) from chunk ``dev_chunk_base`` (g = 0
-    term NOT included).  Planes (n_pad, n_pad), base planes (n_pad, 1)."""
+    term NOT included), in the planes' dtype (f64 or f32).  Planes
+    (n_pad, n_pad), base planes (n_pad, 1)."""
     geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=num_blocks,
                precision=precision)
     _check_complex(Ar_pad, Ai_pad, xbr, xbi, batched=False, **geo)
@@ -148,11 +151,12 @@ def ryser_cuda_call_complex(Ar_pad, Ai_pad, xbr, xbi, dev_chunk_base: int, *,
     Ar_pad, Ai_pad, xbr, xbi = (t.contiguous()
                                 for t in (Ar_pad, Ai_pad, xbr, xbi))
     n_pad = Ar_pad.shape[0]
-    out = torch.empty((num_blocks, 4), dtype=torch.float64,
+    out = torch.empty((num_blocks, 4), dtype=Ar_pad.dtype,
                       device=Ar_pad.device)
-    _launch("ryser_complex_scalar", Ar_pad, xbr, out,
+    _launch(_entry("ryser_complex_scalar", Ar_pad), Ar_pad, xbr, out,
             Ar_pad.data_ptr(), Ai_pad.data_ptr(), xbr.data_ptr(),
-            xbi.data_ptr(), _cumsig_device(Wu, n_pad, Ar_pad.device)
+            xbi.data_ptr(), _cumsig_device(Wu, n_pad, Ar_pad.device,
+                                           Ar_pad.dtype)
             .data_ptr(), out.data_ptr(), base, n, n_pad, TB,
             int(math.log2(C)), int(math.log2(Wu)), num_blocks,
             PRECISION_CODES[precision])
@@ -178,11 +182,12 @@ def ryser_cuda_call_complex_batched(Ar_pads, Ai_pads, xbr_pads, xbi_pads, *,
     _check_batch(B)
     Ar_pads, Ai_pads, xbr_pads, xbi_pads = (
         t.contiguous() for t in (Ar_pads, Ai_pads, xbr_pads, xbi_pads))
-    out = torch.empty((B, num_blocks, 4), dtype=torch.float64,
+    out = torch.empty((B, num_blocks, 4), dtype=Ar_pads.dtype,
                       device=Ar_pads.device)
-    _launch("ryser_complex_batched", Ar_pads, xbr_pads, out,
+    _launch(_entry("ryser_complex_batched", Ar_pads), Ar_pads, xbr_pads, out,
             Ar_pads.data_ptr(), Ai_pads.data_ptr(), xbr_pads.data_ptr(),
-            xbi_pads.data_ptr(), _cumsig_device(Wu, n_pad, Ar_pads.device)
+            xbi_pads.data_ptr(), _cumsig_device(Wu, n_pad, Ar_pads.device,
+                                                Ar_pads.dtype)
             .data_ptr(), out.data_ptr(), B, n, n_pad, TB,
             int(math.log2(C)), int(math.log2(Wu)), num_blocks,
             PRECISION_CODES[precision])

@@ -54,10 +54,14 @@ counters = {"ryser_dense_scalar": 0, "ryser_dense_batched": 0,
             "ryser_dense_scalar_schedmat": 0,
             "ryser_dense_scalar_f32_schedmat": 0,
             "block_partials_plain": 0, "ryser_complex_scalar": 0,
-            "ryser_complex_batched": 0, "block_partials_plain_complex": 0,
+            "ryser_complex_batched": 0, "ryser_complex_scalar_f32": 0,
+            "ryser_complex_batched_f32": 0, "block_partials_plain_complex": 0,
             "ryser_sparse_scalar": 0, "ryser_sparse_batched": 0,
+            "ryser_sparse_scalar_f32": 0, "ryser_sparse_batched_f32": 0,
             "ryser_sparse_complex_scalar": 0,
             "ryser_sparse_complex_batched": 0,
+            "ryser_sparse_complex_scalar_f32": 0,
+            "ryser_sparse_complex_batched_f32": 0,
             "block_partials_plain_sparse": 0,
             "block_partials_plain_sparse_complex": 0}
 
@@ -297,14 +301,11 @@ def _plain_partials(A_pads, xb_pads, low, chunk_base: int, *, n: int,
 # ---------------------------------------------------------------------------
 
 def _check(A, xb, *, n: int, TB: int, C: int, Wu: int, num_blocks: int,
-           precision: str, mode: str, batched: bool,
-           dtypes=(torch.float64,)) -> None:
-    """Shapes, geometry, precision and mode of a real entry's input;
-    ``dtypes`` are the ones the entry takes (the dense real entries f64
-    and f32, the others f64)."""
-    if A.dtype not in dtypes or xb.dtype != A.dtype:
-        names = " or ".join(f"f{d.itemsize * 8}" for d in dtypes)
-        raise TypeError(f"{names} input of one dtype required, got "
+           precision: str, mode: str, batched: bool) -> None:
+    """Shapes, geometry, precision and mode of a real entry's input (or
+    of a complex entry's re planes): f64 or f32, one dtype."""
+    if A.dtype not in _DTYPES or xb.dtype != A.dtype:
+        raise TypeError(f"f64 or f32 input of one dtype required, got "
                         f"{A.dtype}/{xb.dtype}")
     if xb.device != A.device:
         raise ValueError(f"A on {A.device}, xb on {xb.device}")
@@ -401,7 +402,8 @@ def ctas_per_sm(n_pad: int, *, TB: int, Wu: int, precision: str = "dq_acc",
 
 
 def _entry(name: str, A) -> str:
-    """The C entry for ``A``'s dtype: ``name`` for f64, ``name_f32``."""
+    """The C entry for ``A``'s dtype: ``name`` for f64, ``name_f32`` for
+    f32 (every entry has an f32 twin)."""
     return name if A.dtype == torch.float64 else f"{name}_f32"
 
 
@@ -427,7 +429,7 @@ def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
     included), in the input's dtype.  ``A_pad`` is (n_pad, n_pad),
     ``x_base_pad`` (n_pad, 1), f64 or f32; every mode."""
     _check(A_pad, x_base_pad, n=n, TB=TB, C=C, Wu=Wu, num_blocks=num_blocks,
-           precision=precision, mode=mode, batched=False, dtypes=_DTYPES)
+           precision=precision, mode=mode, batched=False)
     base = int(dev_chunk_base)
     _check_range(base, num_blocks, TB, C, n)
     if A_pad.device.type == "cpu":
@@ -461,7 +463,7 @@ def ryser_cuda_call_batched(A_pads, x_base_pads, *, n: int, TB: int, C: int,
     ``schedmat`` raises ``ValueError``: its columns are per matrix."""
     _check(A_pads, x_base_pads, n=n, TB=TB, C=C, Wu=Wu,
            num_blocks=num_blocks, precision=precision, mode=mode,
-           batched=True, dtypes=_DTYPES)
+           batched=True)
     _check_range(0, num_blocks, TB, C, n)
     if A_pads.device.type == "cpu":
         return block_partials_plain(A_pads, x_base_pads, 0, n=n, TB=TB, C=C,

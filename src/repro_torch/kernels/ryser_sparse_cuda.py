@@ -27,7 +27,9 @@ has no such step.
 
 Every entry returns per-block partials WITHOUT the g = 0 term: ``(hi, lo)``
 real, ``(re_hi, re_err, im_hi, im_err)`` complex; ``kernels/ops.py::
-kernel_reduce`` closes each.  Precisions as in the dense kernels (``qq``
+kernel_reduce`` closes each.  Input is f64 or f32 (f32 and complex64
+values: the ``_f32`` entries) and the partials come back in its dtype, as
+the reference's follow its input.  Precisions as in the dense kernels (``qq``
 runs as ``dd``).  A wrapper takes the plain version only for a tensor on
 the CPU; for a CUDA tensor it launches the kernel or raises.  Launches and
 plain calls count in ``ryser_cuda.counters``.
@@ -41,14 +43,15 @@ import torch
 
 from .ryser_complex_cuda import _check_complex, _plain_partials_complex
 from .ryser_cuda import (PRECISION_CODES, _check, _check_batch, _check_range,
-                         _cumsig_device, _launch, _on_card, _plain_partials,
-                         counters)
+                         _cumsig_device, _entry, _launch, _occupancy,
+                         _on_card, _plain_partials, counters)
 
 __all__ = ["ryser_sparse_cuda_call", "ryser_sparse_cuda_call_batched",
            "ryser_sparse_cuda_call_complex",
            "ryser_sparse_cuda_call_complex_batched",
            "block_partials_plain_sparse",
-           "block_partials_plain_sparse_complex", "low_column_rows"]
+           "block_partials_plain_sparse_complex", "low_column_rows",
+           "ctas_per_sm_sparse"]
 
 
 def _scatter_low_columns(rows, vals, kw: int, n_pad: int):
@@ -110,8 +113,8 @@ def block_partials_plain_sparse_complex(Ar_pads, Ai_pads, rows, vals_r,
 # ---------------------------------------------------------------------------
 
 def _check_ccs(rows, vals_planes, like, *, n: int, batched: bool) -> None:
-    """rows int32 and the value planes f64, all (..., n, maxdeg) on
-    ``like``'s device with ``like``'s leading batch shape."""
+    """rows int32 and the value planes in ``like``'s dtype, all (..., n,
+    maxdeg) on ``like``'s device with ``like``'s leading batch shape."""
     lead = like.shape[:-2]
     if rows.dtype != torch.int32:
         raise TypeError(f"rows must be int32, got {rows.dtype}")
@@ -120,9 +123,10 @@ def _check_ccs(rows, vals_planes, like, *, n: int, batched: bool) -> None:
         raise ValueError(f"rows shape {tuple(rows.shape)} != "
                          f"{(*lead, n, 'maxdeg')}")
     for v in vals_planes:
-        if (v.dtype, v.shape) != (torch.float64, rows.shape):
-            raise ValueError(f"vals {v.dtype} {tuple(v.shape)} must be f64 "
-                             f"of the rows' shape {tuple(rows.shape)}")
+        if (v.dtype, v.shape) != (like.dtype, rows.shape):
+            raise ValueError(f"vals {v.dtype} {tuple(v.shape)} must be "
+                             f"{like.dtype} of the rows' shape "
+                             f"{tuple(rows.shape)}")
     for t in (rows, *vals_planes):
         if t.device != like.device:
             raise ValueError(f"CCS arrays on {t.device}, A on {like.device}")
@@ -132,6 +136,11 @@ def _geo_args(n: int, n_pad: int, maxdeg: int, TB: int, C: int, Wu: int,
               num_blocks: int, precision: str):
     return (n, n_pad, maxdeg, TB, int(math.log2(C)), int(math.log2(Wu)),
             num_blocks, PRECISION_CODES[precision])
+
+
+def _cumsig(Wu: int, A) -> int:
+    """Device pointer of the batched mode's cumsig in ``A``'s dtype."""
+    return _cumsig_device(Wu, A.shape[-1], A.device, A.dtype).data_ptr()
 
 
 def ryser_sparse_cuda_call(A_pad, rows, vals, x_base_pad,
@@ -156,13 +165,11 @@ def ryser_sparse_cuda_call(A_pad, rows, vals, x_base_pad,
     A_pad, rows, vals, x_base_pad = (t.contiguous() for t in
                                      (A_pad, rows, vals, x_base_pad))
     n_pad = A_pad.shape[0]
-    out = torch.empty((num_blocks, 2), dtype=torch.float64,
+    out = torch.empty((num_blocks, 2), dtype=A_pad.dtype,
                       device=A_pad.device)
-    _launch("ryser_sparse_scalar", A_pad, x_base_pad, out,
+    _launch(_entry("ryser_sparse_scalar", A_pad), A_pad, x_base_pad, out,
             A_pad.data_ptr(), rows.data_ptr(), vals.data_ptr(),
-            x_base_pad.data_ptr(),
-            _cumsig_device(Wu, n_pad, A_pad.device).data_ptr(),
-            out.data_ptr(), base,
+            x_base_pad.data_ptr(), _cumsig(Wu, A_pad), out.data_ptr(), base,
             *_geo_args(n, n_pad, rows.shape[-1], TB, C, Wu, num_blocks,
                        precision))
     return out
@@ -187,13 +194,11 @@ def ryser_sparse_cuda_call_batched(A_pads, rows, vals, x_base_pads, *, n: int,
     _check_batch(B)
     A_pads, rows, vals, x_base_pads = (t.contiguous() for t in
                                        (A_pads, rows, vals, x_base_pads))
-    out = torch.empty((B, num_blocks, 2), dtype=torch.float64,
+    out = torch.empty((B, num_blocks, 2), dtype=A_pads.dtype,
                       device=A_pads.device)
-    _launch("ryser_sparse_batched", A_pads, x_base_pads, out,
+    _launch(_entry("ryser_sparse_batched", A_pads), A_pads, x_base_pads, out,
             A_pads.data_ptr(), rows.data_ptr(), vals.data_ptr(),
-            x_base_pads.data_ptr(),
-            _cumsig_device(Wu, n_pad, A_pads.device).data_ptr(),
-            out.data_ptr(), B,
+            x_base_pads.data_ptr(), _cumsig(Wu, A_pads), out.data_ptr(), B,
             *_geo_args(n, n_pad, rows.shape[-1], TB, C, Wu, num_blocks,
                        precision))
     return out
@@ -221,11 +226,10 @@ def ryser_sparse_cuda_call_complex(Ar_pad, Ai_pad, rows, vals_r, vals_i,
     ts = [t.contiguous() for t in (Ar_pad, Ai_pad, rows, vals_r, vals_i, xbr,
                                    xbi)]
     n_pad = Ar_pad.shape[0]
-    out = torch.empty((num_blocks, 4), dtype=torch.float64,
+    out = torch.empty((num_blocks, 4), dtype=Ar_pad.dtype,
                       device=Ar_pad.device)
-    _launch("ryser_sparse_complex_scalar", ts[0], ts[5], out,
-            *(t.data_ptr() for t in ts),
-            _cumsig_device(Wu, n_pad, Ar_pad.device).data_ptr(),
+    _launch(_entry("ryser_sparse_complex_scalar", Ar_pad), ts[0], ts[5], out,
+            *(t.data_ptr() for t in ts), _cumsig(Wu, Ar_pad),
             out.data_ptr(), base,
             *_geo_args(n, n_pad, rows.shape[-1], TB, C, Wu, num_blocks,
                        precision))
@@ -254,12 +258,19 @@ def ryser_sparse_cuda_call_complex_batched(Ar_pads, Ai_pads, rows, vals_r,
     _check_batch(B)
     ts = [t.contiguous() for t in (Ar_pads, Ai_pads, rows, vals_r, vals_i,
                                    xbr_pads, xbi_pads)]
-    out = torch.empty((B, num_blocks, 4), dtype=torch.float64,
+    out = torch.empty((B, num_blocks, 4), dtype=Ar_pads.dtype,
                       device=Ar_pads.device)
-    _launch("ryser_sparse_complex_batched", ts[0], ts[5], out,
-            *(t.data_ptr() for t in ts),
-            _cumsig_device(Wu, n_pad, Ar_pads.device).data_ptr(),
+    _launch(_entry("ryser_sparse_complex_batched", Ar_pads), ts[0], ts[5],
+            out, *(t.data_ptr() for t in ts), _cumsig(Wu, Ar_pads),
             out.data_ptr(), B,
             *_geo_args(n, n_pad, rows.shape[-1], TB, C, Wu, num_blocks,
                        precision))
     return out
+
+
+def ctas_per_sm_sparse(n_pad: int, *, TB: int, Wu: int,
+                       precision: str = "dq_acc") -> int:
+    """CTAs of TB threads of the f64 real sparse instantiation for
+    ``n_pad`` that one SM of the card holds at once."""
+    return _occupancy("ryser_sparse_occupancy", n_pad,
+                      PRECISION_CODES[precision], TB, int(math.log2(Wu)))

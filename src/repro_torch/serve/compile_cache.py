@@ -108,7 +108,9 @@ def warmup(config, geometries: Sequence[tuple], *, seed: int = 0,
     service expects crossed with :func:`quantized_batches`.  Runs each
     geometry once through a throwaway solver (result cache off, so the
     synthetic matrices never pollute the serving cache) with the serving
-    config, so its kernels are the ones the loop will launch; then one
+    config -- its ``geometry`` override and ``tuning_table`` too, so the
+    buckets are planned with the kernel geometry the live loop will
+    launch and a tuned service warms exactly those launches; then one
     sparse matrix of each (n, is_complex) it
     warmed (``_band_matrix`` of degree 5, a sparse leaf from n = 17 on), so
     the sparse route's host operators run once too.  This adds no

@@ -189,14 +189,22 @@ class PermanentService:
         """The ``run_campaign`` keywords of the interleaved campaign: its
         slice plan, and the wave body the solver config names -- the same
         cuda/torch collapse as the planner's campaign route, with the
-        config's kernel geometry under ``cuda`` (the torch body has none)."""
+        kernel geometry under ``cuda`` resolved as the planner's campaign
+        route resolves it (config override > tuning table > kernel
+        defaults); the torch body has none."""
         cfg = self.solver.config
-        _, ts, cps, C = self._camp_args
+        cmat, ts, cps, C = self._camp_args
         backend = "cuda" if cfg.backend == "cuda" else "torch"
+        geometry = None
+        if backend == "cuda":
+            from ..core.planner import ROUTE_CAMPAIGN, _resolve_geometry
+            geometry = _resolve_geometry(
+                cfg, ROUTE_CAMPAIGN, cmat.shape[0],
+                float(np.count_nonzero(cmat)) / cmat.size, cmat.dtype.str,
+                cfg.precision)
         return dict(total_slices=ts, chunks_per_slice=cps, chunk_size=C,
                     precision=cfg.precision, backend=backend,
-                    geometry=cfg.geometry if backend == "cuda" else None,
-                    device=cfg.device)
+                    geometry=geometry, device=cfg.device)
 
     def _advance_campaign(self, waves: int | None) -> None:
         """Run up to ``waves`` campaign waves (None = to completion);

@@ -166,9 +166,14 @@ def test_complex_wrapper_checks_inputs():
         RX.ryser_cuda_call_complex(Ar, Ar[:8, :8], xb, xb, 0, **geo)
     with pytest.raises(ValueError, match="step space"):
         RX.ryser_cuda_call_complex(Ar, Ar, xb, xb, 8, **geo)
-    with pytest.raises(TypeError, match="f64"):
-        RX.ryser_cuda_call_complex(Ar.float(), Ar.float(), xb.float(),
-                                   xb.float(), 0, **geo)
+    with pytest.raises(TypeError, match="f64 or f32"):
+        RX.ryser_cuda_call_complex(Ar.half(), Ar.half(), xb.half(),
+                                   xb.half(), 0, **geo)
+    with pytest.raises(TypeError, match="one dtype"):
+        RX.ryser_cuda_call_complex(Ar.float(), Ar.float(), xb, xb, 0, **geo)
+    with pytest.raises(ValueError, match="re plane"):
+        RX.ryser_cuda_call_complex(Ar.float(), Ar, xb.float(), xb.float(), 0,
+                                   **geo)
     meta = [t.to("meta") for t in (Ar, Ar, xb, xb)]
     with pytest.raises(ValueError, match="unsupported device"):
         RX.ryser_cuda_call_complex(*meta, 0, **geo)

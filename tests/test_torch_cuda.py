@@ -1,7 +1,8 @@
 """Tests that need the card: the CUDA kernels (dense real, split-plane
-complex, and sparse real and complex; the dense real one also in schedmat
-mode and on f32 input) against their plain versions, bit for bit, also
-from chunk bases at the end of the step space; the main
+complex, and sparse real and complex, each on f64 and f32 input; the dense
+real one also in schedmat mode) against their plain versions, bit for
+bit, also from chunk bases at the end of the step space and at the
+geometries the tuner measures; the main
 path against the torch engines, on the device; the refusal of a chunk
 size past the step space; a campaign killed and resumed.
 They skip where no card is present; on a machine with one run
@@ -20,7 +21,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch  # noqa: E402
-from repro_torch.core.sparyser import SparseMatrix, pack_padded_ccs  # noqa: E402
+from repro_torch.core.sparyser import (SparseMatrix, pack_padded_ccs,  # noqa: E402
+                                      padded_ccs)
 from repro_torch.core.stepspace import DEFAULT_GEOMETRY  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ryser_complex_cuda as RX  # noqa: E402
@@ -236,6 +238,115 @@ def test_sparse_kernel_matches_plain_on_card(card, n, cplx):
         want = RS.block_partials_plain_sparse(A_pads, rows, vals, xb_pads, 0,
                                               **geo)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _entry_calls(As, cplx: bool, sparse: bool):
+    """(scalar call, batched call, plain call) of one kernel pair on the
+    stack ``As`` (B, n, n), each taking (chunk base, **geo); the sparse
+    pair gets the stack's padded CCS arrays, in ``As``' dtype."""
+    if sparse:
+        rows_np, vals_np = padded_ccs(As.cpu().numpy())
+        rows = torch.as_tensor(rows_np, device=As.device)
+        vals = torch.as_tensor(vals_np, device=As.device)
+        if cplx:
+            Ar, Ai, xbr, xbi, _ = ops.prepare_complex(As)
+            ins = (Ar, Ai, rows, vals.real.contiguous(),
+                   vals.imag.contiguous(), xbr, xbi)
+            calls = (RS.ryser_sparse_cuda_call_complex,
+                     RS.ryser_sparse_cuda_call_complex_batched,
+                     RS.block_partials_plain_sparse_complex)
+        else:
+            A_pads, xb_pads, _ = ops.prepare(As)
+            ins = (A_pads, rows, vals, xb_pads)
+            calls = (RS.ryser_sparse_cuda_call,
+                     RS.ryser_sparse_cuda_call_batched,
+                     RS.block_partials_plain_sparse)
+        kw = {}
+    elif cplx:
+        ins = ops.prepare_complex(As)[:4]
+        calls = (RX.ryser_cuda_call_complex,
+                 RX.ryser_cuda_call_complex_batched,
+                 RX.block_partials_plain_complex)
+        kw = {}
+    else:
+        ins = ops.prepare(As)[:2]
+        calls = (RC.ryser_cuda_call, RC.ryser_cuda_call_batched,
+                 RC.block_partials_plain)
+        kw = {"mode": "batched"}
+    scalar, batched, plain = calls
+    return (lambda base, **geo: scalar(*(t[0] for t in ins), base, **kw,
+                                       **geo),
+            lambda base, **geo: batched(*ins, **kw, **geo),
+            lambda base, **geo: plain(*ins, base, **kw, **geo))
+
+
+def _entry_stack(rng, n: int, cplx: bool, sparse: bool, dtype, device):
+    """A (2, n, n) stack on the card: sparse ones at density 0.2 with a
+    full diagonal, entries scaled by 2 / (1 + 0.2 n) so every f32 product
+    stays in range; dense ones U(0.1, 1) * 2 / n."""
+    if sparse:
+        As = np.stack([_sparse(rng, n, cplx, extra) for extra in (0, 2)])
+        As = As * 2 / (1 + 0.2 * n)
+    else:
+        As = rng.uniform(0.1, 1, (2, n, n)) * 2 / n
+        if cplx:
+            As = As * np.exp(1j * rng.uniform(-np.pi, np.pi, (2, n, n)))
+    return torch.as_tensor(As, device=device).to(dtype)
+
+
+# n = 5, 13, 17, 30, 37 leave rows in the branch-free chains' select
+# region; the f32 complex rows run branch-free up to NPAD 48 (n = 37, 48)
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("n", [5, 13, 16, 17, 24, 30, 32, 37, 48])
+def test_f32_complex_and_sparse_entries_equal_plain_on_card(card, n,
+                                                            sparse):
+    """The _f32 entries of #3/#4 (complex64), #5/#6 (f32) and #7/#8
+    (complex64) bit for bit with their plain versions in f32, from chunk
+    0 and from the top of the step space, scalar and batched; each
+    returns f32 partials."""
+    rng = np.random.default_rng(600 + n)
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    nb = min(4, blocks)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+    for cplx in ((False, True) if sparse else (True,)):
+        dt = torch.complex64 if cplx else torch.float32
+        scalar, batched, plain = _entry_calls(
+            _entry_stack(rng, n, cplx, sparse, dt, card), cplx, sparse)
+        for base in (0, blocks * TB - nb * TB):
+            got, want = scalar(base, **geo), plain(base, **geo)[0]
+            assert got.dtype == torch.float32
+            assert torch.equal(got, want), (cplx, base)
+        got, want = batched(0, **geo), plain(0, **geo)
+        assert got.dtype == torch.float32 and torch.equal(got, want), cplx
+
+
+# (lanes, steps_per_chunk, window) the tuner's grid reaches that the
+# default 128 x 64 x 16 never runs: TB 32 / 64 / 256, Wu 8 / 32
+TUNE_GEOMETRIES = ((32, 32, 8), (64, 128, 32), (256, 64, 16),
+                   (256, 256, 32), (32, 256, 8))
+
+
+@pytest.mark.parametrize("lanes,spc,window", TUNE_GEOMETRIES)
+@pytest.mark.parametrize("n", [13, 24])
+def test_tuning_geometries_equal_plain_on_card(card, n, lanes, spc, window):
+    """Every kernel pair, f64, at the tuner's non-default geometries: bit
+    for bit with its plain version on a window of blocks from 0 and at
+    the top of the step space (the scalar entry, the campaign wave body's
+    launch) and over the batch grid."""
+    from repro_torch.core.stepspace import Geometry
+    rng = np.random.default_rng(700 + n + lanes + window)
+    TB, C, Wu, blocks = Geometry(lanes, spc, window).kernel_geometry(n)
+    nb = min(4, blocks)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
+    for cplx, sparse in ((False, False), (True, False), (False, True),
+                         (True, True)):
+        dt = torch.complex128 if cplx else torch.float64
+        scalar, batched, plain = _entry_calls(
+            _entry_stack(rng, n, cplx, sparse, dt, card), cplx, sparse)
+        for base in (0, blocks * TB - nb * TB):
+            assert torch.equal(scalar(base, **geo), plain(base, **geo)[0]), \
+                (cplx, sparse, base)
+        assert torch.equal(batched(0, **geo), plain(0, **geo)), (cplx, sparse)
 
 
 @pytest.mark.parametrize("cplx", [False, True])

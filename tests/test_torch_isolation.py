@@ -1,7 +1,7 @@
 """The port stands alone and never falls back: it imports neither jax nor
 the reference package, a card that is asked for and missing raises, the
-sparse route runs (real and complex), and the route not ported yet
-(tuning) raises ``NotImplementedError``."""
+sparse route runs (real and complex), a tuning table resolves, and the
+route not ported yet (a campaign mesh) raises ``NotImplementedError``."""
 
 import os
 import subprocess
@@ -30,6 +30,8 @@ import repro_torch.core.distributed, repro_torch.core.resume
 import repro_torch.launch.campaign
 import repro_torch.serve, repro_torch.serve.compile_cache
 import repro_torch.launch.serve
+import repro_torch.tune, repro_torch.tune.search, repro_torch.launch.tune
+import repro_torch.utils.roofline, repro_torch.analysis.geometry
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
@@ -92,6 +94,21 @@ def test_sparse_input_runs_and_matches_oracle():
                                rtol=1e-9)
 
 
-def test_unported_routes_raise():
-    with pytest.raises(NotImplementedError, match="[Tt]uning"):
-        PermanentSolver(device="cpu", tuning_table="t.json").plan(np.eye(4))
+def test_unported_routes_raise(tmp_path):
+    """Tuning is ported: a table resolves into the plan.  The one route
+    left to port, a campaign mesh, raises."""
+    from repro_torch.core.stepspace import Geometry
+    from repro_torch.serve import CampaignSpec
+    from repro_torch.tune.table import TableEntry, TuningTable
+    table = TuningTable()
+    table.put(TableEntry(route="dense", n=4, density_bucket="1.00",
+                         dtype="<f8", precision="dq_acc", device_kind="cpu",
+                         geometry=Geometry(4, 2, 2), predicted_s=1.0,
+                         measured_s=1.0, default_s=1.0))
+    path = str(tmp_path / "t.json")
+    table.save(path)
+    plan = PermanentSolver(device="cpu", tuning_table=path,
+                           preprocess=False).plan(np.eye(4) + 1)
+    assert plan.leaves[0].geometry == Geometry(4, 2, 2)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        CampaignSpec(matrix=np.eye(4), mesh=object())
