@@ -1,6 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--time-only | --serve-only | --tune-only]
+    python3 chip_smoke.py [--time-only | --serve-only | --tune-only |
+                           --examples-only | --prove-only]
 
 Run from the repository root on a machine with a CUDA card and nvcc.  It
 builds the kernels from ``src/repro_torch/kernels/csrc`` (the dense real
@@ -27,7 +28,12 @@ drives the always-on service
 masks at density 0.2, ``fill_first``, an interleaved campaign and four
 cold processes (three of its CLI; ``--cold-band ROOT`` is the fourth's
 own entry).  ``--serve-only`` runs the build and phase ``serve`` alone,
-``--tune-only`` the build and phase ``tune``.
+``--tune-only`` the build and phase ``tune``.  Phase ``examples`` runs
+each of ``repro_torch.examples`` at its card sizes with its own checks
+and adds its launches to the kernels line; phase ``prove`` runs
+torchprove on the card (every entry against the CPU value goldens, bit
+for bit) and the 256 / 251 batch-extent check at n = 24;
+``--examples-only`` and ``--prove-only`` run the build and that phase.
 A summary goes to ``chiprun_out/chip_smoke.json``.
 
 The build report gives each kernel instantiation's registers, spills and
@@ -51,6 +57,7 @@ a machine without a usable card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -3128,6 +3135,162 @@ def phase_serve(smoke: Smoke, torch) -> None:
     smoke.summary["serve"] = out
 
 
+# ---------------------------------------------------------------------------
+# The examples and the invariant gate
+# ---------------------------------------------------------------------------
+
+KERNEL_ENTRIES = ("ryser_dense_scalar", "ryser_dense_batched",
+                  "ryser_complex_scalar", "ryser_complex_batched",
+                  "ryser_sparse_scalar", "ryser_sparse_batched",
+                  "ryser_sparse_complex_scalar",
+                  "ryser_sparse_complex_batched")
+EXAMPLES = ("quickstart", "boson_sampling", "sparse_matchings",
+            "large_permanent", "service")
+# the examples' own bars on the card (all-ones n = 30 per precision; the
+# n = 30 matrix through the kernel and through the torch engine)
+ONES_PREC_BAR = {"dd": 1e-6, "dq_acc": 1e-8, "kahan": 1e-8}
+ENGINES_BAR = 1e-9
+PROVE_EXTENT = (24, 256, 251)      # n, and two batch extents
+
+
+class _Tee:
+    """A stdout that also keeps what it is given."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _example_checks(name: str, out: dict, printed: str) -> list:
+    """(ok, what) pairs of what example ``name`` asserts on the card."""
+    oks = printed.count("OK")
+    if name == "quickstart":
+        rel = abs(out["cuda"] - out["torch"]) / abs(out["torch"])
+        return [
+            (all(math.isfinite(abs(v)) for v in (
+                out["perm_random"], out["perm_sparse"], out["perm_band"],
+                out["perm_complex"], out["stack_first"])),
+             "quickstart: finite values"),
+            (rel <= ENGINES_BAR, f"quickstart: n = 30 kernel #1 vs torch "
+                                 f"engine rel {rel:.3e} <= {ENGINES_BAR}"),
+            (all(out["precision_rel"][m] <= b
+                 for m, b in ONES_PREC_BAR.items()),
+             f"quickstart: all-ones n = 30 rel.err {out['precision_rel']} "
+             f"within {ONES_PREC_BAR}"),
+            ("sparse(n=32,cuda)" in out["band_dispatch"],
+             f"quickstart: the n = 32 band ran whole on the sparse route "
+             f"{out['band_dispatch']}"),
+            (out["matchings"] == 5, "quickstart: 5 matchings of the path")]
+    if name == "boson_sampling":
+        return [(oks == 3, f"boson_sampling: {oks} of 3 OK lines"),
+                (out["tags"] == ["dense_batch(n=24,b=256)"],
+                 f"boson_sampling: one bucket of 256 x 24, no downgrade "
+                 f"{out['tags']}")]
+    if name == "sparse_matchings":
+        return [(oks == 3 and out["band_ok"],
+                 f"sparse_matchings: {oks} of 3 OK lines; the band n = 32 "
+                 f"sparse route vs kernel #1 rel {out['band_rel']:.3e} <= "
+                 f"1e-12")]
+    if name == "large_permanent":
+        return [(oks == 1 and out["bitwise"] and out["rel"] < 1e-9,
+                 f"large_permanent: n = 36 resumed campaign equals the "
+                 f"uninterrupted one bit for bit, rel {out['rel']:.3e} to "
+                 f"the scalar entry #1 (< 1e-9: chunks of 2^15 steps)")]
+    return [(out["schema"] == "repro.serve.metrics/v1"
+             and out["completed"] == 7
+             and out["shed_counts"] == {"deadline_expired": 1},
+             f"service: GET /metrics schema {out['schema']}, 7 completed, "
+             f"one typed shed {out['shed_counts']}")]
+
+
+def phase_examples(smoke: Smoke, torch) -> dict:
+    """Each example's ``main(device="cuda")`` at its card sizes, with the
+    launch counters set to 0 just before it and read just after; returns
+    the launches of #1-#8 over the examples."""
+    import importlib
+
+    from repro_torch.kernels import ryser_cuda as RC
+    t0 = time.perf_counter()
+    total = dict.fromkeys(RC.counters, 0)
+    per, seconds = {}, {}
+    for name in EXAMPLES:
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        tee = _Tee(sys.stdout)
+        t = time.perf_counter()
+        RC.reset_counters()
+        try:
+            with contextlib.redirect_stdout(tee):
+                out = module.main(device="cuda")
+            checks = _example_checks(name, out, "".join(tee.parts))
+        except Exception as e:   # noqa: BLE001 -- a failed example is a check
+            checks = [(False, f"{name}: raised {e!r}")]
+        launches = {k: v for k, v in RC.counters.items() if v}
+        seconds[name] = time.perf_counter() - t
+        for k, v in launches.items():
+            total[k] += v
+        per[name] = launches
+        for ok, what in checks:
+            smoke.check(ok, what)
+        print(f"example {name}: {seconds[name]:.2f} s, launches {launches}")
+    plain = {k: v for k, v in total.items() if k.startswith("block_partials")
+             and v}
+    smoke.check(not plain, f"examples: no plain version ran on the card "
+                           f"{plain}")
+    out = {"per_example": per, "seconds_per_example": seconds,
+           "launches": {k: v for k, v in total.items() if v},
+           "seconds": time.perf_counter() - t0}
+    print(f"examples phase: {out['seconds']:.1f} s; launches of #1-#8: "
+          f"{ {k: total[k] for k in KERNEL_ENTRIES} }")
+    smoke.summary["examples"] = out
+    return total
+
+
+def phase_prove(smoke: Smoke, torch) -> dict:
+    """torchprove on the card: the 20 entries at 5 precisions (the cuda
+    ones through kernels #1-#8, their f32 twins run twice), held against
+    the CPU goldens bit for bit, run twice and at B = 5 and 7; then the
+    four batch entries at the main path's width, member i of a 256 x 24
+    stack against member i of a 251 x 24 stack, bit for bit."""
+    from repro_torch.analysis import prove
+    from repro_torch.kernels import ryser_cuda as RC
+    t0 = time.perf_counter()
+    RC.reset_counters()
+    report = prove.run_check(device="cuda")
+    print(prove.render(report))
+    g = report["goldens"]
+    smoke.check(not prove.failed(report),
+                f"prove: {len(report['entries'])} entries x "
+                f"{len(prove.PRECISIONS)} precisions on the card, "
+                f"{len(report['findings'])} finding(s), "
+                f"{len(g['drifted'])} value(s) off the CPU goldens, "
+                f"{len(g['missing'])} golden(s) missing")
+    n, b_a, b_b = PROVE_EXTENT
+    extent = prove.extent_invariance(n, b_a, b_b, device="cuda")
+    smoke.check(all(v == 0 for v in extent.values()),
+                f"prove: member i of a {b_a} x {n} stack equals member i of "
+                f"a {b_b} x {n} stack bit for bit in the four batch entries "
+                f"(members that differ: {extent})")
+    launches = {k: v for k, v in RC.counters.items() if v}
+    want = set(KERNEL_ENTRIES) | {f"{k}_f32" for k in KERNEL_ENTRIES}
+    smoke.check(want <= set(launches) and not any(
+        k.startswith("block_partials") for k in launches),
+        f"prove: #1-#8 and their f32 twins launched, no plain version "
+        f"{launches}")
+    out = {"findings": [f.to_json() for f in report["findings"]],
+           "drifted": g["drifted"], "missing": g["missing"],
+           "extent": extent, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"prove phase: {out['seconds']:.1f} s")
+    smoke.summary["prove"] = out
+    return launches
+
+
 def time_only(smoke: Smoke, torch, card: dict) -> int:
     """``--time-only``: after the build, only the timing rounds of the timed
     entries (no plain pass, no value check, no result line), for comparing
@@ -3171,6 +3334,14 @@ def main() -> int:
         phase_tune(smoke, torch, card)
         print(f"chip_smoke --tune-only: failures {smoke.failures}")
         return 1 if smoke.failures else 0
+    if "--examples-only" in sys.argv[1:]:
+        phase_examples(smoke, torch)
+        print(f"chip_smoke --examples-only: failures {smoke.failures}")
+        return 1 if smoke.failures else 0
+    if "--prove-only" in sys.argv[1:]:
+        phase_prove(smoke, torch)
+        print(f"chip_smoke --prove-only: failures {smoke.failures}")
+        return 1 if smoke.failures else 0
     window_err = {**phase_kernel_vs_plain(smoke, torch),
                   **phase_kernel_vs_plain_complex(smoke, torch)}
     parity_err, parity_launches = phase_entry_parity(smoke, torch)
@@ -3199,6 +3370,19 @@ def main() -> int:
         row["launches"] += campaign_launches.get(row["name"], 0) + \
             tune_launches.get(row["name"], 0)
     phase_serve(smoke, torch)
+    example_launches = phase_examples(smoke, torch)
+    prove_launches = phase_prove(smoke, torch)
+    ran = {k for k in KERNEL_ENTRIES
+           if example_launches.get(k, 0) + prove_launches.get(k, 0)}
+    smoke.check(ran == set(KERNEL_ENTRIES),
+                f"examples and prove: #1-#8 all launched "
+                f"({sorted(set(KERNEL_ENTRIES) - ran)} did not)")
+    for row in rows:
+        row["launches"] += example_launches.get(row["name"], 0)
+    print(f"phase seconds: serve {smoke.summary['serve']['seconds']:.1f}, "
+          f"examples {smoke.summary['examples']['seconds']:.1f}, prove "
+          f"{smoke.summary['prove']['seconds']:.1f}, all "
+          f"{time.perf_counter() - t_start:.1f}")
     smoke.summary.update(card=card, kernels=rows,
                          seconds=time.perf_counter() - t_start,
                          failures=smoke.failures)

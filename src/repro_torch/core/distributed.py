@@ -50,6 +50,7 @@ from .ryser import (_final_factor, chain_prod, chain_prod_complex,
 from .stepspace import Geometry
 
 __all__ = ["CampaignPaused", "MIN_WAVE_S", "Wave", "default_wave_width",
+           "even_wave_width",
            "slice_sums", "run_campaign"]
 
 MIN_WAVE_S = 0.1   # host seconds below which a default-width wave widens
@@ -123,7 +124,13 @@ def default_wave_width(A, *, pending: int, chunks_per_slice: int,
         chunk_size=chunk_size, precision=precision, geometry=geometry)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_slice = chunks_per_slice // TB
-    fill = max(1, -(-sms * resident // per_slice))
+    return even_wave_width(pending, max(1, -(-sms * resident // per_slice)))
+
+
+def even_wave_width(pending: int, fill: int) -> int:
+    """The width of the waves for ``pending`` slices when ``fill`` slices
+    fill the card: as many waves as ``fill`` needs, sharing the slices
+    equally (never wider than ``fill``)."""
     waves = -(-pending // fill)
     return -(-pending // waves)
 

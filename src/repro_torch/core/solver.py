@@ -95,7 +95,7 @@ class PermanentSolver:
             else None
         # clock precedence: explicit kwarg > SolverConfig.clock > monotonic
         self._clock = clock if clock is not None \
-            else (config.clock or time.monotonic)  # permlint: disable=PL004  # sanctioned injectable-clock default
+            else (config.clock or time.monotonic)  # permlint: disable=PL004  # sanctioned injectable-clock default  # torchlint: disable=PT004 the injectable clock's default
         self._queue: dict[int, tuple[float, list[PermanentRequest]]] = {}
         self._stats = ExecStats()
         self.flushes = 0

@@ -157,6 +157,7 @@ def padded_ccs(A):
     n = A.shape[-1]
     At = np.swapaxes(A, -1, -2)                          # (..., col, row)
     mask = np.abs(At) > 0
+    # torchlint: disable=PT001 an integer count of a numpy bool mask (host planning)
     deg = mask.sum(axis=-1)
     maxdeg = max(1, int(deg.max(initial=0)))
     order = np.argsort(~mask, axis=-1, kind="stable")[..., :maxdeg]

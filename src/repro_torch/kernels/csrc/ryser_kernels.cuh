@@ -114,7 +114,7 @@ __device__ __forceinline__ void window_states(T* Ds, const T* low,
     const int idx = t / NPAD, i = t % NPAD;
     T acc = 0;
     for (int k = 0; k < kw; ++k)
-      acc = fma_rn(low[k * NPAD + i], c0[k * (Wu - 1) + idx], acc);
+      acc = fma_rn(low[k * NPAD + i], c0[k * (Wu - 1) + idx], acc);  // torchlint: disable=PC003 exact: c0 entries are 0 or 1
     Ds[idx * NPAD + i] = acc;
   }
 }
@@ -164,17 +164,17 @@ __device__ __forceinline__ void re_chain(T (&X)[NPAD],
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (STATE == RE_STEP) {
-        X[i] = fma_rn(src[k][i], f[k], X[i]);  // exact: f is +-1
+        X[i] = fma_rn(src[k][i], f[k], X[i]);  // torchlint: disable=PC003 exact: f is +-1
         x[k] = X[i];
       } else if (STATE == RE_SCHED || STATE == RE_SCHED_MID) {
         X[i] = X[i] + src[k][i];
-        if (STATE == RE_SCHED_MID) X[i] = fma_rn(cmc[i], cm, X[i]);  // exact: cm is 0 or -2
+        if (STATE == RE_SCHED_MID) X[i] = fma_rn(cmc[i], cm, X[i]);  // torchlint: disable=PC003 exact: cm is 0 or -2
         x[k] = X[i];
       } else {
         x[k] = X[i];
         if (STATE != RE_X && i < RPAD) {
           x[k] = x[k] + src[k][i];
-          if (STATE == RE_WINDOW_CORR) x[k] = fma_rn(cmc[i], cm, x[k]);  // exact: cm is 0 or -2
+          if (STATE == RE_WINDOW_CORR) x[k] = fma_rn(cmc[i], cm, x[k]);  // torchlint: disable=PC003 exact: cm is 0 or -2
         }
       }
     }
@@ -326,7 +326,7 @@ __device__ __forceinline__ void real_windows(
 #pragma unroll
       for (int i = 0; i < RPAD; ++i) {
         X[i] = X[i] + Dl[i];
-        X[i] = fma_rn(col_mid[i], cm, X[i]);
+        X[i] = fma_rn(col_mid[i], cm, X[i]);  // torchlint: disable=PC003 exact: cm is 0 or -2
       }
     }
 
@@ -339,7 +339,7 @@ __device__ __forceinline__ void real_windows(
     const T f = sb * live;
     const T* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
 #pragma unroll
-    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
+    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(colb[i], f, X[i]);  // torchlint: disable=PC003 exact: f is 0 or +-1
     // a separate pass: folded into the chain as an RE_STEP, ptxas takes
     // 174 registers at NPAD 32 (8 warps/SM) and spills at NPAD 24 and 64
     const T* none[1] = {nullptr};
@@ -408,7 +408,7 @@ __device__ __forceinline__ void sched_windows(
     const T f = sb * live;
     const T* colb = As + jb * NPAD;  // jb <= n - 1 < NPAD
 #pragma unroll
-    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(colb[i], f, X[i]);  // exact: f is 0 or +-1
+    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(colb[i], f, X[i]);  // torchlint: disable=PC003 exact: f is 0 or +-1
     const T* none[1] = {nullptr};
     T p[1];
     re_chain_rows<T, NPAD, RE_X, NPAD, 1>(X, none, {T(0)}, nullptr, T(0), n,
@@ -510,7 +510,7 @@ ryser_kernel(const T* __restrict__ A, const int* __restrict__ rows,
     const T bit = (T)((gs >> j) & 1ull);
     const T* col = As + j * NPAD;
 #pragma unroll
-    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(col[i], bit, X[i]);  // exact: bit is 0 or 1
+    for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(col[i], bit, X[i]);  // torchlint: disable=PC003 exact: bit is 0 or 1
   }
 
   const T* col_mid = low + (kw - 1) * NPAD;
@@ -597,8 +597,8 @@ __device__ __forceinline__ void cx_chain(
       xi = xi + Di[i];
     }
     if (STATE == CX_WINDOW_CORR) {
-      xr = fma_rn(cmr[i], cm, xr);  // exact: cm is 0 or -2
-      xi = fma_rn(cmi[i], cm, xi);
+      xr = fma_rn(cmr[i], cm, xr);  // torchlint: disable=PC003 exact: cm is 0 or -2
+      xi = fma_rn(cmi[i], cm, xi);  // torchlint: disable=PC003 exact: cm is 0 or -2
     }
     if (i == 0) {
       pr = xr;
@@ -704,8 +704,8 @@ ryser_cx_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
       T dr = 0, di = 0;
       for (int k = 0; k < kw; ++k) {
         const T c = c0[k * (Wu - 1) + idx];
-        dr = fma_rn(low_r[k * NPAD + i], c, dr);
-        di = fma_rn(low_i[k * NPAD + i], c, di);
+        dr = fma_rn(low_r[k * NPAD + i], c, dr);  // torchlint: disable=PC003 exact: c (a cumsig entry) is 0 or 1
+        di = fma_rn(low_i[k * NPAD + i], c, di);  // torchlint: disable=PC003 exact: c (a cumsig entry) is 0 or 1
       }
       Drs[idx * NPAD + i] = dr;
       Dis[idx * NPAD + i] = di;
@@ -729,8 +729,8 @@ ryser_cx_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
     const T* ci = Ais + j * NPAD;
 #pragma unroll
     for (int i = 0; i < NPAD; ++i) {
-      Xr[i] = fma_rn(cr[i], bit, Xr[i]);  // exact: bit is 0 or 1
-      Xi[i] = fma_rn(ci[i], bit, Xi[i]);
+      Xr[i] = fma_rn(cr[i], bit, Xr[i]);  // torchlint: disable=PC003 exact: bit is 0 or 1
+      Xi[i] = fma_rn(ci[i], bit, Xi[i]);  // torchlint: disable=PC003 exact: bit is 0 or 1
     }
   }
 
@@ -762,9 +762,9 @@ ryser_cx_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
 #pragma unroll
     for (int i = 0; i < NPAD; ++i) {
       Xr[i] = Xr[i] + Drl[i];
-      Xr[i] = fma_rn(cmr[i], cm, Xr[i]);
+      Xr[i] = fma_rn(cmr[i], cm, Xr[i]);  // torchlint: disable=PC003 exact: cm is 0 or -2
       Xi[i] = Xi[i] + Dil[i];
-      Xi[i] = fma_rn(cmi[i], cm, Xi[i]);
+      Xi[i] = fma_rn(cmi[i], cm, Xi[i]);  // torchlint: disable=PC003 exact: cm is 0 or -2
     }
 
     // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
@@ -778,8 +778,8 @@ ryser_cx_kernel(const T* __restrict__ Ar, const T* __restrict__ Ai,
     const T* cbi = Ais + jb * NPAD;
 #pragma unroll
     for (int i = 0; i < NPAD; ++i) {
-      Xr[i] = fma_rn(cbr[i], f, Xr[i]);  // exact: f is 0 or +-1
-      Xi[i] = fma_rn(cbi[i], f, Xi[i]);
+      Xr[i] = fma_rn(cbr[i], f, Xr[i]);  // torchlint: disable=PC003 exact: f is 0 or +-1
+      Xi[i] = fma_rn(cbi[i], f, Xi[i]);  // torchlint: disable=PC003 exact: f is 0 or +-1
     }
     T pr, pi;
     cx_chain_rows<T, NPAD, CX_X>(Xr, Xi, nullptr, nullptr, nullptr, nullptr,

@@ -164,6 +164,7 @@ def _low_columns(supp, kw: int):
     touched = torch.zeros((B, n), dtype=torch.bool, device=dev)
     col = torch.arange(n, device=dev)
     for _ in range(kw):
+        # torchlint: disable=PT001 an integer count of bools (leaf ordering)
         new = (supp & ~touched[:, None, :]).sum(-1)
         key = (new * n + col).masked_fill(taken, n * (n + 1))  # unique min
         j = torch.argmin(key, dim=-1)
@@ -185,6 +186,7 @@ def sparse_leaf_order(rows, kw: int):
     taken, touched = _low_columns(supp[..., :n], kw)
     cols = torch.argsort((~taken).to(torch.int8), dim=-1, stable=True)
     order = torch.argsort((~touched).to(torch.int8), dim=-1, stable=True)
+    # torchlint: disable=PT001 an integer count of bools (rows touched)
     return cols, order, touched.sum(-1)
 
 

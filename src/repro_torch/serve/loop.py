@@ -144,7 +144,7 @@ class PermanentService:
         # a service asked for the card on a machine without one raises here
         resolve_device(solver_config.device)
         self._clock = clock if clock is not None \
-            else (solver_config.clock or time.monotonic)  # permlint: disable=PL004  # sanctioned injectable-clock default
+            else (solver_config.clock or time.monotonic)  # permlint: disable=PL004  # sanctioned injectable-clock default  # torchlint: disable=PT004 the injectable clock's default
         self._log = log
         self._queue = LaneQueue(self.scfg.lanes)
         self.metrics = ServeMetrics(self._clock,

@@ -120,6 +120,7 @@ class Histogram:
 class ServeMetrics:
     """Counters + histograms for one service instance (injected clock)."""
 
+    # torchlint: disable=PT004 the injectable clock's default; tests pass their own
     def __init__(self, clock: Callable[[], float] = time.monotonic, *,  # permlint: disable=PL004  # injectable default; tests override
                  lanes: tuple[str, ...] = ()):
         self._clock = clock

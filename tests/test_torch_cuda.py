@@ -669,3 +669,25 @@ def test_campaign_kill_and_resume_on_card(card, tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr[-3000:]
     assert f"perm(A) = {ref:+.17e}" in r.stdout
 
+
+def test_prove_kernel_entries_equal_cpu_goldens_on_card(card):
+    """torchprove's cuda entries run kernels #1-#8 (and the f32 twins
+    twice): no finding, and every value equals the CPU golden bit for
+    bit."""
+    from repro_torch.analysis import prove
+    from repro_torch.kernels.build import ENTRIES
+    RC.reset_counters()
+    report = prove.run_check(entries="*_cuda.*", device="cuda")
+    assert report["findings"] == []
+    assert report["goldens"]["drifted"] == []
+    assert report["goldens"]["missing"] == []
+    assert RC.counters["block_partials_plain"] == 0
+    assert all(RC.counters[f"{e}{t}"] > 0 for e in ENTRIES
+               for t in ("", "_f32"))
+
+
+def test_large_permanent_example_resumes_bit_for_bit_on_card(card):
+    from repro_torch.examples import large_permanent
+    out = large_permanent.main("cuda")
+    assert out["bitwise"] and out["value"] == out["uninterrupted"]
+    assert out["rel"] < large_permanent.ENGINE_RTOL[True]

@@ -32,6 +32,12 @@ import repro_torch.serve, repro_torch.serve.compile_cache
 import repro_torch.launch.serve
 import repro_torch.tune, repro_torch.tune.search, repro_torch.launch.tune
 import repro_torch.utils.roofline, repro_torch.analysis.geometry
+import repro_torch.analysis.lint, repro_torch.analysis.rules
+import repro_torch.analysis.contracts, repro_torch.analysis.prove
+import repro_torch.analysis.check
+import repro_torch.examples.quickstart, repro_torch.examples.boson_sampling
+import repro_torch.examples.sparse_matchings
+import repro_torch.examples.large_permanent, repro_torch.examples.service
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
