@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--time-only | --serve-only | --tune-only |
-                           --examples-only | --prove-only]
+                           --examples-only | --prove-only | --mesh-only]
 
 Run from the repository root on a machine with a CUDA card and nvcc.  It
 builds the kernels from ``src/repro_torch/kernels/csrc`` (the dense real
@@ -34,6 +34,18 @@ and adds its launches to the kernels line; phase ``prove`` runs
 torchprove on the card (every entry against the CPU value goldens, bit
 for bit) and the 256 / 251 batch-extent check at n = 24;
 ``--examples-only`` and ``--prove-only`` run the build and that phase.
+Phase ``mesh`` runs the multi-device slice (``launch/mesh.py``, the mesh
+functions of ``core/distributed.py``) as worlds of 1, 2 and 4 ranks that
+all share the one card (``ranks_per_device`` = the world), spawned with
+a ``file://`` store after this process built the kernels: the step
+split of dense n = 30 and complex n = 28, the four 256 x 24 buckets and
+a ragged 251 x 24, the scalar sparse leaves and the all-ones n = 40
+campaign (its wall seconds at each world; the ranks time-slice the card,
+so no scaling is expected), each rank's values bit for bit the
+one-device ``cuda`` path's and its launches in the kernels line; then
+``launch/permanent.py --backend distributed`` and ``launch/campaign.py``
+(killed at world 2, resumed at 4, finished at 1) under ``python -m
+torch.distributed.run``; ``--mesh-only`` runs the build and this phase.
 A summary goes to ``chiprun_out/chip_smoke.json``.
 
 The build report gives each kernel instantiation's registers, spills and
@@ -61,11 +73,13 @@ import contextlib
 import json
 import math
 import os
+import queue
 import re
 import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3291,6 +3305,437 @@ def phase_prove(smoke: Smoke, torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Multi-device: the mesh functions over worlds of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MESH_WORLDS = (1, 2, 4)              # ranks, all on the one card
+N_MESH_CX = 28                       # the complex step split
+N_MESH_ONES = 40                     # the all-ones campaign timed a world
+MESH_RAGGED = 251                    # a ragged bucket at the widest world
+MESH_WORLD_TIMEOUT_S = 300.0         # a world that outlives this fails
+MESH_CLI_TIMEOUT_S = 300.0
+# the campaign CLI chain's slices: the port's default, 1024; a wave fills
+# the card (64 slices a rank at n = 36), so 256 would end at world 4
+MESH_KILL_SLICES = 1024
+
+
+def _mesh_config() -> dict:
+    """The mesh phase's sizes and device, sent to every rank (the ranks
+    start from a fresh import).  The main path's widths on the card."""
+    return dict(device=None, n=N_MAIN, n_cx=N_MESH_CX, b=B_THRU, nb=N_THRU,
+                degree=BUCKET_DEGREE, n_leaf=N_SPARSE,
+                leaf_degree=SPARSE_DEGREE, ragged=MESH_RAGGED,
+                n_ones=N_MESH_ONES, n_kill=CAMPAIGN_KILL_N,
+                kill_slices=MESH_KILL_SLICES)
+
+
+def _mesh_inputs(cfg: dict) -> dict:
+    """The mesh paths' matrices, from the seed: dense real n and complex
+    n_cx (the step split), b x nb stacks dense real and complex and
+    circulant bands of the bucket degree real and complex (the sharded
+    buckets), a band leaf n_leaf real and complex (scalar sparse leaves)."""
+    rng = np.random.default_rng(SEED + 70)
+    b, nb = cfg["b"], cfg["nb"]
+    bands = lambda cplx: np.stack([  # noqa: E731
+        _circulant_sparse(rng, nb, cfg["degree"], cplx) for _ in range(b)])
+    return {"dense": rng.uniform(-1, 1, (cfg["n"], cfg["n"])),
+            "complex": _cgauss(rng, (cfg["n_cx"], cfg["n_cx"])),
+            "dense_batch": rng.uniform(-1, 1, (b, nb, nb)),
+            "complex_batch": _cgauss(rng, (b, nb, nb)),
+            "sparse_batch": bands(False), "sparse_complex_batch": bands(True),
+            "leaf": _circulant_sparse(rng, cfg["n_leaf"], cfg["leaf_degree"]),
+            "leaf_complex": _circulant_sparse(rng, cfg["n_leaf"],
+                                              cfg["leaf_degree"], True)}
+
+
+def _mesh_rank(rank: int, world: int, cfg: dict) -> dict:
+    """One rank of a world: the mesh main path through the entry points a
+    user calls, with this rank's launch counters set to 0 just before and
+    read just after -- the step split of dense n and complex n_cx
+    (``permanent(backend="distributed")``), the four b x nb buckets and a
+    ragged one at world 4 (``permanent_batch(backend="distributed_batch")``),
+    the scalar sparse leaves (``distributed``: #5 / #7 on every rank), and
+    the all-ones n_ones campaign, its waves over the ranks, timed from a
+    barrier."""
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ryser_cuda as RC
+    from repro_torch.launch import mesh as M
+    mesh = M.make_mesh((world,), ("step",), device=cfg["device"],
+                       ranks_per_device=world)
+    if mesh.device.type == "cuda":
+        build.load_library()     # the parent's build: a load, no nvcc
+    ins = _mesh_inputs(cfg)
+    kw = dict(distributed_ctx=mesh, device=cfg["device"])
+    values, tags = {}, {}
+    torch.distributed.barrier()
+    RC.reset_counters()
+    t0 = time.perf_counter()
+    for key in ("dense", "complex", "leaf", "leaf_complex"):
+        values[key], rep = repro_torch.permanent(
+            ins[key], backend="distributed", return_report=True, **kw)
+        tags[key] = rep.dispatch
+    batches = ["dense_batch", "complex_batch", "sparse_batch",
+               "sparse_complex_batch"]
+    if world == max(MESH_WORLDS):
+        ins["ragged"] = ins["dense_batch"][:cfg["ragged"]]
+        batches.append("ragged")
+    for key in batches:
+        values[key], reps = repro_torch.permanent_batch(
+            ins[key], backend="distributed_batch", return_report=True, **kw)
+        tags[key] = sorted({t for r in reps for t in r.dispatch})
+    main_s = time.perf_counter() - t0
+    torch.distributed.barrier()
+    t1 = time.perf_counter()
+    values["ones"], rep = repro_torch.permanent(
+        np.ones((cfg["n_ones"], cfg["n_ones"])), backend="distributed",
+        return_report=True, **kw)
+    tags["ones"] = rep.dispatch
+    ones_s = time.perf_counter() - t1
+    return {"values": values, "tags": tags, "counters": dict(RC.counters),
+            "main_s": main_s, "ones_s": ones_s, "device": str(mesh.device),
+            "shard": mesh.index}
+
+
+def _mesh_references(smoke: Smoke, cfg: dict, ins: dict) -> dict:
+    """The one-device values the worlds are held against, computed in
+    this process on the card: ``run_campaign`` at each world's slice
+    decomposition (what ``permanent_on_mesh`` cuts), the ``cuda``
+    backend's buckets and leaves, the all-ones campaign (phase
+    ``campaign``'s value when it ran)."""
+    import repro_torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core.stepspace import plan_slices
+    dev = cfg["device"]
+    ref = {}
+    for world in MESH_WORLDS:
+        for key in ("dense", "complex"):
+            A = ins[key]
+            ts, cps, C = plan_slices(A.shape[0], world, 1, D.MESH_LANES)
+            ref[world, key] = D.run_campaign(
+                A, total_slices=ts, chunks_per_slice=cps, chunk_size=C,
+                device=dev)[0]
+    for key in ("leaf", "leaf_complex"):
+        ref[key] = repro_torch.permanent(ins[key], device=dev)
+    for key in ("dense_batch", "complex_batch", "sparse_batch",
+                "sparse_complex_batch"):
+        ref[key] = repro_torch.permanent_batch(ins[key], device=dev)
+    ref["ragged"] = repro_torch.permanent_batch(
+        ins["dense_batch"][:cfg["ragged"]], device=dev)
+    main = smoke.summary.get("campaign", {}).get("main", {})
+    ref["ones"] = main["value"] if main.get("n") == cfg["n_ones"] \
+        else repro_torch.permanent(np.ones((cfg["n_ones"],) * 2), device=dev)
+    return ref
+
+
+def _same(a, b) -> bool:
+    """Bit for bit: floats, complexes or arrays (NaN never equal)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        bool(np.all(a == b))
+
+
+def _process_tree(pid: int) -> list[int]:
+    """``pid`` and every process below it (from /proc): torchrun starts
+    each worker in a session of its own, so killing its process group
+    would leave the ranks running."""
+    children: dict[int, list[int]] = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        out.append(p)
+        todo += children.get(p, [])
+    return out
+
+
+def _kill_tree(pid: int) -> None:
+    for p in reversed(_process_tree(pid)):     # the ranks first
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(p, signal.SIGKILL)
+
+
+def _torchrun(k: int, module: str, args: list, cfg: dict,
+              kill_on: str | None = None) -> tuple[int, str]:
+    """``python -m torch.distributed.run --standalone --nproc-per-node k
+    -m <module> <args>`` with ``--ranks-per-device k`` (and ``--device``
+    when the phase runs off the card); with ``kill_on``, SIGKILL it and
+    every rank on the first output line holding it.  (exit code, output);
+    a run past MESH_CLI_TIMEOUT_S is killed and fails."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(k), "-m", module, *args,
+           "--ranks-per-device", str(k)]
+    if cfg["device"]:
+        cmd += ["--device", cfg["device"]]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    p = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+    deadline = time.monotonic() + MESH_CLI_TIMEOUT_S
+    # a thread reads the output, so the deadline holds while a world
+    # prints nothing (a rank stuck in a kernel or waiting on a peer)
+    got: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in p.stdout:
+            got.put(line)
+        got.put(None)
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    lines, rc = [], None
+    try:
+        while True:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                lines.append("[chip_smoke] killed at the timeout\n")
+                rc = -9
+                break
+            try:
+                line = got.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                continue
+            if line is None:             # the launcher closed its output
+                break
+            lines.append(line)
+            if kill_on and kill_on in line:
+                break
+    finally:
+        _kill_tree(p.pid)                # nothing of it outlives the call
+        try:
+            code = p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            code = -9
+        reader.join(timeout=10)
+        p.stdout.close()
+    return (code if rc is None else rc), "".join(lines)
+
+
+def _perm_line(out: str, tag: str) -> list[str]:
+    return [ln.split("perm(A) = ")[1].split()[0] for ln in out.splitlines()
+            if f"[{tag}] perm(A) = " in ln]
+
+
+def _mesh_clis(smoke: Smoke, cfg: dict, work: str) -> dict:
+    """Both CLIs under torchrun: ``launch/permanent.py --backend
+    distributed`` at world 2 (the step split of a U(-1, 1) n; one printed
+    value, bit for bit the one-device ``run_campaign`` at the world-2
+    decomposition), and ``launch/campaign.py`` on all-ones n_kill
+    with kill_slices slices: SIGKILLed after its first wave at world 2,
+    resumed for one wave at world 4, finished at world 1, against the
+    uninterrupted one-device run and n!."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.oracle import all_ones_permanent
+    from repro_torch.core.solver import PermanentSolver
+    from repro_torch.core.stepspace import plan_slices
+    # the matrices go in as --matrix files: torchrun's own parser (Python
+    # 3.12.3's argparse) reads a script's "--n" as an ambiguous
+    # abbreviation of its --nnodes / --nproc-per-node / ...
+    out = {}
+    n = cfg["n"]
+    A = np.random.default_rng(0).uniform(-1, 1, (n, n))
+    np.save(os.path.join(work, "A.npy"), A)
+    t = time.perf_counter()
+    rc, text = _torchrun(2, "repro_torch.launch.permanent",
+                         ["--backend", "distributed", "--matrix",
+                          os.path.join(work, "A.npy")], cfg)
+    ts, cps, C = plan_slices(n, 2, 1, D.MESH_LANES)
+    want = D.run_campaign(A, total_slices=ts, chunks_per_slice=cps,
+                          chunk_size=C, device=cfg["device"])[0]
+    got = _perm_line(text, "superman")
+    out["permanent_cli"] = {"rc": rc, "printed": got, "want": f"{want:+.17e}",
+                            "seconds": time.perf_counter() - t}
+    smoke.check(rc == 0 and got == [f"{want:+.17e}"],
+                f"mesh: launch/permanent.py --backend distributed --n {n} "
+                f"under torchrun at world 2 printed {got} once, the "
+                f"one-device value {want:+.17e} (rc {rc})")
+    if rc != 0 or got != [f"{want:+.17e}"]:
+        print(text[-3000:])
+    m, slices = cfg["n_kill"], cfg["kill_slices"]
+    ckpt = os.path.join(work, "mesh_job.npz")
+    np.save(os.path.join(work, "ones.npy"), np.ones((m, m)))
+    args = ["--matrix", os.path.join(work, "ones.npy"), "--slices",
+            str(slices), "--checkpoint", ckpt]
+    solver = PermanentSolver(preprocess=False, campaign_threshold=-1.0,
+                             campaign_slices=slices, cache=False,
+                             device=cfg["device"])
+    whole = solver.execute(solver.plan(np.ones((m, m))))
+    legs = []
+    for k, extra, kill in ((2, [], "[campaign] wave"),
+                           (4, ["--max-waves", "1"], None), (1, [], None)):
+        t = time.perf_counter()
+        rc, text = _torchrun(k, "repro_torch.launch.campaign", args + extra,
+                             cfg, kill_on=kill)
+        legs.append({"world": k, "rc": rc, "seconds":
+                     time.perf_counter() - t,
+                     "waves": text.count("[campaign] wave"),
+                     "paused": "[campaign] paused" in text,
+                     "printed": _perm_line(text, "campaign")})
+        print(f"mesh campaign CLI world {k}: rc {rc}, {legs[-1]}")
+        if kill is None and not legs[-1]["paused"] and \
+                not legs[-1]["printed"]:
+            print(text[-3000:])
+    exact = all_ones_permanent(m)
+    rel = abs(whole - exact) / exact
+    ok = (legs[0]["waves"] == 1 and legs[1]["paused"]
+          and legs[1]["waves"] == 1
+          and legs[2]["rc"] == 0 and legs[2]["printed"] == [f"{whole:+.17e}"])
+    smoke.check(ok and rel <= ONES_BAR,
+                f"mesh: launch/campaign.py all-ones n={m} under torchrun, "
+                f"killed after its first wave at world 2, one wave at world "
+                f"4, finished at world 1: {legs[2]['printed']} against the "
+                f"uninterrupted one-device {whole:+.17e}, rel.err to {m}! "
+                f"{rel:.3e}")
+    out["campaign_cli"] = {"legs": legs, "uninterrupted": f"{whole:+.17e}",
+                           "rel_err": rel}
+    return out
+
+
+def _mesh_without_mesh(smoke: Smoke, cfg: dict, ins: dict,
+                       total: dict) -> None:
+    """Both distributed strategies with no mesh, in this process: on the
+    card they run the ``cuda`` body (kernels #1 and #2, never the torch
+    engine), bit for bit the ``cuda`` backend's (on the CPU the ``torch``
+    engine's); their launches, counted from 0, join the phase's."""
+    import repro_torch
+    from repro_torch.kernels import ryser_cuda as RC
+    dev, A, stack = cfg["device"], ins["dense"], ins["dense_batch"]
+    on_card = dev is None
+    base = "cuda" if on_card else "torch"     # the CPU's downgrade
+    want = (repro_torch.permanent(A, backend=base, device=dev),
+            repro_torch.permanent_batch(stack, backend=base, device=dev))
+    RC.reset_counters()
+    got = {s: (repro_torch.permanent(A, backend=s, device=dev),
+               repro_torch.permanent_batch(stack, backend=s, device=dev))
+           for s in ("distributed", "distributed_batch")}
+    counts = dict(RC.counters)
+    for k, v in counts.items():
+        total[k] += v
+    bad = [s for s, v in got.items()
+           if not (_same(v[0], want[0]) and _same(v[1], want[1]))]
+    plain = {k: v for k, v in counts.items()
+             if k.startswith("block_partials") and v}
+    launched = counts["ryser_dense_scalar"] == 2 and \
+        counts["ryser_dense_batched"] >= 2 and not plain
+    smoke.check(not bad and (launched or not on_card),
+                f"mesh: no mesh, distributed and distributed_batch run the "
+                f"cuda body on the card, bit for bit (differ: {bad}; "
+                f"launches {({k: v for k, v in counts.items() if v})})")
+
+
+def phase_mesh(smoke: Smoke, torch, card: dict, cfg: dict | None = None
+               ) -> dict:
+    """The multi-device slice on the one card: worlds of 1, 2 and 4 ranks
+    (``ranks_per_device`` = the world; the kernel library built once, by
+    this process, and loaded by each rank), each driving the mesh main
+    path (``_mesh_rank``) and held bit for bit against the one-device
+    ``cuda`` path computed here; then both CLIs under torchrun.  A rank
+    that fails or a world past its timeout fails the phase.  Returns the
+    launches of every rank of every world."""
+    import shutil
+
+    from repro_torch.core.oracle import all_ones_permanent
+    from repro_torch.kernels import ryser_cuda as RC
+    from repro_torch.launch import mesh as M
+    cfg = cfg or _mesh_config()
+    t0 = time.perf_counter()
+    ins = _mesh_inputs(cfg)
+    ref = _mesh_references(smoke, cfg, ins)
+    total = dict.fromkeys(RC.counters, 0)
+    out = {"worlds": {}, "ranks_per_device": {}}
+    _mesh_without_mesh(smoke, cfg, ins, total)
+    work = tempfile.mkdtemp(prefix="mesh_")
+    try:
+        for world in MESH_WORLDS:
+            t = time.perf_counter()
+            try:
+                ranks = M.run_world(_mesh_rank, world,
+                                    os.path.join(work, f"w{world}"),
+                                    args=(cfg,),
+                                    timeout_s=MESH_WORLD_TIMEOUT_S)
+            except RuntimeError as e:
+                smoke.check(False, f"mesh: world of {world} ranks ran "
+                                   f"({str(e)[-2000:]})")
+                continue
+            seconds = time.perf_counter() - t
+            first = ranks[0]
+            same = all(_same(r["values"][k], v) for r in ranks
+                       for k, v in first["values"].items())
+            bad = []
+            for key, got in first["values"].items():
+                want = ref[world, key] if (world, key) in ref else ref[key]
+                if not _same(got, want):
+                    bad.append(key)
+            smoke.check(same and not bad,
+                        f"mesh: world {world} (ranks_per_device {world}): "
+                        f"every rank returns the same bits, equal to the "
+                        f"one-device cuda path (differ: {bad})")
+            tags_ok = all(r["tags"][k] == [f"dense(n={cfg['n']})"]
+                          for r in ranks for k in ("dense",)) and all(
+                "->" not in t for r in ranks for k in r["tags"]
+                if k.endswith("batch") or k == "ragged"
+                for t in r["tags"][k]) and all(
+                r["tags"]["ones"] == [f"campaign(n={cfg['n_ones']},cuda)"]
+                for r in ranks)
+            smoke.check(tags_ok, f"mesh: world {world} dispatch tags "
+                                 f"{first['tags']}")
+            exact = all_ones_permanent(cfg["n_ones"])
+            rel = abs(first["values"]["ones"] - exact) / exact
+            smoke.check(rel <= ONES_BAR, f"mesh: world {world} all-ones "
+                        f"n={cfg['n_ones']} rel.err {rel:.3e} <= "
+                        f"{ONES_BAR:g}")
+            missing = [(r["shard"], k) for r in ranks for k in KERNEL_ENTRIES
+                       if not r["counters"].get(k)]
+            plain = {k: v for r in ranks for k, v in r["counters"].items()
+                     if k.startswith("block_partials") and v}
+            on_card = cfg["device"] is None
+            smoke.check(not on_card or (not missing and not plain),
+                        f"mesh: world {world}: #1-#8 launched on every rank, "
+                        f"no plain version (not launched: {missing}; plain "
+                        f"{plain})")
+            for r in ranks:
+                for k, v in r["counters"].items():
+                    total[k] += v
+            w = {"seconds": seconds,
+                 "main_s": [r["main_s"] for r in ranks],
+                 "ones_s": first["ones_s"], "ones_value": first["values"][
+                     "ones"], "ones_rel_err": rel,
+                 "launches": [{k: v for k, v in r["counters"].items() if v}
+                              for r in ranks],
+                 "devices": [r["device"] for r in ranks]}
+            out["worlds"][world] = w
+            out["ranks_per_device"][world] = world
+            print(f"mesh world {world} (ranks_per_device {world}, devices "
+                  f"{w['devices']}): {seconds:.1f} s, main path "
+                  f"{max(w['main_s']):.3f} s, all-ones n={cfg['n_ones']} "
+                  f"{w['ones_s']:.4f} s, launches rank 0 "
+                  f"{w['launches'][0]}")
+        out["cli"] = _mesh_clis(smoke, cfg, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    walls = {k: v["ones_s"] for k, v in out["worlds"].items()}
+    print(f"mesh all-ones n={cfg['n_ones']} campaign wall seconds by world: "
+          f"{walls} on {card['nvidia_smi']}; the ranks time-slice one card, "
+          f"so no scaling is expected or claimed")
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: v for k, v in total.items() if v}
+    print(f"mesh phase: {out['seconds']:.1f} s; launches of #1-#8 over "
+          f"every rank: { {k: total[k] for k in KERNEL_ENTRIES} }")
+    smoke.summary["mesh"] = out
+    return total
+
+
 def time_only(smoke: Smoke, torch, card: dict) -> int:
     """``--time-only``: after the build, only the timing rounds of the timed
     entries (no plain pass, no value check, no result line), for comparing
@@ -3342,6 +3787,10 @@ def main() -> int:
         phase_prove(smoke, torch)
         print(f"chip_smoke --prove-only: failures {smoke.failures}")
         return 1 if smoke.failures else 0
+    if "--mesh-only" in sys.argv[1:]:
+        phase_mesh(smoke, torch, card)
+        print(f"chip_smoke --mesh-only: failures {smoke.failures}")
+        return 1 if smoke.failures else 0
     window_err = {**phase_kernel_vs_plain(smoke, torch),
                   **phase_kernel_vs_plain_complex(smoke, torch)}
     parity_err, parity_launches = phase_entry_parity(smoke, torch)
@@ -3377,11 +3826,14 @@ def main() -> int:
     smoke.check(ran == set(KERNEL_ENTRIES),
                 f"examples and prove: #1-#8 all launched "
                 f"({sorted(set(KERNEL_ENTRIES) - ran)} did not)")
+    mesh_launches = phase_mesh(smoke, torch, card)
     for row in rows:
-        row["launches"] += example_launches.get(row["name"], 0)
+        row["launches"] += example_launches.get(row["name"], 0) + \
+            mesh_launches.get(row["name"], 0)
     print(f"phase seconds: serve {smoke.summary['serve']['seconds']:.1f}, "
           f"examples {smoke.summary['examples']['seconds']:.1f}, prove "
-          f"{smoke.summary['prove']['seconds']:.1f}, all "
+          f"{smoke.summary['prove']['seconds']:.1f}, mesh "
+          f"{smoke.summary['mesh']['seconds']:.1f}, all "
           f"{time.perf_counter() - t_start:.1f}")
     smoke.summary.update(card=card, kernels=rows,
                          seconds=time.perf_counter() - t_start,

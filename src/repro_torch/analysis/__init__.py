@@ -14,7 +14,8 @@ imports jax or the reference package.
   replay of ``run_campaign``, tuning tables, routes, meta shapes.
 * ``contracts.py`` + ``prove.py`` -- torchprove (``--check``,
   ``--bless``): every entry at every precision under an op recorder,
-  and the value goldens in ``tests/torch_goldens/``.
+  the value goldens in ``tests/torch_goldens/``, and the mesh entries
+  under a collective recorder (PT104).
 * ``check.py`` -- ``python -m repro_torch.analysis.check``: the three in
   order, exiting with the worst status.
 
@@ -60,8 +61,11 @@ PT102    PLI102     a narrowing cast on an f64/c128 path (the f32 fault
 PT103    PLI103     values drifted with the batch extent (reference PR 4);
                     held here on values and on the op trace, and on a
                     second run
-(none)   PLI104     the collective audit waits for the port's mesh
-                    functions (ROADMAP, modules queue, item 7)
+PT104    PLI104     an extra or order-free collective (a psum, an
+                    ``all_reduce``) changes the cross-device order; the
+                    port's mesh functions gather and reduce in slice-id
+                    or bucket order, held on the ``torch.distributed``
+                    calls each mesh entry made
 =======  =========  ======================================================
 """
 

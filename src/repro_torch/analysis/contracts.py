@@ -18,6 +18,13 @@ PT103  batch-extent invariance: the op traces at the two extents are equal
        equals member i of the other bit for bit, and an entry run twice
        gives the same bits: the counterpart of PLI103, with the values
        themselves held as well as the program.
+PT104  the collective audit of the mesh functions, the counterpart of
+       PLI104: :class:`CollectiveRecorder` records every
+       ``torch.distributed`` collective a mesh entry called; a value path
+       may use only ``all_gather``, ``broadcast_object_list`` and
+       ``barrier`` (never ``all_reduce`` or ``reduce``, whose order over
+       the ranks is the library's), each within the entry's budget: one
+       digest gather and one partials gather a call, or a wave.
 
 Import-light: ``OpRecorder`` imports torch only when it is built.
 """
@@ -31,7 +38,8 @@ from .rules import Finding
 
 __all__ = ["PT_RULES", "OpRecord", "OpRecorder", "pt101_reductions",
            "pt102_dtype_flow", "pt103_batch_invariance", "pt103_bits",
-           "lines_batch_variant"]
+           "lines_batch_variant", "CollectiveRecorder", "COLLECTIVES",
+           "SANCTIONED_COLLECTIVES", "pt104_collectives"]
 
 PT_RULES = {
     "PT101": "no floating-point reduction over an axis whose extent tracks "
@@ -40,7 +48,20 @@ PT_RULES = {
              "f64 or c128 entry",
     "PT103": "batch-extent invariance of the op trace and of the values, "
              "and the same bits from a second run",
+    "PT104": "a mesh function's collectives: all_gather / "
+             "broadcast_object_list / barrier only, within its budget",
 }
+
+# every collective of torch.distributed a recorder watches
+COLLECTIVES = ("all_reduce", "reduce", "all_gather", "all_gather_into_tensor",
+               "all_gather_object", "broadcast", "broadcast_object_list",
+               "barrier", "reduce_scatter", "reduce_scatter_tensor",
+               "all_to_all", "all_to_all_single", "gather", "scatter",
+               "gather_object", "scatter_object_list", "send", "recv",
+               "isend", "irecv")
+# the ones a value path may call: each rank gets every rank's data and
+# reduces it itself, in an order the code fixes
+SANCTIONED_COLLECTIVES = ("all_gather", "broadcast_object_list", "barrier")
 
 _SHORT = {"float16": "f16", "bfloat16": "bf16", "float32": "f32",
           "float64": "f64", "complex64": "c64", "complex128": "c128",
@@ -256,3 +277,59 @@ def pt103_bits(entry: str, precision: str, what: str, got: list[str],
     return [Finding("PT103", entry, first, 0,
                     f"precision={precision}: {what}: value {first} is {a} "
                     f"against {b} ({len(bad)} of {len(got)} differ)")]
+
+
+class CollectiveRecorder:
+    """A context manager that records every ``torch.distributed``
+    collective called inside it (``COLLECTIVES``, looked up on the module
+    at call time, as the port calls them) as ``(name, detail)`` and then
+    calls it."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, str]] = []
+        self._saved: dict = {}
+
+    def __enter__(self) -> "CollectiveRecorder":
+        import torch.distributed as dist
+        for name in COLLECTIVES:
+            real = getattr(dist, name, None)
+            if real is None:
+                continue
+            self._saved[name] = real
+
+            def wrapped(*args, _name=name, _real=real, **kwargs):
+                self.calls.append((_name, _render(args)))
+                return _real(*args, **kwargs)
+            setattr(dist, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for name, real in self._saved.items():
+            setattr(dist, name, real)
+        self._saved.clear()
+        return False
+
+
+def pt104_collectives(entry: str, calls: list[tuple[str, str]],
+                      budget: dict[str, int]) -> list[Finding]:
+    """Findings for collectives outside ``SANCTIONED_COLLECTIVES`` and for
+    counts past ``budget`` (kind -> the most allowed; a sanctioned kind
+    absent from it is allowed none)."""
+    counts: dict[str, int] = {}
+    for name, _ in calls:
+        counts[name] = counts.get(name, 0) + 1
+    out = []
+    for name, k in sorted(counts.items()):
+        if name not in SANCTIONED_COLLECTIVES:
+            out.append(Finding(
+                "PT104", entry, 0, 0,
+                f"{name} x{k} on a value path: its order over the ranks is "
+                f"the library's, so the value would depend on the world; "
+                f"gather and reduce in a fixed order"))
+        elif k > budget.get(name, 0):
+            out.append(Finding(
+                "PT104", entry, 0, 0,
+                f"{name} x{k} past its budget of {budget.get(name, 0)}: one "
+                f"digest gather and one partials gather a call or a wave"))
+    return out

@@ -28,8 +28,17 @@ golden from another torch version is still held.  A golden that drifts or
 is missing is a finding.  ``--bless`` rewrites them, for an intended
 change to the numerics only (say so in ``CHANGES.md``).
 
-PLI104, the reference's collective audit of its mesh programs, waits for
-the port's mesh functions (ROADMAP, modules queue, item 7).
+PT104, the counterpart of the reference's collective audit PLI104, runs
+the nine mesh entries (``MESH_ENTRIES``: ``core/distributed.py``'s
+``permanent_on_mesh``, ``slice_sums_on_mesh``, ``run_campaign`` over a
+mesh, ``batch_permanents_on_mesh`` and
+``sparse_batch_permanents_on_mesh``, f64 and c128) at ``dq_acc`` on a
+("step",) mesh of the current world (a world of one rank in this process
+when none exists) under ``contracts.CollectiveRecorder``: only
+``all_gather`` / ``broadcast_object_list`` / ``barrier``, one digest
+gather and one partials gather a call (a wave for the campaign, plus one
+broadcast of its state), and every value bit for bit the one-device
+entry's (PT103).
 """
 
 from __future__ import annotations
@@ -44,9 +53,9 @@ from dataclasses import dataclass
 from . import contracts as K
 from .rules import Finding
 
-__all__ = ["ENTRIES", "Entry", "PRECISIONS", "GOLDEN_DIR", "run_check",
-           "bless", "entry_values", "golden_path", "extent_invariance",
-           "main"]
+__all__ = ["ENTRIES", "Entry", "MESH_ENTRIES", "PRECISIONS", "GOLDEN_DIR",
+           "run_check", "bless", "entry_values", "golden_path",
+           "extent_invariance", "mesh_audit", "main"]
 
 VERSION = "torchprove/1"
 PRECISIONS = ("dd", "dq_fast", "dq_acc", "kahan", "qq")
@@ -57,8 +66,12 @@ MAXDEG = 3                   # the sparse entries' column degree at N
 CPS, CHUNK = 2, 4            # a wave: chunks per slice, steps per chunk
 CANON_B, ALT_B = 5, 7        # two coprime batch extents
 SEED = 20250226
-PLI104 = "PLI104 (collective audit) waits for the mesh functions: ROADMAP " \
-         "modules queue, item 7"
+MESH_FUNCTIONS = ("permanent_on_mesh", "slice_sums_on_mesh", "run_campaign",
+                  "batch_permanents_on_mesh",
+                  "sparse_batch_permanents_on_mesh")
+MESH_ENTRIES = tuple(f"mesh_{fn}.{dt}" for fn in MESH_FUNCTIONS
+                     for dt in ("f64", "c128")
+                     if (fn, dt) != ("slice_sums_on_mesh", "c128"))
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))))
@@ -259,6 +272,97 @@ def _entry_findings(entry: Entry, precision: str, device: str):
 
 
 # ---------------------------------------------------------------------------
+# PT104: the mesh entries' collectives
+# ---------------------------------------------------------------------------
+
+def _mesh_run(name: str, mesh, device: str, work: str):
+    """(mesh values, one-device values, collective budget) of one mesh
+    entry on the prove inputs at ``dq_acc``."""
+    import numpy as np
+
+    from ..core import distributed as D
+    from ..core import sparyser
+    from ..core.stepspace import plan_slices
+    from ..kernels import ops
+
+    fn, dt = name[len("mesh_"):].split(".")
+    cplx = dt == "c128"
+    sparse = fn.startswith("sparse")
+    As = inputs(Entry("sparse" if sparse else "dense", "cuda", dt, "batch"),
+                ALT_B)
+    A = As[0]
+    prec = "dq_acc"
+    once = {"all_gather": 2}
+    if fn == "permanent_on_mesh":
+        ts, cps, C = plan_slices(N, mesh.size, 1, 4)
+        got = [D.permanent_on_mesh(A, mesh, precision=prec,
+                                   lanes_per_device=4)]
+        want = [D.run_campaign(A, total_slices=ts, chunks_per_slice=cps,
+                               chunk_size=C, precision=prec,
+                               device=device)[0]]
+        return got, want, once
+    slices = (1 << (N - 1)) // (CPS * CHUNK)
+    if fn == "slice_sums_on_mesh":
+        ids = [0, 1, -1] + list(range(3, slices))
+        his, los = D.slice_sums_on_mesh(A, mesh, ids, chunks_per_slice=CPS,
+                                        chunk_size=CHUNK, precision=prec)
+        h, e, _ = D.slice_sums(A, [i for i in ids if i >= 0],
+                               chunks_per_slice=CPS, chunk_size=CHUNK,
+                               precision=prec, device=device)
+        h, e = np.insert(h, 2, 0.0), np.insert(e, 2, 0.0)
+        return list(his) + list(los), list(h) + list(e), once
+    if fn == "run_campaign":
+        waves = []
+        spec = dict(total_slices=slices, chunks_per_slice=CPS,
+                    chunk_size=CHUNK, precision=prec, wave_width=1)
+        got, _ = D.run_campaign(
+            A, mesh=mesh, checkpoint_path=os.path.join(work, f"{dt}.npz"),
+            progress_cb=lambda _s, w: waves.append(w), **spec)
+        want, _ = D.run_campaign(A, device=device, **spec)
+        return [got], [want], {"all_gather": 1 + len(waves),
+                               "broadcast_object_list": 1}
+    if fn == "batch_permanents_on_mesh":
+        got = D.batch_permanents_on_mesh(As, mesh, precision=prec)
+        want = ops.permanent_cuda_batched(As, precision=prec, device=device)
+        return list(got), list(want.cpu().numpy()), once
+    got = D.sparse_batch_permanents_on_mesh(As, mesh, precision=prec)
+    want = ops.sparse_batched_values_cuda(As, *sparyser.padded_ccs(As),
+                                          precision=prec, device=device)
+    return list(got), list(want.cpu().numpy()), once
+
+
+def mesh_audit(names, device: str = "cpu") -> tuple[list[Finding], dict]:
+    """PT104 (and the mesh values against the one-device entries, PT103)
+    for the mesh entries ``names`` on a ("step",) mesh of the current
+    world, or of a world of one rank made here: ``(findings, {entry:
+    {"calls": {kind: count}, "budget": {...}}})``."""
+    import tempfile
+
+    import numpy as np
+
+    from ..launch import mesh as mesh_lib
+    findings: list[Finding] = []
+    inventory: dict = {}
+    if not names:
+        return findings, inventory
+    with mesh_lib.world(), tempfile.TemporaryDirectory() as work:
+        mesh = mesh_lib.make_mesh((mesh_lib.world_size(),), ("step",),
+                                  device=device)
+        for name in names:
+            with K.CollectiveRecorder() as rec:
+                got, want, budget = _mesh_run(name, mesh, device, work)
+            findings += K.pt104_collectives(name, rec.calls, budget)
+            findings += K.pt103_bits(
+                name, "dq_acc", "the mesh entry against the one-device one",
+                _flat(_hex(np.asarray(got))), _flat(_hex(np.asarray(want))))
+            calls: dict = {}
+            for kind, _ in rec.calls:
+                calls[kind] = calls.get(kind, 0) + 1
+            inventory[name] = {"calls": calls, "budget": budget}
+    return findings, inventory
+
+
+# ---------------------------------------------------------------------------
 # Goldens
 # ---------------------------------------------------------------------------
 
@@ -279,6 +383,11 @@ def _select(pattern: str | None) -> list[Entry]:
     if not pattern:
         return list(ENTRIES)
     return [e for e in ENTRIES if fnmatch.fnmatch(e.name, pattern)]
+
+
+def _select_mesh(pattern: str | None) -> list[str]:
+    return [m for m in MESH_ENTRIES
+            if not pattern or fnmatch.fnmatch(m, pattern)]
 
 
 def run_check(entries: str | None = None, golden_dir: str | None = None,
@@ -316,11 +425,17 @@ def run_check(entries: str | None = None, golden_dir: str | None = None,
             if want.get(prec) != got[prec]:
                 drifted.append({"entry": entry.name, "precision": prec,
                                 "want": want.get(prec), "got": got[prec]})
+    mesh_names = [] if bless_mode else _select_mesh(entries)
+    mesh_found, pt104 = mesh_audit(mesh_names, device)
+    findings += mesh_found
+    if log and mesh_names:
+        log(f"  ran {len(mesh_names)} mesh entries on {device} (PT104)")
     return {"version": VERSION, "device": device,
-            "entries": [e.name for e in selected], "findings": findings,
+            "entries": [e.name for e in selected] + mesh_names,
+            "findings": findings,
             "goldens": {"dir": gdir, "drifted": drifted, "missing": missing,
                         "blessed": blessed},
-            "pli104": PLI104}
+            "pt104": pt104}
 
 
 def bless(entries: str | None = None, golden_dir: str | None = None,
@@ -363,9 +478,13 @@ def render(report: dict) -> str:
                      f" want {d['want']}, got {d['got']}")
     lines += [f"GOLDEN MISSING {name}: no {name}.json in {g['dir']}; run "
               f"--bless and commit it" for name in g["missing"]]
-    lines.append(f"note: {report['pli104']}")
-    lines.append(f"torchprove: {len(report['entries'])} entries x "
-                 f"{len(PRECISIONS)} precisions on {report['device']}, "
+    for name, inv in report["pt104"].items():
+        calls = ", ".join(f"{k} x{v}" for k, v in sorted(inv["calls"].items()))
+        lines.append(f"PT104 {name}: {calls} (budget {inv['budget']})")
+    n_mesh = len(report["pt104"])
+    lines.append(f"torchprove: {len(report['entries']) - n_mesh} entries x "
+                 f"{len(PRECISIONS)} precisions and {n_mesh} mesh entries "
+                 f"on {report['device']}, "
                  f"{len(report['findings'])} finding(s), "
                  f"{len(g['drifted']) + len(g['missing'])} golden "
                  f"problem(s)")
@@ -396,7 +515,8 @@ def main(argv=None) -> int:
     if args.check == args.bless:
         ap.print_usage(sys.stderr)
         return 2
-    if args.entries and not _select(args.entries):
+    if args.entries and not _select(args.entries) \
+            and not _select_mesh(args.entries):
         print(f"no entries match {args.entries!r}", file=sys.stderr)
         return 2
     if args.bless and args.device != "cpu":

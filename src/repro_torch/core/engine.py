@@ -12,6 +12,8 @@ re-execution or the request queue holds a ``PermanentSolver`` instead.
 
 from __future__ import annotations
 
+from typing import Any
+
 import numpy as np
 
 from .distributed import CampaignPaused
@@ -38,6 +40,7 @@ def _config(precision: str, preprocess: bool, dm: bool | None,
 def permanent(A, *, precision: str = "dq_acc", preprocess: bool = True,
               dm: bool | None = None, fm: bool | None = None,
               num_chunks: int = 4096, backend: str = "cuda", device=None,
+              distributed_ctx: Any | None = None,
               return_report: bool = False):
     """Compute perm(A) of an (n, n) matrix the SUperman way.
 
@@ -48,9 +51,14 @@ def permanent(A, *, precision: str = "dq_acc", preprocess: bool = True,
       preprocess / dm / fm: DM + FM preprocessing switches (Sec. 4).
       num_chunks: chunk count of the ``torch`` engine (Alg. 3's tau).
       backend: ``cuda`` (the kernels; the default) or ``torch`` (the
-        chunked engines).  Leaves below density 0.30 take the sparse
-        route (SpaRyser), the others the dense one.
+        chunked engines); ``distributed`` splits the step space over the
+        ranks of ``distributed_ctx``'s mesh (each rank's body ``cuda``).
+        Leaves below density 0.30 take the sparse route (SpaRyser), the
+        others the dense one.
       device: None (the card) or ``"cpu"``.
+      distributed_ctx: a ``launch.mesh.Mesh`` (or an object with a
+        ``.mesh``) for the distributed backends and campaign waves; every
+        rank of it makes the same call.
       return_report: also return a PermanentReport.
     """
     A = np.asarray(A)
@@ -58,7 +66,7 @@ def permanent(A, *, precision: str = "dq_acc", preprocess: bool = True,
         raise ValueError(f"square matrix required, got {A.shape}")
     cfg = _config(precision, preprocess, dm, fm, num_chunks, backend, device)
     plan = build_plan([A], cfg, batched=False)
-    totals, reports, _ = execute_plan(plan)
+    totals, reports, _ = execute_plan(plan, distributed_ctx=distributed_ctx)
     plan_values(plan, totals, reports)
     report = reports[0]
     return (report.value, report) if return_report else report.value
@@ -67,7 +75,8 @@ def permanent(A, *, precision: str = "dq_acc", preprocess: bool = True,
 def permanent_batch(As, *, precision: str = "dq_acc", preprocess: bool = True,
                     dm: bool | None = None, fm: bool | None = None,
                     num_chunks: int = 4096, backend: str = "cuda",
-                    device=None, return_report: bool = False) -> np.ndarray:
+                    device=None, distributed_ctx: Any | None = None,
+                    return_report: bool = False) -> np.ndarray:
     """perm(A) for a stack of real or complex matrices in bucketed
     batches.
 
@@ -75,7 +84,11 @@ def permanent_batch(As, *, precision: str = "dq_acc", preprocess: bool = True,
     (dense, or sparse below density 0.30) share one bucket program
     (``cuda``: one batch-grid launch of the dense or the SpaRyser kernel),
     single-leaf buckets take the scalar path.  ``As`` is (B, n, n) or a sequence of square
-    matrices of any sizes; arguments as in ``permanent``.  Returns a (B,)
+    matrices of any sizes; arguments as in ``permanent``
+    (``distributed`` / ``distributed_batch`` shard each bucket's batch
+    axis over ``distributed_ctx``'s mesh; without one they run as
+    ``cuda`` on a card, and on ``torch`` with a ``distributed->torch``
+    tag on the CPU).  Returns a (B,)
     float64 array (complex128 when any matrix is complex), with
     ``return_report`` a ``(values, reports)`` tuple.
     """
@@ -85,6 +98,6 @@ def permanent_batch(As, *, precision: str = "dq_acc", preprocess: bool = True,
             raise ValueError(f"square matrices required, got {M.shape}")
     cfg = _config(precision, preprocess, dm, fm, num_chunks, backend, device)
     plan = build_plan(mats, cfg, batched=True)
-    totals, reports, _ = execute_plan(plan)
+    totals, reports, _ = execute_plan(plan, distributed_ctx=distributed_ctx)
     out = plan_values(plan, totals, reports)
     return (out, reports) if return_report else out

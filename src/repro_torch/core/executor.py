@@ -4,7 +4,7 @@ The port of the reference package's ``core/executor.py`` for the dense,
 sparse and campaign routes, real and complex.  Each :class:`Backend` runs
 one leaf and (optionally) a whole same-size bucket of either route;
 ``register_backend`` adds strategies without touching the dispatcher.
-Three register at import:
+Five register at import:
 
 * ``torch`` -- the chunked torch engines (``core/ryser.py``, sparse
   ``core/sparyser.py``), the counterpart of the reference's ``jnp``;
@@ -24,7 +24,27 @@ Three register at import:
   the torch engine under ``torch``.  Its tag is ``campaign(n=..,cuda)``;
   a ``campaign_max_waves`` budget that runs out raises
   :class:`~repro_torch.core.distributed.CampaignPaused` through
-  :func:`execute_plan`.
+  :func:`execute_plan`; with a mesh in the context its waves span the
+  mesh's ranks;
+* ``distributed_batch`` -- a bucket's batch axis sharded over the ranks
+  of the mesh in ``execute_plan(..., distributed_ctx=)``
+  (``distributed.batch_permanents_on_mesh`` /
+  ``sparse_batch_permanents_on_mesh``); each rank's body is ``cuda``
+  (the kernels on the card, their plain versions on the CPU, the torch
+  engine below the kernel floor n < 4, as ``cuda`` does); a scalar leaf
+  runs as under ``cuda`` on every rank;
+* ``distributed`` -- as ``distributed_batch``, and a scalar dense leaf is
+  split over the Gray-step space of the mesh (``permanent_on_mesh``).
+
+Without a mesh both ``distributed`` strategies run as ``cuda`` on a card
+(the kernels, never the torch engine, serve card tensors), and as
+``torch`` on the CPU: buckets with a ``distributed->torch`` downgrade tag
+(the reference's ``distributed->jnp``).  A value's cache identity names the strategy
+whose numerics produced it (``value_backend``), so a torch-engine
+downgrade never satisfies a sharded lookup.  The ``distributed_ctx`` is a
+``launch.mesh.Mesh`` or any object with a ``.mesh`` (e.g.
+``distributed.DistributedPermanent``); every rank of the mesh executes
+the same plan.
 
 All run on ``SolverConfig.device`` (None = the card).  A complex ``qq``
 plan runs as ``kahan`` and says so with a ``precision(qq->kahan)`` tag on
@@ -49,19 +69,38 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from typing import Any
 
 import numpy as np
+import torch
 
 from . import ryser as R
 from . import sparyser as S
 from .cache import ResultCache
-from .planner import (ROUTE_CAMPAIGN, ROUTE_DENSE, ROUTE_INLINE,
-                      ROUTE_SPARSE, CampaignSpec, ExecutionPlan, LeafTask,
-                      PermanentReport)
+from .planner import (KERNEL_BACKENDS, ROUTE_CAMPAIGN, ROUTE_DENSE,
+                      ROUTE_INLINE, ROUTE_SPARSE, CampaignSpec, ExecutionPlan,
+                      LeafTask, PermanentReport)
 
-__all__ = ["Backend", "TorchBackend", "CudaBackend", "CampaignBackend",
+__all__ = ["Backend", "TorchBackend", "CudaBackend", "DistributedBackend",
+           "DistributedBatchBackend", "CampaignBackend",
            "register_backend", "get_backend", "available_backends",
            "ExecStats", "LeafTiming", "execute_plan"]
+
+
+def _ctx_mesh(ctx):
+    """The port ``Mesh`` of a distributed ctx (a Mesh, or an object with
+    a ``.mesh``), else None."""
+    if ctx is None:
+        return None
+    from ..launch.mesh import Mesh
+    mesh = getattr(ctx, "mesh", ctx)
+    return mesh if isinstance(mesh, Mesh) else None
+
+
+def _on_card(device) -> bool:
+    """Whether ``device`` (None = the card) names a card; whether one is
+    present is the kernels' wrappers' to check."""
+    return device is None or torch.device(device).type == "cuda"
 
 
 def _scalar(v) -> complex | float:
@@ -143,26 +182,30 @@ class Backend:
     name = "?"
 
     def dense(self, M: np.ndarray, *, precision: str, num_chunks: int,
-              geometry=None, device=None) -> complex | float:
+              geometry=None, device=None,
+              ctx: Any | None = None) -> complex | float:
         raise NotImplementedError
 
     def sparse(self, M: np.ndarray, *, precision: str, num_chunks: int,
-               geometry=None, device=None) -> complex | float:
+               geometry=None, device=None,
+               ctx: Any | None = None) -> complex | float:
         raise NotImplementedError
 
     def dense_batch(self, stack: np.ndarray, *, precision: str,
-                    num_chunks: int, geometry=None,
-                    device=None) -> np.ndarray | None:
+                    num_chunks: int, geometry=None, device=None,
+                    ctx: Any | None = None) -> np.ndarray | None:
         return None
 
     def sparse_batch(self, stack: np.ndarray, *, precision: str,
-                     num_chunks: int, geometry=None,
-                     device=None) -> np.ndarray | None:
+                     num_chunks: int, geometry=None, device=None,
+                     ctx: Any | None = None) -> np.ndarray | None:
         return None
 
-    def value_backend(self, route: str, n: int, *, batched: bool) -> str:
+    def value_backend(self, route: str, n: int, *, batched: bool,
+                      ctx: Any | None = None, device=None) -> str:
         """Registry name of the strategy whose numerics produce this leaf's
-        value (the result-cache identity)."""
+        value (the result-cache identity) on ``device`` (None = the
+        card)."""
         return self.name
 
 
@@ -171,25 +214,26 @@ class TorchBackend(Backend):
 
     name = "torch"
 
-    def dense(self, M, *, precision, num_chunks, geometry=None, device=None):
+    def dense(self, M, *, precision, num_chunks, geometry=None, device=None,
+              ctx=None):
         return _scalar(R.perm_ryser_chunked(M, num_chunks=num_chunks,
                                             precision=precision,
                                             device=device))
 
     def sparse(self, M, *, precision, num_chunks, geometry=None,
-               device=None):
+               device=None, ctx=None):
         stack = M[None]              # a one-matrix bucket, as the reference
         return _scalar(S.sparse_values(stack, *S.padded_ccs(stack),
                                        num_chunks, precision,
                                        device=device)[0])
 
     def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
-                    device=None):
+                    device=None, ctx=None):
         return _host(R.perm_ryser_batched(stack, num_chunks=num_chunks,
                                           precision=precision, device=device))
 
     def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
-                     device=None):
+                     device=None, ctx=None):
         return _host(S.sparse_values(stack, *S.padded_ccs(stack), num_chunks,
                                      precision, device=device))
 
@@ -206,7 +250,8 @@ class CudaBackend(TorchBackend):
     def _kernel_ok(n: int) -> bool:
         return n >= 4
 
-    def dense(self, M, *, precision, num_chunks, geometry=None, device=None):
+    def dense(self, M, *, precision, num_chunks, geometry=None, device=None,
+              ctx=None):
         if self._kernel_ok(M.shape[-1]):
             from ..kernels import ops as K
             return _scalar(K.permanent_cuda(M, precision=precision,
@@ -216,7 +261,7 @@ class CudaBackend(TorchBackend):
                              device=device)
 
     def sparse(self, M, *, precision, num_chunks, geometry=None,
-               device=None):
+               device=None, ctx=None):
         if self._kernel_ok(M.shape[-1]):
             from ..kernels import ops as K
             return _scalar(K.sparse_value_cuda(M, *S.padded_ccs(M),
@@ -227,7 +272,7 @@ class CudaBackend(TorchBackend):
                               device=device)
 
     def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
-                    device=None):
+                    device=None, ctx=None):
         if self._kernel_ok(stack.shape[-1]):
             from ..kernels import ops as K
             return _host(K.permanent_cuda_batched(
@@ -236,7 +281,7 @@ class CudaBackend(TorchBackend):
         return None                  # dispatcher falls back + tags downgrade
 
     def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
-                     device=None):
+                     device=None, ctx=None):
         if self._kernel_ok(stack.shape[-1]):
             from ..kernels import ops as K
             return _host(K.sparse_batched_values_cuda(
@@ -244,9 +289,142 @@ class CudaBackend(TorchBackend):
                 geometry=geometry, device=device))
         return None                  # tiny bucket: torch fallback, tagged
 
-    def value_backend(self, route, n, *, batched):
+    def value_backend(self, route, n, *, batched, ctx=None, device=None):
         # dense and sparse kernels alike; below the floor the torch engines
-        return self.name if self._kernel_ok(n) else "torch"
+        return "cuda" if self._kernel_ok(n) else "torch"
+
+
+class DistributedBatchBackend(CudaBackend):
+    """Batch-axis sharding over the mesh of the context.
+
+    ``dense_batch`` / ``sparse_batch`` cut a bucket (n >= 4) into one
+    contiguous share a rank (``distributed.batch_permanents_on_mesh`` /
+    ``sparse_batch_permanents_on_mesh``, body ``cuda``): each rank owns
+    whole matrices, a ragged tail is padded, and one gather returns the
+    values in bucket order, each bit for bit the one-device ``cuda``
+    backend's.  A scalar leaf runs as under ``cuda``, on every rank (a
+    one-matrix bucket has nothing to shard), on the mesh's device.
+    Without a mesh, on a card it runs as ``cuda`` (a world of one rank
+    has nothing to shard: the kernels, never the torch engine, serve card
+    tensors); on the CPU as ``torch``, buckets tagged
+    ``distributed_batch->torch`` (the reference's ``->jnp`` downgrade).
+    n < 4 buckets return None, as ``cuda``'s do, and run on ``torch``
+    with a tag.
+    """
+
+    name = "distributed_batch"
+
+    @staticmethod
+    def _device(ctx, device):
+        """This rank's device: the mesh's, or ``device`` without one."""
+        mesh = _ctx_mesh(ctx)
+        if mesh is None:
+            return device
+        from .distributed import _mesh_device
+        return _mesh_device(mesh, device)
+
+    @staticmethod
+    def _plain(ctx, device) -> bool:
+        """No mesh and the CPU: the reference's downgrade to the torch
+        engine."""
+        return _ctx_mesh(ctx) is None and not _on_card(device)
+
+    def dense(self, M, *, precision, num_chunks, geometry=None, device=None,
+              ctx=None):
+        if self._plain(ctx, device):
+            return TorchBackend.dense(self, M, precision=precision,
+                                      num_chunks=num_chunks, device=device)
+        return super().dense(M, precision=precision, num_chunks=num_chunks,
+                             geometry=geometry,
+                             device=self._device(ctx, device))
+
+    def sparse(self, M, *, precision, num_chunks, geometry=None,
+               device=None, ctx=None):
+        if self._plain(ctx, device):
+            return TorchBackend.sparse(self, M, precision=precision,
+                                       num_chunks=num_chunks, device=device)
+        return super().sparse(M, precision=precision, num_chunks=num_chunks,
+                              geometry=geometry,
+                              device=self._device(ctx, device))
+
+    def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
+                    device=None, ctx=None):
+        mesh = _ctx_mesh(ctx)
+        if mesh is None:             # the card's kernels, or the CPU's
+            return None if self._plain(ctx, device) else super().dense_batch(
+                stack, precision=precision, num_chunks=num_chunks,
+                geometry=geometry, device=device)
+        if not self._kernel_ok(stack.shape[-1]):
+            return None              # the dispatcher's tagged torch run
+        from . import distributed as Dm
+        self._device(ctx, device)
+        return Dm.batch_permanents_on_mesh(
+            stack, mesh, precision=precision, num_chunks=num_chunks,
+            backend="cuda", geometry=geometry)
+
+    def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
+                     device=None, ctx=None):
+        mesh = _ctx_mesh(ctx)
+        if mesh is None:
+            return None if self._plain(ctx, device) else super().sparse_batch(
+                stack, precision=precision, num_chunks=num_chunks,
+                geometry=geometry, device=device)
+        if not self._kernel_ok(stack.shape[-1]):
+            return None
+        from . import distributed as Dm
+        self._device(ctx, device)
+        return Dm.sparse_batch_permanents_on_mesh(
+            stack, mesh, precision=precision, num_chunks=num_chunks,
+            backend="cuda", geometry=geometry)
+
+    def value_backend(self, route, n, *, batched, ctx=None, device=None):
+        if self._plain(ctx, device) or not self._kernel_ok(n):
+            return "torch"
+        if _ctx_mesh(ctx) is None:
+            return "cuda"
+        return self.name if batched else "cuda"
+
+
+class DistributedBackend(DistributedBatchBackend):
+    """Mesh-wide: a scalar dense leaf (n >= 4) is split over the Gray-step
+    space of the context's mesh (``distributed.permanent_on_mesh``, body
+    ``cuda``; a ctx with its own ``permanent`` at the plan's precision,
+    such as ``DistributedPermanent``, computes it instead); buckets are
+    ``distributed_batch``'s; scalar sparse leaves run as under ``cuda`` on
+    every rank.  Without a mesh it runs as ``distributed_batch`` does:
+    ``cuda`` on a card, ``torch`` on the CPU (buckets tagged
+    ``distributed->torch``).
+    """
+
+    name = "distributed"
+
+    def dense(self, M, *, precision, num_chunks, geometry=None, device=None,
+              ctx=None):
+        mesh = _ctx_mesh(ctx)
+        if mesh is None or not self._kernel_ok(M.shape[-1]):
+            return super().dense(M, precision=precision,
+                                 num_chunks=num_chunks, geometry=geometry,
+                                 device=device, ctx=ctx)
+        self._device(ctx, device)
+        # a runner computes at ITS OWN precision: only honour it when that
+        # is the plan's, else the value would be cached under a precision
+        # it was never computed at
+        if hasattr(ctx, "permanent") and \
+                getattr(ctx, "precision", precision) == precision:
+            return _scalar(ctx.permanent(M))
+        from . import distributed as Dm
+        return _scalar(Dm.permanent_on_mesh(M, mesh, precision=precision,
+                                            backend="cuda",
+                                            geometry=geometry))
+
+    def value_backend(self, route, n, *, batched, ctx=None, device=None):
+        if not batched and route == ROUTE_DENSE and self._kernel_ok(n) \
+                and _ctx_mesh(ctx) is not None:
+            return self.name
+        if batched and _ctx_mesh(ctx) is not None and self._kernel_ok(n):
+            return "distributed_batch"
+        return super().value_backend(route, n, batched=batched, ctx=ctx,
+                                     device=device)
 
 
 class CampaignBackend(Backend):
@@ -256,26 +434,31 @@ class CampaignBackend(Backend):
     leaf here when its step estimate crosses ``campaign_threshold``, and
     the :class:`CampaignSpec` it records (slice geometry, wave-body
     backend, precision, kernel geometry) fully determines the numerics.
-    Execution is ``core.distributed.run_campaign`` on ``device``,
-    twofloat slice partials checkpointed to ``checkpoint_path`` after
-    each wave, a fixed-order final reduce, in waves of
-    ``distributed.default_wave_width`` slices.  A ``max_waves`` budget that expires with slices pending
-    raises ``CampaignPaused`` (the checkpoint holds the progress).
+    Execution is ``core.distributed.run_campaign`` on ``device`` (over
+    the ranks of the ctx's mesh when there is one), twofloat slice
+    partials checkpointed to ``checkpoint_path`` after each wave, a
+    fixed-order final reduce, in waves of
+    ``distributed.default_wave_width`` slices (a rank).  A ``max_waves``
+    budget that expires with slices pending raises ``CampaignPaused``
+    (the checkpoint holds the progress).
     """
 
     name = "campaign"
 
     def campaign(self, M: np.ndarray, spec: CampaignSpec, *, device=None,
-                 checkpoint_path: str | None = None, progress_cb=None,
+                 ctx: Any | None = None, checkpoint_path: str | None = None,
+                 progress_cb=None,
                  max_waves: int | None = None) -> complex | float:
         from . import distributed as Dm
+        mesh = _ctx_mesh(ctx)
         value, state = Dm.run_campaign(
             M, total_slices=spec.total_slices,
             chunks_per_slice=spec.chunks_per_slice,
             chunk_size=spec.chunk_size, precision=spec.precision,
-            backend=spec.backend, geometry=spec.geometry, device=device,
+            backend=spec.backend, geometry=spec.geometry,
+            device=device if mesh is None else Dm._mesh_device(mesh, device),
             checkpoint_path=checkpoint_path, progress_cb=progress_cb,
-            max_waves=max_waves)
+            max_waves=max_waves, mesh=mesh)
         if value is None:
             raise Dm.CampaignPaused(state)
         return _scalar(value)
@@ -304,6 +487,8 @@ def available_backends() -> list[str]:
 
 register_backend(TorchBackend())
 register_backend(CudaBackend())
+register_backend(DistributedBackend())
+register_backend(DistributedBatchBackend())
 register_backend(CampaignBackend())
 
 _FALLBACK = "torch"
@@ -315,8 +500,9 @@ _FALLBACK = "torch"
 
 def _geometry_tag(leaf: LeafTask, produced_by: str) -> str:
     """Geometry component of the cache key: the kernel geometry tag when a
-    CUDA kernel serves the leaf, else the ``"-"`` sentinel."""
-    g = leaf.geometry if produced_by == "cuda" else None
+    CUDA kernel serves the leaf (on one card or over a mesh), else the
+    ``"-"`` sentinel."""
+    g = leaf.geometry if produced_by in KERNEL_BACKENDS else None
     return g.tag() if g is not None else "-"
 
 
@@ -331,15 +517,17 @@ def _cache_key(leaf: LeafTask, plan: ExecutionPlan, produced_by: str) -> tuple:
 
 
 def _run_leaf(leaf: LeafTask, plan: ExecutionPlan, backend: Backend,
-              report: PermanentReport, stats: ExecStats) -> complex | float:
+              report: PermanentReport, stats: ExecStats,
+              ctx: Any | None = None) -> complex | float:
     """One dense or sparse leaf through the scalar strategy path.  Sparse
     tags name the value's producer, ``sparse(n=..,<backend>)``, with a
     ``cfg->produced`` suffix when another strategy serves the leaf."""
     n = leaf.n
     cfg = plan.config
-    produced = backend.value_backend(leaf.route, n, batched=False)
+    produced = backend.value_backend(leaf.route, n, batched=False, ctx=ctx,
+                                     device=cfg.device)
     kw = dict(precision=plan.precision, num_chunks=cfg.num_chunks,
-              geometry=leaf.geometry, device=cfg.device)
+              geometry=leaf.geometry, device=cfg.device, ctx=ctx)
     if leaf.route == ROUTE_SPARSE:
         if produced == cfg.backend:
             tag = f"sparse(n={n},{produced})"
@@ -366,14 +554,18 @@ def _inline_value(m: np.ndarray) -> complex | float:
 
 
 def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
+                 distributed_ctx: Any | None = None,
                  campaign_progress=None):
     """Dispatch every leaf of ``plan`` and accumulate per-matrix totals.
 
     Returns ``(totals, reports, stats)``: ``totals`` is a (B,) complex128
     array (callers take the real part for real plans), ``reports`` one
     PermanentReport per planned matrix, ``stats`` the dispatch/cache
-    accounting.  ``campaign_progress(state, wave)`` is called after every
-    checkpointed wave of a campaign leaf.
+    accounting.  ``distributed_ctx`` (a ``launch.mesh.Mesh``, or an object
+    with a ``.mesh``) is the mesh of the ``distributed`` strategies and of
+    campaign waves; every rank of it executes the same plan.
+    ``campaign_progress(state, wave)`` is called after every checkpointed
+    wave of a campaign leaf.
     """
     cfg = plan.config
     backend = get_backend(cfg.backend)
@@ -404,7 +596,8 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
             return (f"campaign[{s.backend},{s.total_slices}x"
                     f"{s.chunks_per_slice}x{s.chunk_size},"
                     f"{s.geometry.tag() if s.geometry else '-'}]")
-        return backend.value_backend(leaf.route, leaf.n, batched=batched)
+        return backend.value_backend(leaf.route, leaf.n, batched=batched,
+                                     ctx=distributed_ctx, device=cfg.device)
 
     campaign_leaves = [l for l in plan.leaves if l.route == ROUTE_CAMPAIGN]
 
@@ -423,7 +616,7 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
         t0 = time.perf_counter()
         val = get_backend("campaign").campaign(
             leaf.matrix, leaf.campaign, device=cfg.device,
-            checkpoint_path=campaign_ckpt(leaf),
+            ctx=distributed_ctx, checkpoint_path=campaign_ckpt(leaf),
             progress_cb=campaign_progress,
             max_waves=cfg.campaign_max_waves)
         stats.record_time(tag, time.perf_counter() - t0)
@@ -448,7 +641,8 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
             else:
                 val = run_campaign_leaf(leaf) \
                     if leaf.route == ROUTE_CAMPAIGN else \
-                    _run_leaf(leaf, plan, backend, reports[leaf.owner], stats)
+                    _run_leaf(leaf, plan, backend, reports[leaf.owner], stats,
+                              distributed_ctx)
                 if key is not None:
                     cache.put(key, val)
             totals[leaf.owner] += leaf.coef * val
@@ -506,10 +700,14 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
         for _gtag, leaves in sorted(groups.items()):
             bname = produced_by(leaves[0], True)
             geometry = leaves[0].geometry
-            if len(leaves) == 1:         # ragged straggler: scalar path
+            # ragged straggler: the scalar path, while it produces the
+            # bucket's numerics (over a mesh a scalar dense leaf is the
+            # step-space split, another family, and its cache entry would
+            # sit under a key the batched probes never read)
+            if len(leaves) == 1 and bname == produced_by(leaves[0], False):
                 leaf = leaves[0]
                 val = _run_leaf(leaf, plan, backend, reports[leaf.owner],
-                                stats)
+                                stats, distributed_ctx)
                 if cache is not None:
                     k = _cache_key(leaf, plan, bname)
                     cache.put(k, val)
@@ -525,8 +723,8 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
                 (backend.sparse_batch, fallback.sparse_batch))
             vals = run(stack, precision=plan.precision,
                        num_chunks=cfg.num_chunks, geometry=geometry,
-                       device=cfg.device)
-            if vals is None:             # tiny bucket under cuda
+                       device=cfg.device, ctx=distributed_ctx)
+            if vals is None:             # tiny bucket, or no mesh on the CPU
                 vals = run_fallback(stack, precision=plan.precision,
                                     num_chunks=cfg.num_chunks,
                                     device=cfg.device)

@@ -71,9 +71,11 @@ class SolverConfig:
     async request queue).
     """
     precision: str = "dq_acc"        # dd | dq_fast | dq_acc | qq | kahan
-    # torch | cuda.  The default departs from the reference's ``jnp``: on
-    # the card the CUDA kernel IS the main path, the torch engine the
-    # numerics baseline it is held against.
+    # torch | cuda | distributed | distributed_batch.  The default departs
+    # from the reference's ``jnp``: on the card the CUDA kernel IS the
+    # main path, the torch engine the numerics baseline it is held
+    # against.  The distributed pair runs the ``cuda`` body on each rank
+    # of the mesh the executor is given (``distributed_ctx``).
     backend: str = "cuda"
     preprocess: bool = True          # master switch for DM + FM (Sec. 4)
     dm: bool | None = None           # override DM elimination
@@ -372,6 +374,10 @@ def _route(m: np.ndarray, batched: bool) -> str:
     return ROUTE_SPARSE
 
 
+# Backends whose leaves and campaign waves run the CUDA kernels: ``cuda``
+# on one card, the ``distributed`` pair on each rank of a mesh.
+KERNEL_BACKENDS = ("cuda", "distributed", "distributed_batch")
+
 # Below this n the cuda backend's _kernel_ok falls back to torch (the
 # kernel floor in core/executor.py) -- no kernel, no geometry identity.
 _KERNEL_FLOOR_N = 4
@@ -461,7 +467,8 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
                     leaf.n, config.campaign_slices, 1,
                     config.campaign_lanes)
                 leaf.route = ROUTE_CAMPAIGN
-                cbackend = "cuda" if config.backend == "cuda" else "torch"
+                cbackend = "cuda" if config.backend in KERNEL_BACKENDS \
+                    else "torch"
                 leaf.campaign = CampaignSpec(
                     total_slices=ts, chunks_per_slice=cps, chunk_size=C,
                     precision=precision,
@@ -475,7 +482,7 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
     # Kernel geometry resolution: only leaves a CUDA kernel will actually
     # produce carry one -- torch plans (and tiny-n fallback leaves) keep
     # geometry out of their identity entirely.
-    if config.backend == "cuda":
+    if config.backend in KERNEL_BACKENDS:
         for leaf in leaves:
             if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
                     leaf.n >= _KERNEL_FLOOR_N:

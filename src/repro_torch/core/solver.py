@@ -20,6 +20,12 @@ checkpointed waves (``SolverConfig.campaign_checkpoint``,
 called after every checkpointed wave, and a spent wave budget raises
 :class:`~repro_torch.core.distributed.CampaignPaused`.
 
+**Meshes**: ``PermanentSolver(config, distributed_ctx=mesh)`` executes
+every plan over a ``launch.mesh.Mesh`` (or an object with a ``.mesh``):
+the ``distributed`` / ``distributed_batch`` backends shard buckets and
+step spaces over its ranks, and campaign waves span them; every rank
+holds its own solver and runs the same calls.
+
 **Hooks** for the service's observability: ``solver.on_submit(request)``
 fires after a request is queued, ``solver.on_flush(n, served, seconds)``
 after a bucket flush resolved its futures.
@@ -28,7 +34,7 @@ after a bucket flush resolved its futures.
 from __future__ import annotations
 
 import time
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 
@@ -86,11 +92,13 @@ class PermanentSolver:
     """Stateful plan/execute session: backend dispatch + cache + queue."""
 
     def __init__(self, config: SolverConfig | None = None, *,
+                 distributed_ctx: Any | None = None,
                  clock: Callable[[], float] | None = None, **overrides):
         config = config or SolverConfig()
         if overrides:
             config = config.replace(**overrides)
         self.config = config
+        self.distributed_ctx = distributed_ctx
         self.cache = ResultCache(config.cache_entries) if config.cache \
             else None
         # clock precedence: explicit kwarg > SolverConfig.clock > monotonic
@@ -129,7 +137,8 @@ class PermanentSolver:
         a (B,) float64 ndarray (Python complex / complex128 for a complex
         plan)."""
         totals, reports, stats = execute_plan(
-            plan, cache=self.cache, campaign_progress=self.campaign_progress)
+            plan, cache=self.cache, distributed_ctx=self.distributed_ctx,
+            campaign_progress=self.campaign_progress)
         self._merge_stats(stats)
         out = plan_values(plan, totals, reports)
         if not plan.batched and plan.num_matrices == 1:

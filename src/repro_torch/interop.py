@@ -4,7 +4,10 @@ port.
 The reference package's state travels as plain data -- its
 ``dataclasses.asdict`` (numpy fields) and ``Geometry.tag()`` strings -- so
 the port never imports the reference.  Backend names map ``jnp -> torch``
-and ``pallas -> cuda``.
+and ``pallas -> cuda``; ``distributed`` and ``distributed_batch`` keep
+their names (a mesh travels apart, as the executor's ``distributed_ctx``:
+a reference ``jax.sharding.Mesh`` has no port, make one with
+``launch.mesh``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,9 @@ from .core.stepspace import Geometry
 __all__ = ["BACKEND_NAMES", "config_from_reference", "geometry_from_tag",
            "sparse_from_reference"]
 
-BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda"}
+BACKEND_NAMES = {"jnp": "torch", "pallas": "cuda",
+                 "distributed": "distributed",
+                 "distributed_batch": "distributed_batch"}
 
 
 def geometry_from_tag(tag: str | None) -> Geometry | None:
@@ -33,15 +38,15 @@ def config_from_reference(d: dict) -> SolverConfig:
     ``dataclasses.asdict(cfg)``.
 
     ``geometry`` may arrive as the asdict form (a dict of Geometry's
-    fields), a tag string or None.  A backend without a port yet
-    (``distributed*``) raises ``ValueError``.  The campaign knobs cross as
+    fields), a tag string or None.  A backend the port does not know
+    raises ``ValueError``.  The campaign knobs cross as
     they are; a checkpoint the reference wrote names its own backend, so
     the port refuses to resume it (``core.resume``).
     """
     d = dict(d)
     backend = d.get("backend", "jnp")
     if backend not in BACKEND_NAMES:
-        raise ValueError(f"backend {backend!r} has no port yet "
+        raise ValueError(f"backend {backend!r} has no port "
                          f"(ported: {sorted(BACKEND_NAMES)})")
     d["backend"] = BACKEND_NAMES[backend]
     g = d.get("geometry")

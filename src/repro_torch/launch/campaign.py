@@ -8,6 +8,9 @@
         --checkpoint job.npz --max-waves 4    # budgeted: exit 3 if pending
     python -m repro_torch.launch.campaign --n 14 --device cpu \
         --slices 32 --lanes 8 --checkpoint /tmp/c.npz
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.campaign --matrix m.npy --checkpoint job.npz \
+        --ranks-per-device 4                  # waves over 4 ranks, 1 card
 
 Runs from the repository root with ``PYTHONPATH=src``.  The run goes
 through the plan/execute stack: the planner routes the matrix to the
@@ -24,8 +27,14 @@ after the first such line loses at most the wave in flight, and the
 resumed run prints the same ``perm(A) = %+.17e`` as an uninterrupted one,
 on any device.
 
+Under ``torchrun`` the waves span the world's ranks (a ("step",) mesh,
+``launch/mesh.py``; ``--ranks-per-device`` lets several share a card):
+a wave is D x W slices, shard 0 writes the checkpoint and prints, and a
+checkpoint resumes under any world size, or on one device, to the same
+bits.
+
 Exit codes: 0 value printed, 3 paused by ``--max-waves`` with slices
-pending.
+pending (every rank; ``torchrun`` then reports the workers as failed).
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import numpy as np
 
 from ..core import distributed as Dm
 from ..core.solver import PermanentSolver, SolverConfig
+from . import mesh as mesh_lib
 
 __all__ = ["campaign_main"]
 
@@ -87,8 +97,22 @@ def campaign_main(argv=None) -> int:
                          "step space)")
     ap.add_argument("--plan-json", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ranks-per-device", type=int, default=1,
+                    help="under torchrun: ranks that may share one card")
     args = ap.parse_args(argv)
+    if not mesh_lib.launched_by_torchrun():
+        return _run(args, None, print)
+    with mesh_lib.world():
+        mesh = mesh_lib.make_mesh(
+            (mesh_lib.world_size(),), ("step",), device=args.device,
+            ranks_per_device=args.ranks_per_device)
+        return _run(args, mesh, print if mesh.index == 0
+                    else lambda *a, **k: None)
 
+
+def _run(args, mesh, print) -> int:
+    """The CLI's work, its waves over ``mesh`` when there is one;
+    ``print`` is a no-op on every shard but 0."""
     A = _load_matrix(args)
     n = A.shape[0]
     solver = PermanentSolver(SolverConfig(
@@ -97,7 +121,7 @@ def campaign_main(argv=None) -> int:
         campaign_threshold=args.threshold,
         campaign_slices=args.slices, campaign_lanes=args.lanes,
         campaign_checkpoint=args.checkpoint,
-        campaign_max_waves=args.max_waves))
+        campaign_max_waves=args.max_waves), distributed_ctx=mesh)
     t0 = time.perf_counter()
 
     def progress(state, wave):
@@ -118,6 +142,8 @@ def campaign_main(argv=None) -> int:
     plan = solver.plan(A)
     print(f"[campaign] n={n} device={args.device or 'cuda'} "
           f"{plan.summary()}", flush=True)
+    if mesh is not None:
+        print(f"[campaign] {mesh.describe()}", flush=True)
     if args.plan_json:
         print(plan.json(indent=2), flush=True)
 

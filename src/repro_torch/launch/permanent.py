@@ -10,6 +10,9 @@
     python -m repro_torch.launch.permanent --n 40      # a campaign (n >= 31)
     python -m repro_torch.launch.permanent --n 14 --device cpu \
         --checkpoint job.npz --slices 32 --lanes 8       # forced, resumable
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.permanent --backend distributed \
+        --matrix m.npy --ranks-per-device 2   # the step space over 2 ranks
 
 Matrix sources: --matrix <.npy>, --n <random dense>, --sparse-n/--density
 (random sparse: U(0.5, 1.5) entries kept with probability --density),
@@ -23,6 +26,13 @@ matrix), ``rel.err`` against the closed form for ``--family allones`` and
 beyond ``--campaign-threshold`` (2^34 steps by default: dense n >= 31)
 runs as a resumable campaign; ``--checkpoint`` forces the route and
 keeps its progress in a ``.npz`` that a rerun resumes.
+
+``--backend distributed`` (the step space of a dense leaf over the ranks
+of a ("data", "model") mesh) and ``distributed_batch`` (buckets over a
+("data",) mesh) run under ``torchrun``, one process a rank, each rank's
+body the CUDA kernels; ``--ranks-per-device`` lets several ranks share a
+card.  Without ``torchrun`` they run as a world of one rank.  Only shard
+0 prints.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import numpy as np
 
 from ..core.oracle import all_ones_permanent
 from ..core.solver import PermanentSolver, SolverConfig
+from . import mesh as mesh_lib
 
 __all__ = ["permanent_main"]
 
@@ -71,7 +82,11 @@ def permanent_main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--precision", default="dq_acc",
                     choices=("dd", "dq_fast", "dq_acc", "qq", "kahan"))
-    ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"))
+    ap.add_argument("--backend", default="cuda",
+                    choices=("cuda", "torch", "distributed",
+                             "distributed_batch"))
+    ap.add_argument("--ranks-per-device", type=int, default=1,
+                    help="ranks that may share one card (distributed)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--chunks", type=int, default=4096,
@@ -92,7 +107,21 @@ def permanent_main(argv=None) -> int:
                     default=SolverConfig.campaign_lanes,
                     help="campaign chunk-count target (plan_slices)")
     args = ap.parse_args(argv)
+    if not args.backend.startswith("distributed"):
+        return _run(args, None, print)
+    with mesh_lib.world():
+        kw = dict(device=args.device,
+                  ranks_per_device=args.ranks_per_device)
+        mesh = mesh_lib.make_local_mesh(**kw) \
+            if args.backend == "distributed" else \
+            mesh_lib.make_batch_mesh(**kw)
+        return _run(args, mesh, print if mesh.index == 0
+                    else lambda *a, **k: None)
 
+
+def _run(args, mesh, print) -> int:
+    """The CLI's work, over ``mesh`` when there is one; ``print`` is a
+    no-op on every shard but 0."""
     A = _load_matrix(args)
     n = A.shape[0]
     print(f"[superman] n={n} nnz={int((A != 0).sum())} "
@@ -109,7 +138,7 @@ def permanent_main(argv=None) -> int:
         preprocess=not args.no_preprocess, num_chunks=args.chunks,
         device=args.device, cache=False, campaign_threshold=threshold,
         campaign_slices=args.slices, campaign_lanes=args.lanes,
-        campaign_checkpoint=args.checkpoint))
+        campaign_checkpoint=args.checkpoint), distributed_ctx=mesh)
     solver.campaign_progress = lambda s, _wave: print(
         f"[superman] {s.fraction_done():6.1%} done", flush=True)
     plan = solver.plan(A)

@@ -16,7 +16,7 @@ stream (``run_permanent_soak``).  ``--backend cuda`` (the default) runs
 the CUDA kernels, ``torch`` the torch engines; ``--device`` defaults to
 the card (``cpu`` runs the torch engines and the kernels' plain versions
 on the host).  The reference's ``--mesh`` is not ported (ROADMAP.md,
-modules queue, item 7).
+modules queue, item 8: the service over a mesh).
 """
 
 from __future__ import annotations

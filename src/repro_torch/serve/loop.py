@@ -102,9 +102,11 @@ class CampaignSpec:
     is as wide as ``run_campaign`` makes it on the card.  ``slices``
     defaults to the port's ``SolverConfig.campaign_slices`` (1024: a
     card-filling wave is 1/16 of a job; the reference's 64 would be one
-    wave on one H100).  The port runs on one device: a ``mesh`` raises."""
+    wave on one H100).  The service runs on one device: a ``mesh``
+    raises (the service over a mesh is ROADMAP item 8: the other ranks
+    would have to follow rank 0's dispatches)."""
     matrix: Any
-    mesh: Any = None                     # not ported: must stay None
+    mesh: Any = None                     # ROADMAP item 8: must stay None
     waves: int = 1                       # waves per bucket dispatch
     checkpoint: str | None = None        # JobState .npz path
     slices: int = SolverConfig.campaign_slices
@@ -113,9 +115,9 @@ class CampaignSpec:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "campaign meshes are not ported: the port runs a campaign "
-                "on one device (ROADMAP.md, modules queue, item 7: "
-                "'Multi-device')")
+                "the service runs a campaign on one device; a campaign "
+                "mesh in the service is ROADMAP.md, modules queue, item 8 "
+                "(the service and the tuner over a mesh)")
 
 
 class PermanentService:

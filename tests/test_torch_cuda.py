@@ -4,7 +4,10 @@ real one also in schedmat mode) against their plain versions, bit for
 bit, also from chunk bases at the end of the step space and at the
 geometries the tuner measures; the main
 path against the torch engines, on the device; the refusal of a chunk
-size past the step space; a campaign killed and resumed.
+size past the step space; a campaign killed and resumed; a world of two
+ranks sharing the card (the mesh functions, bit for bit with one device,
+and their collectives under torchprove's PT104); the distributed
+strategies without a mesh, on the kernels.
 They skip where no card is present; on a machine with one run
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -691,3 +694,89 @@ def test_large_permanent_example_resumes_bit_for_bit_on_card(card):
     out = large_permanent.main("cuda")
     assert out["bitwise"] and out["value"] == out["uninterrupted"]
     assert out["rel"] < large_permanent.ENGINE_RTOL[True]
+
+
+# ---------------------------------------------------------------------------
+# a world of two ranks on the card (launch/mesh.py, core/distributed.py)
+# ---------------------------------------------------------------------------
+
+def _mesh_inputs():
+    rng = np.random.default_rng(2020)
+    A = rng.uniform(-1, 1, (24, 24))
+    Ac = A + 1j * rng.uniform(-1, 1, (24, 24))
+    S = rng.uniform(-1, 1, (37, 16, 16))
+    i, j = np.indices((16, 16))
+    band = (j - i) % 16 < 4
+    return A, Ac, S, S + 1j * rng.uniform(-1, 1, S.shape), S * band
+
+
+def _card_world(rank: int, world: int) -> dict:
+    """Both ranks share the card (ranks_per_device = world): the step
+    split, the four sharded bucket entries, each rank's launches."""
+    from repro_torch.core import distributed as D
+    from repro_torch.launch import mesh as M
+    mesh = M.make_mesh((world,), ("step",), ranks_per_device=world)
+    A, Ac, S, Sc, Sp = _mesh_inputs()
+    RC.reset_counters()
+    out = {"device": str(mesh.device),
+           "pom": [D.permanent_on_mesh(X, mesh) for X in (A, Ac)],
+           "dense": [D.batch_permanents_on_mesh(X, mesh) for X in (S, Sc)],
+           "sparse": [D.sparse_batch_permanents_on_mesh(X, mesh)
+                      for X in (Sp, Sp * (1 + 0.5j))]}
+    out["counters"] = dict(RC.counters)
+    return out
+
+
+def test_world_of_two_ranks_on_card_equals_one_device(card, tmp_path):
+    """Two ranks on the one card: every mesh value equals the one-device
+    entries' bit for bit, each rank launched the kernels (#1, #3 for the
+    step split; #2, #4, #6, #8 for the bucket shards) and no plain
+    version."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core.stepspace import plan_slices
+    from repro_torch.launch import mesh as M
+    ranks = M.run_world(_card_world, 2, str(tmp_path / "w"), timeout_s=300)
+    A, Ac, S, Sc, Sp = _mesh_inputs()
+    ts, cps, C = plan_slices(24, 2, 1, D.MESH_LANES)
+    want_pom = [D.run_campaign(X, total_slices=ts, chunks_per_slice=cps,
+                               chunk_size=C)[0] for X in (A, Ac)]
+    want_dense = [ops.permanent_cuda_batched(X).cpu().numpy()
+                  for X in (S, Sc)]
+    want_sparse = [ops.sparse_batched_values_cuda(X, *padded_ccs(X))
+                   .cpu().numpy() for X in (Sp, Sp * (1 + 0.5j))]
+    for out in ranks:
+        assert out["device"] == "cuda:0"
+        assert out["pom"] == want_pom
+        for got, want in zip(out["dense"] + out["sparse"],
+                             want_dense + want_sparse):
+            assert np.array_equal(got, want)
+        c = out["counters"]
+        assert all(c[k] > 0 for k in (
+            "ryser_dense_scalar", "ryser_complex_scalar",
+            "ryser_dense_batched", "ryser_complex_batched",
+            "ryser_sparse_batched", "ryser_sparse_complex_batched"))
+        assert not any(v for k, v in c.items()
+                       if k.startswith("block_partials"))
+
+
+def test_mesh_entries_pass_pt104_on_card(card):
+    from repro_torch.analysis import prove
+    report = prove.run_check(entries="mesh_*", device="cuda")
+    assert report["findings"] == []
+    assert sorted(report["pt104"]) == sorted(prove.MESH_ENTRIES)
+
+
+@pytest.mark.parametrize("strategy", ["distributed", "distributed_batch"])
+def test_distributed_strategies_without_mesh_launch_kernels_on_card(
+        card, strategy):
+    """No mesh on the card: the ``cuda`` body (kernels #1 and #2), bit
+    for bit the ``cuda`` backend's, and no plain version."""
+    A, _, S, _, _ = _mesh_inputs()
+    want = (repro_torch.permanent(A), repro_torch.permanent_batch(S))
+    RC.reset_counters()
+    got = (repro_torch.permanent(A, backend=strategy),
+           repro_torch.permanent_batch(S, backend=strategy))
+    assert got[0] == want[0] and np.array_equal(got[1], want[1])
+    c = RC.counters
+    assert c["ryser_dense_scalar"] == 1 and c["ryser_dense_batched"] >= 1
+    assert not any(v for k, v in c.items() if k.startswith("block_partials"))

@@ -140,9 +140,11 @@ def test_interop_round_trips_reference_config():
     assert interop.geometry_from_tag("8x8x4b2").max_blocks == 2
     d = dataclasses.asdict(RefConfig())
     assert interop.config_from_reference(d).backend == "torch"
+    for name in ("distributed", "distributed_batch"):   # ported, same name
+        assert interop.config_from_reference(
+            dataclasses.asdict(RefConfig(backend=name))).backend == name
     with pytest.raises(ValueError):
-        interop.config_from_reference(
-            dataclasses.asdict(RefConfig(backend="distributed")))
+        interop.config_from_reference({**d, "backend": "tpu_pod"})
     A = np.random.default_rng(35).uniform(-1, 1, (7, 7))
     same = PermanentSolver(cfg.replace(device="cpu")).execute(
         PermanentSolver(cfg.replace(device="cpu")).plan(A))

@@ -1,7 +1,8 @@
 """The port stands alone and never falls back: it imports neither jax nor
 the reference package, a card that is asked for and missing raises, the
 sparse route runs (real and complex), a tuning table resolves, and the
-route not ported yet (a campaign mesh) raises ``NotImplementedError``."""
+route not ported yet (a campaign mesh in the service) raises
+``NotImplementedError``."""
 
 import os
 import subprocess
@@ -27,7 +28,7 @@ import repro_torch.kernels.build, repro_torch.launch.permanent
 import repro_torch.interop, repro_torch.core.sparyser
 import repro_torch.kernels.ryser_sparse_cuda
 import repro_torch.core.distributed, repro_torch.core.resume
-import repro_torch.launch.campaign
+import repro_torch.launch.campaign, repro_torch.launch.mesh
 import repro_torch.serve, repro_torch.serve.compile_cache
 import repro_torch.launch.serve
 import repro_torch.tune, repro_torch.tune.search, repro_torch.launch.tune
@@ -43,6 +44,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 print("BAD", bad)
+import torch.distributed as dist
+print("GROUP", dist.is_available() and dist.is_initialized())
 """
 
 
@@ -53,6 +56,8 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    # importing the mesh functions creates no process group
+    assert "GROUP False" in out.stdout, out.stdout
 
 
 def test_missing_card_raises(monkeypatch):
@@ -102,7 +107,7 @@ def test_sparse_input_runs_and_matches_oracle():
 
 def test_unported_routes_raise(tmp_path):
     """Tuning is ported: a table resolves into the plan.  The one route
-    left to port, a campaign mesh, raises."""
+    left to port, a campaign mesh in the service (item 8), raises."""
     from repro_torch.core.stepspace import Geometry
     from repro_torch.serve import CampaignSpec
     from repro_torch.tune.table import TableEntry, TuningTable
@@ -116,5 +121,5 @@ def test_unported_routes_raise(tmp_path):
     plan = PermanentSolver(device="cpu", tuning_table=path,
                            preprocess=False).plan(np.eye(4) + 1)
     assert plan.leaves[0].geometry == Geometry(4, 2, 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         CampaignSpec(matrix=np.eye(4), mesh=object())

@@ -2,7 +2,10 @@
 precision passes on the CPU against the committed value goldens in
 ``tests/torch_goldens/``, a mutated body makes PT101, PT102 and PT103
 fire, a missing or drifted golden is reported, a golden from another
-torch version is still held, and the bless round trip."""
+torch version is still held, and the bless round trip; PT104 on the mesh
+entries (a world of one rank in the test's process): clean as the port
+is, and an ``all_reduce`` or an extra gather slipped into a value path is
+caught."""
 
 import json
 import os
@@ -141,4 +144,45 @@ def test_cli(capsys):
     assert P.main(["--check", "--json", "--entries",
                    "sparse_torch.c128.batch"]) == 0
     doc = json.loads(capsys.readouterr().out)
-    assert doc["findings"] == [] and "item 7" in doc["pli104"]
+    assert doc["findings"] == [] and doc["pt104"] == {}   # no mesh entry
+
+
+def test_pt104_mesh_entries_are_clean():
+    report = P.run_check(entries="mesh_*", device="cpu")
+    assert report["findings"] == []
+    assert sorted(report["pt104"]) == sorted(P.MESH_ENTRIES)
+    for name, inv in report["pt104"].items():
+        assert set(inv["calls"]) <= {"all_gather", "broadcast_object_list"}
+        assert inv["calls"]["all_gather"] == inv["budget"]["all_gather"]
+    assert not torch.distributed.is_initialized()   # the world is gone
+
+
+def _inject_all_reduce(monkeypatch):
+    from repro_torch.core import distributed as D
+    real = D._gather
+
+    def summed(mesh, row):
+        extra = row.clone()
+        torch.distributed.all_reduce(extra, group=mesh.group)
+        return real(mesh, row)
+    monkeypatch.setattr(D, "_gather", summed)
+
+
+@pytest.mark.parametrize("entry", ["mesh_permanent_on_mesh.f64",
+                                   "mesh_run_campaign.c128",
+                                   "mesh_sparse_batch_permanents_on_mesh.f64"])
+def test_pt104_catches_an_injected_all_reduce(monkeypatch, entry):
+    _inject_all_reduce(monkeypatch)
+    report = P.run_check(entries=entry, device="cpu")
+    found = [f for f in report["findings"] if f.rule == "PT104"]
+    assert found and "all_reduce" in found[0].message
+
+
+def test_pt104_catches_a_gather_past_its_budget(monkeypatch):
+    from repro_torch.core import distributed as D
+    real = D._gather
+    monkeypatch.setattr(D, "_gather",
+                        lambda mesh, row: (real(mesh, row), real(mesh, row))[1])
+    report = P.run_check(entries="mesh_batch_permanents_on_mesh.c128")
+    assert any(f.rule == "PT104" and "budget" in f.message
+               for f in report["findings"])
