@@ -1467,23 +1467,30 @@ def _campaign_large_bases(smoke: Smoke, torch) -> dict:
 def _campaign_wave_body(smoke: Smoke, torch) -> dict:
     """The wave body at the main paths' own lane count, TB = 128 (C = 2^10
     and 256 chunks a slice, so two slices are four CTAs): kernel #1 in
-    batched mode at n = N_CAMPAIGN and #3 at n = N_CAMPAIGN_CX, from the
-    first two slices, the middle and the last two of the space, equal
-    their plain versions bit for bit, and so do ``campaign_slice_sums``'s
-    per-slice sums."""
+    batched mode at n = N_CAMPAIGN and #3 at n = N_CAMPAIGN_CX, f64 and
+    (their ``_f32`` entries) f32 / complex64, from the first two slices,
+    the middle and the last two of the space, equal their plain versions
+    bit for bit, and so do ``campaign_slice_sums``'s per-slice sums."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import ryser_complex_cuda as RX
     from repro_torch.kernels import ryser_cuda as RC
     rng = np.random.default_rng(SEED + 44)
     cps, C, Wu, TB = 256, 1 << 10, 16, 128
     ok, err = True, {}
-    for n, cplx in ((N_CAMPAIGN, False), (N_CAMPAIGN_CX, True)):
+    cases = [(n, cplx, single) for single in (False, True)
+             for n, cplx in ((N_CAMPAIGN, False), (N_CAMPAIGN_CX, True))]
+    launched = {}
+    for n, cplx, single in cases:
         A = _cgauss(rng, (n, n)) / 2 if cplx \
             else rng.uniform(-1, 1, (n, n)) / 2
-        A = torch.as_tensor(A, device="cuda")
+        dt = (torch.complex64 if cplx else torch.float32) if single \
+            else None
+        A = torch.as_tensor(A, device="cuda", dtype=dt)
         geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=2 * cps // TB)
         slices = (1 << (n - 1)) // C // cps
-        name = "ryser_complex_scalar" if cplx else "ryser_dense_scalar"
+        name = ("ryser_complex_scalar" if cplx else "ryser_dense_scalar") \
+            + ("_f32" if single else "")
+        before = RC.counters[name]
         for first in (0, slices // 2 - 1, slices - 2):
             base = first * cps
             hi, lo = ops.campaign_slice_sums(
@@ -1507,14 +1514,49 @@ def _campaign_wave_body(smoke: Smoke, torch) -> dict:
                 want = ops._slice_sums(plain[:, 0], plain[:, 1], 2)
             ok &= _bits_equal(torch, got, plain, err, name)
             ok &= bool(torch.equal(hi, want[0]) and torch.equal(lo, want[1]))
+            ok &= hi.dtype == A.dtype
+        # campaign_slice_sums launched the entry of A's dtype each time
+        launched[name] = RC.counters[name] - before
     torch.cuda.synchronize()
     print(f"campaign wave body at TB={TB}, C={C}, {cps} chunks a slice: "
-          f"max abs err {err}")
-    smoke.check(ok, f"wave body at the main paths' TB={TB}: kernels #1 "
-                    f"(n={N_CAMPAIGN}) and #3 (n={N_CAMPAIGN_CX}) and their "
-                    f"per-slice sums equal the plain versions bit for bit "
-                    f"from the start, middle and end of the space")
-    return {"bit_for_bit": ok, **err}
+          f"max abs err {err}; launches {launched}")
+    smoke.check(ok and min(launched.values()) >= 6,
+                f"wave body at the main paths' TB={TB}: kernels #1 "
+                f"(n={N_CAMPAIGN}) and #3 (n={N_CAMPAIGN_CX}), f64 and the "
+                f"_f32 entries, and their per-slice sums equal the plain "
+                f"versions bit for bit from the start, middle and end of "
+                f"the space, in the input's dtype ({launched})")
+    return {"bit_for_bit": ok, **err, "launches": launched,
+            "f32_wave_width": _f32_wave_width(torch)}
+
+
+def _f32_wave_width(torch) -> dict:
+    """The wave width ``run_campaign`` takes for f32 input comes from the
+    occupancy query of the f64 instantiation.  Time one f32 wave of that
+    width W against 2W (and an f64 wave of W, the width's own case) at
+    n = CAMPAIGN_KILL_N (the same NPAD 40 instantiation as n = 40, a
+    sixteenth of its time) from the default spec: 2W near twice W's time
+    means W already filled the card; near W's time, W left it half
+    idle."""
+    from repro_torch.core import distributed as Dm
+    from repro_torch.core.stepspace import plan_slices
+    from repro_torch.kernels import ops
+    n = CAMPAIGN_KILL_N
+    ts, cps, C = plan_slices(n, 1024, 1, 1024)
+    A = np.random.default_rng(SEED + 45).uniform(-1, 1, (n, n)) / 2
+    out = {"n": n}
+    for label, X in (("f64", A), ("f32", A.astype(np.float32))):
+        W = Dm.default_wave_width(X, pending=ts, chunks_per_slice=cps,
+                                  chunk_size=C)
+        T = torch.as_tensor(X, device="cuda")
+        for k in (1, 2):
+            ms, _ = _time_ms(torch, lambda: ops.campaign_slice_sums(
+                T, 0, k * W, chunks_per_slice=cps, chunk_size=C), 3)
+            out[f"{label}_{k}W_ms"] = ms
+        out[f"{label}_W"] = W
+        out[f"{label}_2W_over_W"] = out[f"{label}_2W_ms"] / out[f"{label}_1W_ms"]
+    print(f"f32 wave width from the f64 occupancy query: {out}")
+    return out
 
 
 def _campaign_refusals(smoke: Smoke, torch) -> dict:
@@ -3311,13 +3353,21 @@ def phase_prove(smoke: Smoke, torch) -> dict:
 
 MESH_WORLDS = (1, 2, 4)              # ranks, all on the one card
 N_MESH_CX = 28                       # the complex step split
-N_MESH_ONES = 40                     # the all-ones campaign timed a world
+# the all-ones campaign timed a world: n = 40 at world 1, 36 at the wider
+# worlds (a sixteenth of the time: the smoke's limit)
+MESH_ONES = {1: 40, 2: 36, 4: 36}
 MESH_RAGGED = 251                    # a ragged bucket at the widest world
 MESH_WORLD_TIMEOUT_S = 300.0         # a world that outlives this fails
 MESH_CLI_TIMEOUT_S = 300.0
 # the campaign CLI chain's slices: the port's default, 1024; a wave fills
 # the card (64 slices a rank at n = 36), so 256 would end at world 4
 MESH_KILL_SLICES = 1024
+# the service over a mesh: the serve phase's mixed stream closed loop at
+# every world, an open-loop soak at half that rate at MESH_SOAK_WORLD, a
+# 2 x 2 CampaignMesh at world 4 with the serve phase's campaign, and the
+# tuner's campaign route at the wider worlds
+MESH_SERVE_REQUESTS, MESH_SOAK_REQUESTS, MESH_SOAK_WORLD = 256, 512, 2
+MESH_SERVE_ENTRIES = SERVE_ENTRIES
 
 
 def _mesh_config() -> dict:
@@ -3326,8 +3376,12 @@ def _mesh_config() -> dict:
     return dict(device=None, n=N_MAIN, n_cx=N_MESH_CX, b=B_THRU, nb=N_THRU,
                 degree=BUCKET_DEGREE, n_leaf=N_SPARSE,
                 leaf_degree=SPARSE_DEGREE, ragged=MESH_RAGGED,
-                n_ones=N_MESH_ONES, n_kill=CAMPAIGN_KILL_N,
-                kill_slices=MESH_KILL_SLICES)
+                n_ones=MESH_ONES, n_kill=CAMPAIGN_KILL_N,
+                kill_slices=MESH_KILL_SLICES, serve_n=N_SERVE,
+                serve_batch=B_SERVE, serve_requests=MESH_SERVE_REQUESTS,
+                soak_requests=MESH_SOAK_REQUESTS, soak_world=MESH_SOAK_WORLD,
+                camp_n=SERVE_CAMPAIGN_N, camp_slices=SERVE_CAMPAIGN_SLICES,
+                tune_n=N_TUNE_CAMPAIGN, ckpt=None)
 
 
 def _mesh_inputs(cfg: dict) -> dict:
@@ -3390,14 +3444,136 @@ def _mesh_rank(rank: int, world: int, cfg: dict) -> dict:
     main_s = time.perf_counter() - t0
     torch.distributed.barrier()
     t1 = time.perf_counter()
+    m = cfg["n_ones"][world]
     values["ones"], rep = repro_torch.permanent(
-        np.ones((cfg["n_ones"], cfg["n_ones"])), backend="distributed",
-        return_report=True, **kw)
+        np.ones((m, m)), backend="distributed", return_report=True, **kw)
     tags["ones"] = rep.dispatch
     ones_s = time.perf_counter() - t1
-    return {"values": values, "tags": tags, "counters": dict(RC.counters),
-            "main_s": main_s, "ones_s": ones_s, "device": str(mesh.device),
-            "shard": mesh.index}
+    out = {"values": values, "tags": tags, "counters": dict(RC.counters),
+           "main_s": main_s, "ones_s": ones_s, "device": str(mesh.device),
+           "shard": mesh.index}
+    out["serve"] = _mesh_serve_legs(world, cfg, mesh)
+    return out
+
+
+def _ticket_sizes(log: list, tickets: list) -> list:
+    """The size of the dispatch each ticket's matrix went in (padding
+    included; None if it never went), from ``_record_dispatches``'s log:
+    a request alone in its dispatch runs another entry."""
+    sizes = {id(M): len(mats) for mats, _, _ in log for M in mats}
+    return [sizes.get(id(t.matrix)) for t in tickets]
+
+
+def _mesh_serve_legs(world: int, cfg: dict, mesh) -> dict:
+    """The service and the tuner over this world, each leg with the
+    launch counters set to 0 just before it and read just after: the
+    mixed stream closed loop over the ("step",) mesh (every world); the
+    open-loop soak at half that rate (world ``soak_world``); a 2 x 2
+    CampaignMesh with the serve phase's campaign, run out and stopped
+    after its first dispatch with a checkpoint (world 4); the tuner's
+    campaign route (the wider worlds), its table saved a rank and planned.
+    Shard 0 returns the tickets' values and bucket sizes; every rank its
+    launches."""
+    import torch
+
+    from repro_torch.core.planner import ROUTE_CAMPAIGN
+    from repro_torch.core.solver import PermanentSolver, SolverConfig
+    from repro_torch.kernels import ryser_cuda as RC
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve import CampaignSpec, PermanentService, ServiceConfig
+    from repro_torch.tune.search import tune_table
+    dev, n, B = cfg["device"], cfg["serve_n"], cfg["serve_batch"]
+    scfg = SolverConfig(backend="distributed", cache=False, device=dev)
+    out: dict = {"launches": {}}
+
+    def leg(name, ctx, drive, campaign=None, **service):
+        """One service over ``ctx``: shard 0 runs ``drive(svc)``, the
+        others follow; the leg's launches on every rank."""
+        torch.distributed.barrier()
+        RC.reset_counters()
+        svc = PermanentService(scfg, ServiceConfig(
+            max_batch=B, log_every_s=float("inf"), **service),
+            distributed_ctx=ctx, campaign=campaign, log=None)
+        if svc.leader:
+            log = _record_dispatches(svc.solver)
+            with svc:
+                out[name] = drive(svc, log)
+        else:
+            svc.follow()
+        out["launches"][name] = dict(RC.counters)
+
+    def closed(svc, log):
+        mats, kinds = _mixed_stream(n, SEED + 80, cfg["serve_requests"])
+        t0 = time.perf_counter()
+        ts = [svc.submit(np.array(A), deadline_s=None) for A in mats]
+        svc.drain()
+        wall = time.perf_counter() - t0
+        return {"values": [t.result() for t in ts], "kinds": kinds,
+                "sizes": _ticket_sizes(log, ts), "wall_s": wall,
+                "perms_s": len(ts) / wall}
+
+    leg("closed", mesh, closed)
+    if world == cfg["soak_world"]:
+        def soak(svc, log):
+            rate = out["closed"]["perms_s"] / 2
+            mats, kinds = _mixed_stream(n, SEED + 81, cfg["soak_requests"])
+            got = _open_loop(svc, mats, rate, SEED + 82, EXPIRE_EVERY)
+            ts = got["tickets"]
+            lat = sorted(t.latency_s for t in ts if t.done)
+            return {"rate": rate, "kinds": kinds, "wall_s": got["wall_s"],
+                    "values": [t.result() if t.done else None for t in ts],
+                    "shed": [t.shed_reason.value if t.shed else None
+                             for t in ts],
+                    "sizes": _ticket_sizes(log, ts),
+                    "p50_ms": _pct(lat, 50) * 1e3,
+                    "p99_ms": _pct(lat, 99) * 1e3,
+                    "requests": svc.snapshot()["requests"]}
+        leg("soak", mesh, soak)
+    if world == 4:
+        cm = M.make_campaign_mesh(2, 2, device=dev, ranks_per_device=world)
+        C = np.ones((cfg["camp_n"],) * 2)
+        for name, stop in (("campaign", False), ("stopped", True)):
+            spec = CampaignSpec(matrix=C, waves=1,
+                                slices=cfg["camp_slices"],
+                                checkpoint=cfg["ckpt"] if stop else None)
+
+            def camp(svc, log, stop=stop):
+                rng = np.random.default_rng(SEED + 60)
+                for _ in range(3 * B):
+                    svc.submit(rng.uniform(-1, 1, (n, n)), deadline_s=None)
+                t0 = time.perf_counter()
+                svc.step()
+                if not stop:
+                    svc.drain()
+                return {"value": svc.campaign_value,
+                        "fraction": svc.campaign_fraction,
+                        "body": {k: v for k, v in svc.campaign_body().items()
+                                 if k != "geometry"},
+                        "wall_s": time.perf_counter() - t0}
+            leg(name, cm, camp, campaign=spec)
+    if world > 1:
+        step = M.make_mesh((world,), ("step",), device=dev,
+                           ranks_per_device=world)
+        torch.distributed.barrier()
+        RC.reset_counters()
+        t0 = time.perf_counter()
+        table, rows = tune_table(["campaign"], [cfg["tune_n"]], mesh=step)
+        wall = time.perf_counter() - t0
+        path = f"{cfg['ckpt']}.tune{torch.distributed.get_rank()}.json"
+        table.save(path)
+        planned = PermanentSolver(SolverConfig(
+            tuning_table=path, device=dev, cache=False,
+            campaign_threshold=-1.0)).plan(np.ones((cfg["tune_n"],) * 2))
+        geo = [l.campaign.geometry for l in planned.leaves
+               if l.route == ROUTE_CAMPAIGN]
+        out["tune"] = {"entries": sorted((k, e.geometry.tag(), e.measured_s,
+                                          e.default_s)
+                                         for k, e in table.entries.items()),
+                       "rows": rows, "planned": [g.tag() if g else None
+                                                 for g in geo],
+                       "wall_s": wall}
+        out["launches"]["tune"] = dict(RC.counters)
+    return out
 
 
 def _mesh_references(smoke: Smoke, cfg: dict, ins: dict) -> dict:
@@ -3418,7 +3594,7 @@ def _mesh_references(smoke: Smoke, cfg: dict, ins: dict) -> dict:
             ref[world, key] = D.run_campaign(
                 A, total_slices=ts, chunks_per_slice=cps, chunk_size=C,
                 device=dev)[0]
-    for key in ("leaf", "leaf_complex"):
+    for key in ("dense", "leaf", "leaf_complex"):
         ref[key] = repro_torch.permanent(ins[key], device=dev)
     for key in ("dense_batch", "complex_batch", "sparse_batch",
                 "sparse_complex_batch"):
@@ -3426,9 +3602,182 @@ def _mesh_references(smoke: Smoke, cfg: dict, ins: dict) -> dict:
     ref["ragged"] = repro_torch.permanent_batch(
         ins["dense_batch"][:cfg["ragged"]], device=dev)
     main = smoke.summary.get("campaign", {}).get("main", {})
-    ref["ones"] = main["value"] if main.get("n") == cfg["n_ones"] \
-        else repro_torch.permanent(np.ones((cfg["n_ones"],) * 2), device=dev)
+    ones: dict = {}
+    for world in MESH_WORLDS:
+        m = cfg["n_ones"][world]
+        if m not in ones:
+            ones[m] = main["value"] if main.get("n") == m else \
+                repro_torch.permanent(np.ones((m, m)), device=dev)
+        ref[world, "ones"] = ones[m]
     return ref
+
+
+def _mesh_serve_references(cfg: dict) -> dict:
+    """What the service legs are held against, on one device in this
+    process: the mixed stream closed loop through the one-device service
+    (the ``cuda`` backend, the same mode), the soak stream's distinct
+    matrices through the batch entries (a member's value does not depend
+    on its bucket), and the campaign through ``run_campaign``."""
+    import repro_torch
+    from repro_torch.core import distributed as Dm
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.serve import CampaignSpec, PermanentService, ServiceConfig
+    dev, n, B = cfg["device"], cfg["serve_n"], cfg["serve_batch"]
+    scfg = SolverConfig(cache=False, device=dev)
+    svc = PermanentService(scfg, ServiceConfig(
+        max_batch=B, log_every_s=float("inf")), log=None)
+    log = _record_dispatches(svc.solver)
+    mats, _ = _mixed_stream(n, SEED + 80, cfg["serve_requests"])
+    t0 = time.perf_counter()
+    ts = [svc.submit(np.array(A), deadline_s=None) for A in mats]
+    svc.drain()
+    wall = time.perf_counter() - t0
+    out = {"closed": {"values": [t.result() for t in ts],
+                      "sizes": _ticket_sizes(log, ts),
+                      "perms_s": len(ts) / wall}}
+    mats, _ = _mixed_stream(n, SEED + 81, cfg["soak_requests"])
+    distinct = {id(A): A for A in mats}
+    by_kind: dict = {}
+    for k, A in distinct.items():
+        by_kind.setdefault((np.iscomplexobj(A), A.dtype), []).append(k)
+    soak = {}
+    for keys in by_kind.values():
+        vals = repro_torch.permanent_batch([distinct[k] for k in keys],
+                                           device=dev)
+        soak.update(zip(keys, vals))
+    out["soak"] = [soak[id(A)] for A in mats]
+    C = np.ones((cfg["camp_n"],) * 2)
+    camp = PermanentService(scfg, ServiceConfig(log_every_s=float("inf")),
+                            campaign=CampaignSpec(
+                                matrix=C, slices=cfg["camp_slices"]),
+                            log=None)
+    out["campaign"] = Dm.run_campaign(C, **camp.campaign_body())[0]
+    return out
+
+
+def _mesh_serve_checks(smoke: Smoke, cfg: dict, world: int, ranks: list,
+                       ref: dict) -> dict:
+    """The service legs of one world against ``ref``: every member of a
+    bucket of more than one request (in both services) bit for bit, a
+    request served alone within 1e-12 (a bucket of one runs the scalar
+    entry on one device and the batch entry over a mesh); the soak's
+    sheds typed and counted, its values bit for bit the batch entries';
+    the campaign bit for bit ``run_campaign``'s; every rank's tuning
+    table the same, and planned; each leg's kernels launched on the ranks
+    that serve it, no plain version."""
+    lead = ranks[0]["serve"]
+    on_card = cfg["device"] is None
+
+    def held(values, sizes, want, want_sizes=None):
+        bad = []
+        for i, (v, k, w) in enumerate(zip(values, sizes, want)):
+            alone = k == 1 or (want_sizes is not None and want_sizes[i] == 1)
+            if v is None:
+                continue
+            if alone and abs(complex(v) - complex(w)) > \
+                    1e-12 * abs(complex(w)):
+                bad.append(i)
+            if not alone and not _same(v, w):
+                bad.append(i)
+        return bad
+
+    closed = lead["closed"]
+    bad = held(closed["values"], closed["sizes"], ref["closed"]["values"],
+               ref["closed"]["sizes"])
+    smoke.check(not bad and len(closed["values"]) == cfg["serve_requests"],
+                f"mesh: world {world}: the service's {len(closed['values'])} "
+                f"mixed requests equal the one-device service's, bucket "
+                f"members bit for bit (differ: {bad[:8]})")
+    got = {"perms_s": closed["perms_s"], "wall_s": closed["wall_s"]}
+    plain = [r["shard"] for r in ranks for c in r["serve"]["launches"].values()
+             for k, v in c.items() if k.startswith("block_partials") and v]
+    missing = [(r["shard"], k) for r in ranks for k in MESH_SERVE_ENTRIES
+               if not r["serve"]["launches"]["closed"].get(k)]
+    smoke.check(not on_card or (not missing and not plain),
+                f"mesh: world {world}: the service launched #2, #4, #6, #8 "
+                f"on every rank, no plain version (not launched: {missing}; "
+                f"plain on {sorted(set(plain))})")
+    if "soak" in lead:
+        sk = lead["soak"]
+        expired = sum(1 for i in range(len(sk["shed"]))
+                      if i % EXPIRE_EVERY == EXPIRE_EVERY - 1)
+        req = sk["requests"]
+        sheds = {r for r in sk["shed"] if r}
+        bad = held(sk["values"], [k or 1 for k in sk["sizes"]], ref["soak"])
+        ok = (not bad and req["admitted"] == cfg["soak_requests"]
+              and req["completed"] + req["shed_total"] == req["admitted"]
+              and req["shed"].get("deadline_expired", 0) >= expired
+              and sheds <= {"deadline_expired", "queue_full"})
+        smoke.check(ok, f"mesh: world {world} open-loop soak at "
+                        f"{sk['rate']:.1f}/s: shard 0 shed {req['shed']} "
+                        f"(at least the {expired} expired on arrival), "
+                        f"completed {req['completed']}, values against the "
+                        f"batch entries (differ: {bad[:8]})")
+        got["soak"] = {k: sk[k] for k in ("rate", "wall_s", "p50_ms",
+                                          "p99_ms", "requests")}
+        print(f"mesh world {world} soak: {sk['rate']:.1f}/s offered, p50 "
+              f"{sk['p50_ms']:.3f} ms, p99 {sk['p99_ms']:.3f} ms, "
+              f"{req['shed']}")
+    if "campaign" in lead:
+        c, st = lead["campaign"], lead["stopped"]
+        ok = c["value"] == ref["campaign"] and c["fraction"] == 1.0 and \
+            st["value"] is None and 0.0 < st["fraction"] < 1.0
+        smoke.check(ok, f"mesh: world {world} 2x2 CampaignMesh: the "
+                        f"interleaved all-ones n={cfg['camp_n']} campaign on "
+                        f"the step row ends on run_campaign's bits "
+                        f"({c['value']!r} vs {ref['campaign']!r}); stopped "
+                        f"after one dispatch at {st['fraction']:.3f}")
+        steps = [r["shard"] for r in ranks
+                 if r["serve"]["launches"]["campaign"].get(
+                     "ryser_dense_scalar")]
+        smoke.check(not on_card or steps == [0, 1],
+                    f"mesh: world {world} 2x2: the campaign's waves ran on "
+                    f"the step row, shards {steps} (want [0, 1])")
+        got["campaign"] = {"wall_s": c["wall_s"], "fraction_stopped":
+                           st["fraction"]}
+    if world > 1:
+        tables = [r["serve"]["tune"] for r in ranks]
+        same = all(t["entries"] == tables[0]["entries"] for t in tables)
+        winner = tables[0]["entries"][0][1]
+        planned = all(t["planned"] == [winner] for t in tables)
+        smoke.check(same and planned and all(
+            row["ranks"] == world for row in tables[0]["rows"]),
+            f"mesh: world {world}: the tuner's campaign route at "
+            f"n={cfg['tune_n']} gave every rank the same table "
+            f"({tables[0]['entries']}), and the planner applied its winner "
+            f"{winner} on every rank")
+        got["tune"] = {"entries": tables[0]["entries"],
+                       "wall_s": tables[0]["wall_s"],
+                       "rows": tables[0]["rows"]}
+    return got
+
+
+def _mesh_campaign_resume(smoke: Smoke, cfg: dict, ref: dict) -> dict:
+    """The campaign stopped in the 2 x 2 world, resumed here at world 1
+    (a world of one rank in this process, the spec's mesh) from its
+    checkpoint: the same bits as run_campaign."""
+    from repro_torch.core.solver import SolverConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve import CampaignSpec, PermanentService, ServiceConfig
+    if not os.path.exists(cfg["ckpt"]):
+        smoke.check(False, "mesh: the 2x2 campaign left no checkpoint")
+        return {}
+    C = np.ones((cfg["camp_n"],) * 2)
+    t0 = time.perf_counter()
+    with M.world():
+        mesh = M.make_mesh((1,), ("step",), device=cfg["device"])
+        spec = CampaignSpec(matrix=C, mesh=mesh, slices=cfg["camp_slices"],
+                            checkpoint=cfg["ckpt"])
+        with PermanentService(SolverConfig(cache=False, device=cfg["device"]),
+                              ServiceConfig(log_every_s=float("inf")),
+                              campaign=spec, log=None) as svc:
+            svc.drain()
+    value = svc.campaign_value
+    smoke.check(value == ref["campaign"],
+                f"mesh: the campaign stopped in the 2x2 world resumed at "
+                f"world 1 ends on the same bits ({value!r} vs "
+                f"{ref['campaign']!r})")
+    return {"value": value, "seconds": time.perf_counter() - t0}
 
 
 def _same(a, b) -> bool:
@@ -3599,6 +3948,73 @@ def _mesh_clis(smoke: Smoke, cfg: dict, work: str) -> dict:
                 f"{rel:.3e}")
     out["campaign_cli"] = {"legs": legs, "uninterrupted": f"{whole:+.17e}",
                            "rel_err": rel}
+    out.update(_mesh_service_clis(smoke, cfg, work))
+    return out
+
+
+def _mesh_service_clis(smoke: Smoke, cfg: dict, work: str) -> dict:
+    """The service and the tuner CLIs under torchrun: ``launch/serve.py
+    --mesh 2`` (buckets over two ranks), ``--mesh 2x2 --campaign
+    camp_n`` (a CampaignMesh, the campaign's value bit for bit one-device
+    run_campaign's at the CLI's spec), ``launch/tune.py --routes campaign
+    --sizes tune_n`` at world 2 (``--sizes``: the launcher's parser reads
+    a script's ``--n`` as one of its flags); each exits 0 and prints on
+    shard 0 only."""
+    from repro_torch.core import distributed as Dm
+    from repro_torch.core.planner import SolverConfig
+    from repro_torch.core.stepspace import plan_slices
+    from repro_torch.tune.table import TuningTable
+    out = {}
+    n, reqs, B = cfg["serve_n"], cfg["serve_requests"], cfg["serve_batch"]
+    serve = ["--perm-n", str(n), "--requests", str(reqs), "--batch", str(B)]
+    t = time.perf_counter()
+    rc, text = _torchrun(2, "repro_torch.launch.serve", [*serve, "--mesh",
+                                                          "2"], cfg)
+    done = text.count(f"[serve] permanents: {reqs} reqs")
+    out["serve_cli"] = {"rc": rc, "seconds": time.perf_counter() - t}
+    smoke.check(rc == 0 and done == 1 and "2-rank mesh" in text,
+                f"mesh: launch/serve.py --mesh 2 under torchrun at world 2: "
+                f"rc {rc}, shard 0's report printed {done} time(s)")
+    if rc != 0 or done != 1:
+        print(text[-3000:])
+    m = cfg["camp_n"]
+    C = np.random.default_rng(7).uniform(0.2, 1.2, (m, m))
+    sc = SolverConfig()
+    ts, cps, C_ = plan_slices(m, sc.campaign_slices, 1, sc.campaign_lanes)
+    want = Dm.run_campaign(C, total_slices=ts, chunks_per_slice=cps,
+                           chunk_size=C_, device=cfg["device"])[0]
+    t = time.perf_counter()
+    rc, text = _torchrun(4, "repro_torch.launch.serve",
+                         [*serve, "--mesh", "2x2", "--campaign", str(m)], cfg)
+    got = [ln.split("perm = ")[1].strip() for ln in text.splitlines()
+           if "[serve] campaign: 100.0% done, perm = " in ln]
+    out["serve_campaign_cli"] = {"rc": rc, "printed": got,
+                                 "want": f"{want:+.17e}",
+                                 "seconds": time.perf_counter() - t}
+    smoke.check(rc == 0 and got == [f"{want:+.17e}"],
+                f"mesh: launch/serve.py --mesh 2x2 --campaign {m} under "
+                f"torchrun at world 4 printed {got} once, one-device "
+                f"run_campaign's {want:+.17e} (rc {rc})")
+    if rc != 0 or got != [f"{want:+.17e}"]:
+        print(text[-3000:])
+    table = os.path.join(work, "cli_table.json")
+    t = time.perf_counter()
+    rc, text = _torchrun(2, "repro_torch.launch.tune",
+                         ["--routes", "campaign", "--sizes",
+                          str(cfg["tune_n"]), "--out", table], cfg)
+    saved = text.count("entr(ies) ->")
+    entries = len(TuningTable.load(table).entries) \
+        if rc == 0 and os.path.exists(table) else 0
+    out["tune_cli"] = {"rc": rc, "seconds": time.perf_counter() - t,
+                       "lines": [ln for ln in text.splitlines()
+                                 if ln.startswith("[tune]")]}
+    smoke.check(rc == 0 and saved == 1 and entries == 1 and "ranks=2" in text,
+                f"mesh: launch/tune.py --routes campaign --sizes "
+                f"{cfg['tune_n']} under torchrun at world 2: rc {rc}, saved "
+                f"{saved} time(s), {entries} entry")
+    if rc != 0 or saved != 1:
+        print(text[-3000:])
+    print(f"mesh service CLIs: {out}")
     return out
 
 
@@ -3656,6 +4072,8 @@ def phase_mesh(smoke: Smoke, torch, card: dict, cfg: dict | None = None
     out = {"worlds": {}, "ranks_per_device": {}}
     _mesh_without_mesh(smoke, cfg, ins, total)
     work = tempfile.mkdtemp(prefix="mesh_")
+    cfg = dict(cfg, ckpt=os.path.join(work, "serve_campaign.npz"))
+    serve_ref = _mesh_serve_references(cfg)
     try:
         for world in MESH_WORLDS:
             t = time.perf_counter()
@@ -3681,20 +4099,28 @@ def phase_mesh(smoke: Smoke, torch, card: dict, cfg: dict | None = None
                         f"mesh: world {world} (ranks_per_device {world}): "
                         f"every rank returns the same bits, equal to the "
                         f"one-device cuda path (differ: {bad})")
+            m = cfg["n_ones"][world]
             tags_ok = all(r["tags"][k] == [f"dense(n={cfg['n']})"]
                           for r in ranks for k in ("dense",)) and all(
                 "->" not in t for r in ranks for k in r["tags"]
                 if k.endswith("batch") or k == "ragged"
                 for t in r["tags"][k]) and all(
-                r["tags"]["ones"] == [f"campaign(n={cfg['n_ones']},cuda)"]
-                for r in ranks)
+                r["tags"]["ones"] == [
+                    f"campaign(n={m},cuda)" if m * 2.0 ** (m - 1) > 2 ** 34
+                    else f"dense(n={m})"] for r in ranks)
             smoke.check(tags_ok, f"mesh: world {world} dispatch tags "
                                  f"{first['tags']}")
-            exact = all_ones_permanent(cfg["n_ones"])
+            exact = all_ones_permanent(m)
             rel = abs(first["values"]["ones"] - exact) / exact
             smoke.check(rel <= ONES_BAR, f"mesh: world {world} all-ones "
-                        f"n={cfg['n_ones']} rel.err {rel:.3e} <= "
-                        f"{ONES_BAR:g}")
+                        f"n={m} rel.err {rel:.3e} <= {ONES_BAR:g}")
+            # the lone dense leaf: permanent_on_mesh's bits (checked
+            # above), the one-device scalar entry's within 1e-12
+            lone = abs(first["values"]["dense"] - ref["dense"]) / \
+                abs(ref["dense"])
+            smoke.check(lone <= 1e-12, f"mesh: world {world}: the dense "
+                        f"n={cfg['n']} leaf split over the ranks is "
+                        f"{lone:.3e} <= 1e-12 from the one-device value")
             missing = [(r["shard"], k) for r in ranks for k in KERNEL_ENTRIES
                        if not r["counters"].get(k)]
             plain = {k: v for r in ranks for k, v in r["counters"].items()
@@ -3707,10 +4133,15 @@ def phase_mesh(smoke: Smoke, torch, card: dict, cfg: dict | None = None
             for r in ranks:
                 for k, v in r["counters"].items():
                     total[k] += v
+                for counts in r["serve"]["launches"].values():
+                    for k, v in counts.items():
+                        total[k] += v
             w = {"seconds": seconds,
                  "main_s": [r["main_s"] for r in ranks],
-                 "ones_s": first["ones_s"], "ones_value": first["values"][
-                     "ones"], "ones_rel_err": rel,
+                 "ones_n": m, "ones_s": first["ones_s"],
+                 "ones_value": first["values"]["ones"], "ones_rel_err": rel,
+                 "serve": _mesh_serve_checks(smoke, cfg, world, ranks,
+                                             serve_ref),
                  "launches": [{k: v for k, v in r["counters"].items() if v}
                               for r in ranks],
                  "devices": [r["device"] for r in ranks]}
@@ -3718,16 +4149,22 @@ def phase_mesh(smoke: Smoke, torch, card: dict, cfg: dict | None = None
             out["ranks_per_device"][world] = world
             print(f"mesh world {world} (ranks_per_device {world}, devices "
                   f"{w['devices']}): {seconds:.1f} s, main path "
-                  f"{max(w['main_s']):.3f} s, all-ones n={cfg['n_ones']} "
+                  f"{max(w['main_s']):.3f} s, all-ones n={m} "
                   f"{w['ones_s']:.4f} s, launches rank 0 "
                   f"{w['launches'][0]}")
+        out["resumed"] = _mesh_campaign_resume(smoke, cfg, serve_ref)
         out["cli"] = _mesh_clis(smoke, cfg, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    walls = {k: v["ones_s"] for k, v in out["worlds"].items()}
-    print(f"mesh all-ones n={cfg['n_ones']} campaign wall seconds by world: "
-          f"{walls} on {card['nvidia_smi']}; the ranks time-slice one card, "
-          f"so no scaling is expected or claimed")
+    walls = {k: (v["ones_n"], v["ones_s"]) for k, v in out["worlds"].items()}
+    print(f"mesh all-ones (n, campaign wall seconds) by world: {walls} on "
+          f"{card['nvidia_smi']}; the ranks time-slice one card, so no "
+          f"scaling is expected or claimed")
+    rates = {k: v["serve"]["perms_s"] for k, v in out["worlds"].items()}
+    print(f"mesh service closed loop, {cfg['serve_requests']} mixed requests "
+          f"n={cfg['serve_n']}: perms/s by world {rates} (one device "
+          f"{serve_ref['closed']['perms_s']:.1f}) on {card['nvidia_smi']}; "
+          f"no scaling claimed")
     out["seconds"] = time.perf_counter() - t0
     out["launches"] = {k: v for k, v in total.items() if v}
     print(f"mesh phase: {out['seconds']:.1f} s; launches of #1-#8 over "

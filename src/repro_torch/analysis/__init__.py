@@ -32,7 +32,10 @@ PT002    PL002      vmap fused across the batch axis and moved complex
                     values by ulps between batch extents (reference PR 4)
 PT003    PL003      tiny-n fallbacks dropped ``precision``/``num_chunks``
                     (reference PRs 5-6); the port guards ``device`` and
-                    ``geometry`` too, each of which picks another program
+                    ``geometry`` too, each of which picks another program,
+                    and ``distributed_ctx`` / ``mesh`` through ``serve/``
+                    and ``tune/`` (a dropped mesh runs one rank's work
+                    where the world expects a collective)
 PT004    PL004      wall clocks in core/serve made deadlines untestable
                     (reference PR 7)
 PT005    PL005      a config field outside the plan fingerprint split or
@@ -65,7 +68,10 @@ PT104    PLI104     an extra or order-free collective (a psum, an
                     ``all_reduce``) changes the cross-device order; the
                     port's mesh functions gather and reduce in slice-id
                     or bucket order, held on the ``torch.distributed``
-                    calls each mesh entry made
+                    calls each mesh entry made; the service over a mesh
+                    adds one ``broadcast_object_list`` a dispatch to its
+                    bucket's gathers (SPMD ranks that each read the
+                    clock would diverge)
 =======  =========  ======================================================
 """
 

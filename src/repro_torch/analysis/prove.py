@@ -29,16 +29,18 @@ is missing is a finding.  ``--bless`` rewrites them, for an intended
 change to the numerics only (say so in ``CHANGES.md``).
 
 PT104, the counterpart of the reference's collective audit PLI104, runs
-the nine mesh entries (``MESH_ENTRIES``: ``core/distributed.py``'s
+the eleven mesh entries (``MESH_ENTRIES``: ``core/distributed.py``'s
 ``permanent_on_mesh``, ``slice_sums_on_mesh``, ``run_campaign`` over a
 mesh, ``batch_permanents_on_mesh`` and
-``sparse_batch_permanents_on_mesh``, f64 and c128) at ``dq_acc`` on a
+``sparse_batch_permanents_on_mesh``, and ``serve.PermanentService`` over
+the mesh, f64 and c128) at ``dq_acc`` on a
 ("step",) mesh of the current world (a world of one rank in this process
 when none exists) under ``contracts.CollectiveRecorder``: only
 ``all_gather`` / ``broadcast_object_list`` / ``barrier``, one digest
 gather and one partials gather a call (a wave for the campaign, plus one
-broadcast of its state), and every value bit for bit the one-device
-entry's (PT103).
+broadcast of its state; for the service one broadcast a dispatch besides
+its bucket's gathers, one digest gather at its start and the broadcast
+of "stop"), and every value bit for bit the one-device entry's (PT103).
 """
 
 from __future__ import annotations
@@ -68,7 +70,7 @@ CANON_B, ALT_B = 5, 7        # two coprime batch extents
 SEED = 20250226
 MESH_FUNCTIONS = ("permanent_on_mesh", "slice_sums_on_mesh", "run_campaign",
                   "batch_permanents_on_mesh",
-                  "sparse_batch_permanents_on_mesh")
+                  "sparse_batch_permanents_on_mesh", "service")
 MESH_ENTRIES = tuple(f"mesh_{fn}.{dt}" for fn in MESH_FUNCTIONS
                      for dt in ("f64", "c128")
                      if (fn, dt) != ("slice_sums_on_mesh", "c128"))
@@ -321,6 +323,8 @@ def _mesh_run(name: str, mesh, device: str, work: str):
         want, _ = D.run_campaign(A, device=device, **spec)
         return [got], [want], {"all_gather": 1 + len(waves),
                                "broadcast_object_list": 1}
+    if fn == "service":
+        return _mesh_service(As, mesh, device)
     if fn == "batch_permanents_on_mesh":
         got = D.batch_permanents_on_mesh(As, mesh, precision=prec)
         want = ops.permanent_cuda_batched(As, precision=prec, device=device)
@@ -329,6 +333,33 @@ def _mesh_run(name: str, mesh, device: str, work: str):
     want = ops.sparse_batched_values_cuda(As, *sparyser.padded_ccs(As),
                                           precision=prec, device=device)
     return list(got), list(want.cpu().numpy()), once
+
+
+def _mesh_service(As, mesh, device: str):
+    """``serve.PermanentService`` over ``mesh``: the stack as one bucket
+    (``distributed_batch``), shard 0 admitting, the others following.
+    Budget: one digest gather of the service's description, then per
+    dispatch one broadcast and the bucket entry's two gathers, and the
+    broadcast of "stop"."""
+    from ..core.planner import SolverConfig
+    from ..kernels import ops
+    from ..serve import PermanentService, ServiceConfig
+    svc = PermanentService(
+        SolverConfig(backend="distributed", device=device, preprocess=False),
+        ServiceConfig(max_batch=len(As), quantize_buckets=False,
+                      log_every_s=float("inf")),
+        distributed_ctx=mesh, log=None)
+    want = list(ops.permanent_cuda_batched(As, precision="dq_acc",
+                                           device=device).cpu().numpy())
+    if svc.leader:
+        with svc:
+            tickets = [svc.submit(A, deadline_s=None) for A in As]
+            svc.drain()
+        got = [t.result() for t in tickets]
+    else:
+        svc.follow()
+        got = want                    # the values are shard 0's to hold
+    return got, want, {"all_gather": 3, "broadcast_object_list": 2}
 
 
 def mesh_audit(names, device: str = "cpu") -> tuple[list[Finding], dict]:

@@ -19,6 +19,9 @@ __all__ = ["Finding", "Rule", "RULES", "SignatureIndex", "GUARDED_KWARGS",
 
 # Kwargs whose silent loss changes what is computed or where.
 GUARDED_KWARGS = ("precision", "num_chunks", "backend", "device", "geometry")
+# ... and, through the service and the tuner, over which ranks
+MESH_KWARGS = ("distributed_ctx", "mesh")
+MESH_SCOPE = ("serve/", "tune/")
 
 # Scopes are path fragments matched against '/'-normalized file paths.
 ACCUM_SCOPE = ("core/ryser.py", "core/sparyser.py", "core/distributed.py",
@@ -140,7 +143,8 @@ class SignatureIndex:
         for node in ast.walk(tree):
             if not isinstance(node, _FUNC_DEFS):
                 continue
-            params = set(_func_params(node)) & set(GUARDED_KWARGS)
+            params = set(_func_params(node)) & set(GUARDED_KWARGS
+                                                   + MESH_KWARGS)
             if node.name in self.guarded:
                 self.guarded[node.name] &= params
             else:
@@ -250,14 +254,17 @@ def _call_forwards(call: ast.Call, aliases: set[str]) -> bool:
 
 @_rule("PT003", "kwarg-passthrough", scope=PORT_SCOPE,
        invariant="a function of the port accepting precision/num_chunks/"
-                 "backend/device/geometry forwards each to every call whose "
+                 "backend/device/geometry (in serve/ and tune/ also "
+                 "distributed_ctx/mesh) forwards each to every call whose "
                  "callee accepts it too, or binds it there explicitly")
 def _check_passthrough(ctx: FileContext) -> list[Finding]:
     out = []
+    guarded = GUARDED_KWARGS + (
+        MESH_KWARGS if any(s in ctx.path for s in MESH_SCOPE) else ())
     for fn in ast.walk(ctx.tree):
         if not isinstance(fn, _FUNC_DEFS):
             continue
-        own = set(_func_params(fn)) & set(GUARDED_KWARGS)
+        own = set(_func_params(fn)) & set(guarded)
         if not own:
             continue
         aliases = {g: _alias_closure(fn, g) for g in own}

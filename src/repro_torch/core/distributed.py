@@ -78,7 +78,7 @@ import numpy as np
 import torch
 
 from . import precision as P
-from .resume import JobState
+from .resume import JobState, sums_dtype
 from .ryser import (_final_factor, chain_prod, chain_prod_complex,
                     nw_base_vector, perm_ryser_batched, resolve_device)
 from .sparyser import pack_padded_ccs, padded_ccs, sparse_values
@@ -180,8 +180,9 @@ def slice_sums(A, slice_ids, *, chunks_per_slice: int, chunk_size: int,
                geometry: Geometry | None = None, device=None,
                events: list | None = None):
     """Per-slice twofloat sums of one wave: ``(his, los)``, each a
-    (len(slice_ids),) float64 ndarray (complex128 for complex ``A``) in
-    the order of ``slice_ids``, and the number of launches.  One
+    (len(slice_ids),) ndarray in ``sums_dtype(A)`` (f32 and complex64
+    keep theirs) in the order of ``slice_ids``, and the number of
+    launches.  One
     ``ops.campaign_slice_sums`` call per maximal run of consecutive ids
     (``events`` collects each kernel launch's CUDA events).  No sentinel
     ids: a short wave is just fewer ids."""
@@ -203,30 +204,36 @@ def slice_sums(A, slice_ids, *, chunks_per_slice: int, chunk_size: int,
             len(runs))
 
 
-def _final_value(A: np.ndarray, hi: float | complex, lo: float | complex):
+def _final_value(A: np.ndarray, hi, lo):
     """(hi, lo) of the slice sums plus the g = 0 term (the chain product
     of the NW base vector; per plane for complex), times the Ryser factor,
-    on the host in float64 (IEEE adds and multiplies, so the same bits as
-    the kernels' epilogue on the card)."""
+    on the host in the sums' dtype (IEEE adds and multiplies, so the same
+    bits as the kernels' epilogue on the card).  A float (complex for
+    complex ``A``) for f64 / complex128 sums; an ``np.float32`` /
+    ``np.complex64`` for single-precision ones, as the reference returns
+    them."""
     n = A.shape[0]
     f = _final_factor(n)
+    dt = sums_dtype(A)
+    plane = torch.float32 if dt in (np.float32, np.complex64) \
+        else torch.float64
+
+    def close(h, e, p0):
+        t = P.tf_add_acc(P.TwoFloat(torch.tensor(h, dtype=plane),
+                                    torch.tensor(e, dtype=plane)), p0)
+        return P.tf_value(t) * f
+
     if np.iscomplexobj(A):
-        xr = nw_base_vector(torch.as_tensor(np.ascontiguousarray(A.real)))
-        xi = nw_base_vector(torch.as_tensor(np.ascontiguousarray(A.imag)))
+        xr, xi = (nw_base_vector(torch.as_tensor(np.ascontiguousarray(a),
+                                                 dtype=plane))
+                  for a in (A.real, A.imag))
         p0r, p0i = chain_prod_complex(xr[:, None], xi[:, None])
-        out = []
-        for h, e, p0 in ((hi.real, lo.real, p0r[0]),
-                         (hi.imag, lo.imag, p0i[0])):
-            t = P.tf_add_acc(P.TwoFloat(torch.tensor(h, dtype=torch.float64),
-                                        torch.tensor(e, dtype=torch.float64)),
-                             p0)
-            out.append(float(P.tf_value(t)) * f)
-        return complex(*out)
-    x = nw_base_vector(torch.as_tensor(np.asarray(A, dtype=np.float64)))
-    p0 = chain_prod(x[:, None])[0]
-    t = P.tf_add_acc(P.TwoFloat(torch.tensor(hi, dtype=torch.float64),
-                                torch.tensor(lo, dtype=torch.float64)), p0)
-    return float(P.tf_value(t)) * f
+        v = complex(float(close(hi.real, lo.real, p0r[0])),
+                    float(close(hi.imag, lo.imag, p0i[0])))
+    else:
+        x = nw_base_vector(torch.as_tensor(np.asarray(A), dtype=plane))
+        v = float(close(hi, lo, chain_prod(x[:, None])[0]))
+    return v if plane == torch.float64 else dt.type(v)
 
 
 def run_campaign(A, *, total_slices: int, chunks_per_slice: int,
@@ -388,10 +395,12 @@ def _digest(*parts) -> int:
 
 def _gather(mesh, row: torch.Tensor) -> np.ndarray:
     """One ``all_gather`` of a host row per rank over the mesh's gloo
-    group: a (D, len) array in shard order."""
+    group: a (D, len) array in shard order (the group orders its ranks
+    by global rank, a sub-mesh's shards may not)."""
     out = [torch.empty_like(row) for _ in range(mesh.size)]
     _dist().all_gather(out, row, group=mesh.group)
-    return torch.stack(out).numpy()[mesh.ranks.ravel()]
+    ranks = mesh.ranks.ravel()
+    return torch.stack(out).numpy()[np.searchsorted(np.sort(ranks), ranks)]
 
 
 def _input_guard(mesh, what: str, *parts) -> None:
@@ -461,9 +470,10 @@ def _mesh_slice_sums(A: np.ndarray, mesh, ids: list[int], body: dict,
     cplx = bool(np.iscomplexobj(A))
     launches = 0
 
+    dt = sums_dtype(A)
+
     def compute():
         nonlocal launches
-        dt = np.complex128 if cplx else np.float64
         hi, lo = np.zeros(per, dt), np.zeros(per, dt)
         pos = [k for k, i in enumerate(mine) if i >= 0]
         if pos:
@@ -475,8 +485,9 @@ def _mesh_slice_sums(A: np.ndarray, mesh, ids: list[int], body: dict,
     width = per * (4 if cplx else 2)
     rows, secs, failed, err = _share(mesh, compute, width)
     half = width // 2
-    his = _unplanes(rows[:, :half], cplx)[:len(ids)]
-    los = _unplanes(rows[:, half:], cplx)[:len(ids)]
+    # the planes carry f32 sums exactly; back in the sums' dtype
+    his = _unplanes(rows[:, :half], cplx)[:len(ids)].astype(dt)
+    los = _unplanes(rows[:, half:], cplx)[:len(ids)].astype(dt)
     return his, los, launches, secs, failed, err
 
 
@@ -487,8 +498,8 @@ def slice_sums_on_mesh(A, mesh, slice_ids, *, chunks_per_slice: int,
     """Per-slice twofloat sums of any number of slice ids over the mesh:
     the ids in D contiguous shares by rank, ids < 0 sentinels that come
     back as exact zeros (the reference's convention).  Every rank returns
-    ``(his, los)``, each (len(slice_ids),) float64 (complex128 for complex
-    ``A``), in the order given."""
+    ``(his, los)``, each (len(slice_ids),) in ``sums_dtype(A)`` (f32 and
+    complex64 keep theirs), in the order given."""
     A = np.asarray(A)
     ids = [int(i) for i in slice_ids]
     _input_guard(mesh, "slice_sums_on_mesh", A, ids, chunks_per_slice,
@@ -515,8 +526,10 @@ def permanent_on_mesh(A, mesh, *, precision: str = "dq_acc",
     its own (one launch of the wave body per contiguous run), one gather
     brings every slice's ``(hi, lo)`` to every rank, and each reduces them
     in slice-id order and closes the sum.  Every rank returns the same
-    float (complex for complex ``A``), equal bit for bit to
-    ``run_campaign`` on one device at the same slice decomposition."""
+    float (complex for complex ``A``; ``np.float32`` / ``np.complex64``
+    for single-precision input, as the reference keeps its dtype), equal
+    bit for bit to ``run_campaign`` on one device at the same slice
+    decomposition."""
     A = np.asarray(A)
     n = A.shape[-1]
     if A.ndim != 2 or A.shape[0] != n:
@@ -599,15 +612,28 @@ def batch_permanents_on_mesh(stack, mesh, *, precision: str = "dq_acc",
     on ``mesh.device``, a ragged tail padded with zero matrices whose
     values are dropped, and one gather returns the (B,) values to every
     rank in bucket order -- each equal bit for bit to the one-device
-    entry's (a member's value does not depend on its stack).  n <= 2:
-    closed forms on every rank.  Complex stacks cross as re/im planes,
-    f32 and complex64 keep their dtype."""
+    entry's (a member's value does not depend on its stack).  As the
+    reference: n = 1 returns ``stack[:, 0, 0]`` and n = 2 the closed form,
+    both in the stack's dtype, on every rank; otherwise the stack is cast
+    to float64 / complex128 first (f32 and complex64 too), and an empty
+    one returns an empty array of that dtype.  Complex stacks cross as
+    re/im planes."""
     stack = np.asarray(stack)
-    if stack.ndim != 3 or stack.shape[1] != stack.shape[2] or not len(stack):
+    if stack.ndim != 3 or stack.shape[1] != stack.shape[2]:
         raise ValueError(f"(B, n, n) stack required, got {stack.shape}")
     _check_backend(backend)
     _input_guard(mesh, "batch_permanents_on_mesh", stack, precision,
                  num_chunks, backend, _gtag(geometry))
+    B, n = stack.shape[:2]
+    if n == 1:
+        return np.asarray(stack[:, 0, 0])
+    if n == 2:
+        return np.asarray(stack[:, 0, 0] * stack[:, 1, 1]
+                          + stack[:, 0, 1] * stack[:, 1, 0])
+    cplx = bool(np.iscomplexobj(stack))
+    stack = stack.astype(np.complex128 if cplx else np.float64)
+    if not B:
+        return np.zeros(0, stack.dtype)
 
     def run(part):
         if backend == "torch":
@@ -618,13 +644,9 @@ def batch_permanents_on_mesh(stack, mesh, *, precision: str = "dq_acc",
                                         geometry=geometry,
                                         device=mesh.device)
 
-    B, n = stack.shape[:2]
-    if n <= 2:
-        return run(stack).cpu().numpy()
     pad = (-B) % mesh.size
     return _sharded_values(mesh, "batch_permanents_on_mesh", B,
-                           (_pad_rows(stack, pad, 0),), run,
-                           bool(np.iscomplexobj(stack)))
+                           (_pad_rows(stack, pad, 0),), run, cplx)
 
 
 def sparse_batch_permanents_on_mesh(sps, mesh, *, precision: str = "dq_acc",

@@ -22,7 +22,10 @@ Config safety: partial sums are only meaningful under the exact
 ``.npz`` therefore persists ``precision`` / ``backend`` /
 ``chunks_per_slice`` / ``chunk_size`` plus a format version, and
 ``load_or_create`` fails loudly on any mismatch (including checkpoints
-written by the pre-versioned seed format).
+written by the pre-versioned seed format).  The sums keep the job's
+dtype (``sums_dtype``: f32 and complex64 stay single), which the arrays
+record, so a checkpoint of one dtype is refused at another as a config
+mismatch too.
 
 The file format is a single ``.npz`` (atomic rename on save).
 """
@@ -36,7 +39,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["JobState", "FORMAT_VERSION"]
+__all__ = ["JobState", "FORMAT_VERSION", "sums_dtype"]
 
 # v2: config-safety fields (precision/backend/chunk geometry) added; v1
 # (the unversioned seed format) checkpoints are rejected at load.
@@ -48,6 +51,17 @@ FORMAT_VERSION = 3
 
 _CONFIG_KEYS = ("precision", "backend", "chunks_per_slice", "chunk_size",
                 "geometry")
+
+
+def sums_dtype(matrix) -> np.dtype:
+    """The dtype of a campaign's slice sums: the wave body's, which keeps
+    f32 and complex64 (the kernels' ``_f32`` entries) and takes other
+    real input as f64, other complex input as complex128."""
+    dt = np.asarray(matrix).dtype
+    if np.issubdtype(dt, np.complexfloating):
+        return np.dtype(np.complex64 if dt == np.complex64
+                        else np.complex128)
+    return np.dtype(np.float32 if dt == np.float32 else np.float64)
 
 
 def matrix_fingerprint(A: np.ndarray) -> str:
@@ -64,8 +78,8 @@ class JobState:
     fingerprint: str
     total_slices: int
     done: np.ndarray          # (total_slices,) bool
-    hi: np.ndarray            # (total_slices,) f64/c128 partial sums
-    lo: np.ndarray            # (total_slices,) f64/c128 compensation terms
+    hi: np.ndarray            # (total_slices,) partial sums, sums_dtype
+    lo: np.ndarray            # (total_slices,) compensation terms
     precision: str = "dq_acc"
     backend: str = "torch"    # wave body: torch | cuda
     chunks_per_slice: int = 0
@@ -81,8 +95,9 @@ class JobState:
                chunk_size: int = 0, geometry: str = "-") -> "JobState":
         # complex jobs checkpoint complex slice sums: the twofloat
         # reduction below is add/sub only, which is componentwise-exact
-        # under complex arithmetic
-        dtype = np.complex128 if np.iscomplexobj(matrix) else np.float64
+        # under complex arithmetic; f32 and complex64 jobs keep their
+        # dtype, as the wave body does
+        dtype = sums_dtype(matrix)
         return JobState(
             fingerprint=matrix_fingerprint(matrix),
             total_slices=total_slices,
@@ -127,6 +142,15 @@ class JobState:
                        geometry: str = "-") -> "JobState":
         if path and os.path.exists(path):
             state = JobState.load(path)
+            # a job's dtype is part of its config: the sums of an f32 job
+            # never resume an f64 one, or the other way round
+            if state.hi.dtype != sums_dtype(matrix):
+                raise ValueError(
+                    "checkpoint config mismatch -- partial sums computed "
+                    "under a different configuration cannot be merged "
+                    f"(dtype: checkpoint={state.hi.dtype.name!r} "
+                    f"plan={sums_dtype(matrix).name!r}); resume with the "
+                    "original input dtype or restart from scratch")
             if state.fingerprint != matrix_fingerprint(matrix):
                 raise ValueError(
                     "checkpoint belongs to a different matrix "
@@ -176,7 +200,7 @@ class JobState:
         width -- the reduction a killed-and-resumed campaign replays
         bitwise-identically.
         """
-        hi, lo = 0.0, 0.0
+        hi = lo = self.hi.dtype.type(0)     # in the sums' own dtype
         for i in np.nonzero(self.done)[0]:
             s, e = _two_sum_host(hi, self.hi[i])
             lo = lo + e + self.lo[i]

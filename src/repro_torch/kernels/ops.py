@@ -39,7 +39,8 @@ their plain PyTorch versions instead.  f32 and complex64 input, dense and
 sparse, keep their dtype through kernel, partials and ``kernel_reduce``
 (the ``_f32`` entries), as the reference's follows its input; other real
 input is taken as f64, other complex input as complex128.  A campaign's
-wave body runs in f64.
+wave body does the same (#1's and #3's ``_f32`` entries from a u64 chunk
+base).
 """
 
 from __future__ import annotations
@@ -409,7 +410,8 @@ def campaign_slice_sums(A, first_slice: int, num_slices: int, *,
                         backend: str = "cuda", device=None,
                         events: list | None = None):
     """Per-slice twofloat sums ``(hi, lo)``, each (num_slices,) on
-    ``device`` (complex128 for complex ``A``), of the contiguous campaign
+    ``device`` in ``_kernel_dtype(A)`` (f32 and complex64 keep theirs,
+    other input is f64 or complex128), of the contiguous campaign
     slices [first_slice, first_slice + num_slices), each
     ``chunks_per_slice`` chunks of ``chunk_size`` steps (g = 0 term NOT
     included).
@@ -423,8 +425,7 @@ def campaign_slice_sums(A, first_slice: int, num_slices: int, *,
     Either way each slice reduces over its own partials
     (``_slice_sums``).  ``events``, when given, collects a (start, end)
     pair of CUDA events around the kernel launch on the card."""
-    A = _as_input(A, device, torch.complex128 if is_complex(A)
-                  else torch.float64)
+    A = _as_input(A, device)
     n = A.shape[-1]
     if A.ndim != 2 or A.shape[0] != n:
         raise ValueError(f"square matrix required, got {tuple(A.shape)}")

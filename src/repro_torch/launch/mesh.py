@@ -29,8 +29,10 @@ with a timeout, so a dead rank becomes an error and never a hang) and
 APIs (the reference's names):
   ``make_mesh``             a mesh of any shape over the world
   ``make_batch_mesh``       ("data",): buckets sharded over their batch axis
-  ``make_campaign_mesh``    ("batch", "step"): for the service over a mesh
-                            (ROADMAP item 8)
+  ``make_campaign_mesh``    a ``CampaignMesh``: the ("batch", "step") grid,
+                            its first column as the ("batch",) mesh of the
+                            service's buckets and its first row as the
+                            ("step",) mesh of its campaign
   ``make_local_mesh``       ("data", "model") over the world
   ``make_production_mesh``  (16, 16) / (2, 16, 16) for 256 / 512 ranks
   ``mesh_device_count``     the ranks of a mesh
@@ -50,7 +52,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "DEFAULT_TIMEOUT_S", "make_mesh", "make_batch_mesh",
+__all__ = ["Mesh", "CampaignMesh", "DEFAULT_TIMEOUT_S", "make_mesh", "make_batch_mesh",
            "make_campaign_mesh", "make_local_mesh", "make_production_mesh",
            "mesh_device_count", "rank_device", "init_from_env", "shutdown",
            "world", "world_size", "launched_by_torchrun", "run_world"]
@@ -208,13 +210,45 @@ def make_batch_mesh(num_devices: int | None = None, **kw) -> Mesh:
     return make_mesh((n,), ("data",), **kw)
 
 
-def make_campaign_mesh(batch: int, step: int, **kw) -> Mesh:
-    """The 2D ("batch", "step") grid of the service over a mesh (ROADMAP
-    item 8); ``batch * step`` must be the world size."""
+@dataclass(frozen=True, eq=False)
+class CampaignMesh:
+    """2D (batch x step) grid of ranks for mixed serving and campaign
+    traffic, as the reference's: ``mesh`` is the full ``("batch",
+    "step")`` grid; ``batch_mesh`` (the grid's first column) serves the
+    ``distributed_batch`` buckets and ``step_mesh`` (the grid's first
+    row) runs the campaign's waves.  The two overlap only at grid[0, 0],
+    which time-slices between the roles; in a grid of 2 x 2 or more some
+    ranks (grid[1, 1] at 2 x 2) have neither and only follow the
+    service's broadcasts.  On a rank outside a sub-mesh that sub-mesh is
+    None."""
+    mesh: Mesh
+    batch_mesh: Mesh | None
+    step_mesh: Mesh | None
+
+
+def _sub_mesh(full: Mesh, name: str, ranks: np.ndarray) -> Mesh | None:
+    """A 1-D mesh ``(name,)`` over ``ranks`` of ``full`` with a gloo group
+    of its own; every rank of the world calls it (group creation is
+    collective), and those outside get None."""
+    g = _new_group([int(r) for r in ranks])
+    if _dist().get_rank() not in ranks:
+        return None
+    return Mesh(axis_names=(name,), ranks=np.array(ranks), device=full.device,
+                group=g, groups={name: g},
+                ranks_per_device=full.ranks_per_device)
+
+
+def make_campaign_mesh(batch: int, step: int, **kw) -> CampaignMesh:
+    """Carve the world into a ``batch x step`` grid (``batch * step`` must
+    be the world size) whose step row runs a resumable campaign while the
+    batch column keeps serving buckets: a :class:`CampaignMesh`."""
     if batch < 1 or step < 1:
         raise ValueError(f"need batch >= 1 and step >= 1, got "
                          f"{batch}x{step}")
-    return make_mesh((batch, step), ("batch", "step"), **kw)
+    full = make_mesh((batch, step), ("batch", "step"), **kw)
+    return CampaignMesh(mesh=full,
+                        batch_mesh=_sub_mesh(full, "batch", full.ranks[:, 0]),
+                        step_mesh=_sub_mesh(full, "step", full.ranks[0, :]))
 
 
 def make_local_mesh(model_axis: int | None = None, **kw) -> Mesh:

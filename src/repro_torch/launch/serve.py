@@ -1,10 +1,14 @@
-"""Serving driver of the port: batched permanent serving on one card.
+"""Serving CLI of the port: batched permanent serving on one card or
+over the ranks of a ``torch.distributed`` world.
 
     python -m repro_torch.launch.serve --perm-n 20 --batch 32 --requests 256
     python -m repro_torch.launch.serve --soak --perm-n 24 --batch 64 \
         --rate 2000 --compile-cache kernel-cache --metrics-json soak.json
     python -m repro_torch.launch.serve --device cpu --backend torch --soak \
         --perm-n 8 --requests 24
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --perm-n 20 --batch 32 --mesh 2x2 \
+        --campaign 34 --ranks-per-device 4
 
 Runs from the repository root with ``PYTHONPATH=src``.  Without ``--soak``
 a synthetic request stream drains through a ``PermanentSolver``'s async
@@ -15,8 +19,16 @@ triggers, repeated submatrices resolve from the result cache.  With
 stream (``run_permanent_soak``).  ``--backend cuda`` (the default) runs
 the CUDA kernels, ``torch`` the torch engines; ``--device`` defaults to
 the card (``cpu`` runs the torch engines and the kernels' plain versions
-on the host).  The reference's ``--mesh`` is not ported (ROADMAP.md,
-modules queue, item 8: the service over a mesh).
+on the host).
+
+``--mesh N|auto`` (under ``torchrun``, or a world of one rank without
+it) shards each bucket over a ("data",) mesh of the world's ranks and
+implies ``--backend distributed``; ``--mesh BxS`` builds a
+``CampaignMesh``: the buckets on its batch column, ``--campaign`` on its
+step row.  Every rank runs this script; shard 0 admits and dispatches
+and prints, the other ranks follow its broadcasts
+(``PermanentService.follow``) and exit 0 after its "stop".
+``--ranks-per-device`` lets several ranks share a card.
 """
 
 from __future__ import annotations
@@ -34,8 +46,9 @@ def run_permanent_serving(*, n: int = 10, batch: int = 32,
                           precision: str = "dq_acc", backend: str = "cuda",
                           repeat_pool: int = 0, deadline_s: float = 0.05,
                           cache: bool = True, device: str | None = None,
-                          complex_entries: bool = False, seed: int = 0,
-                          campaign_matrix=None, campaign_waves: int = 1,
+                          mesh=None, complex_entries: bool = False,
+                          seed: int = 0, campaign_matrix=None,
+                          campaign_mesh=None, campaign_waves: int = 1,
                           campaign_checkpoint: str | None = None,
                           campaign_slices: int | None = None,
                           campaign_lanes: int | None = None):
@@ -50,13 +63,20 @@ def run_permanent_serving(*, n: int = 10, batch: int = 32,
     ``deadline_s``), so batches fill from the arrival stream instead of
     being hand-rolled; repeated submatrices resolve from the solver's
     content-hash result cache without touching the device.  Everything
-    runs on ``device`` (None = the card).  Returns perms/sec and
-    per-flush latency stats; the first flush is reported separately.
+    runs on ``device`` (None = the card).  With ``mesh`` set (a
+    ``launch.mesh.Mesh``, or a ``CampaignMesh`` whose batch column takes
+    the buckets; ``backend`` then becomes ``distributed``), flushed
+    buckets are batch-axis sharded over its ranks; every rank calls this
+    with the same arguments, shard 0 returns the stats below and the
+    others ``{"follower": <PermanentService.follow()'s counts>}``.
+    Returns perms/sec and per-flush latency stats; the first flush is
+    reported separately.
 
     With ``campaign_matrix`` set, a long-running step-space campaign for
     that single huge matrix (checkpointed via ``campaign_checkpoint``)
-    advances ``campaign_waves`` waves after every bucket flush, then runs
-    to completion once the stream drains.  The result dict gains
+    advances ``campaign_waves`` waves after every bucket flush (over
+    ``campaign_mesh``, or the service's mesh), then runs to completion
+    once the stream drains.  The result dict gains
     ``campaign_fraction`` / ``campaign_value``.
 
     A thin wrapper over :class:`repro_torch.serve.PermanentService` in
@@ -73,6 +93,7 @@ def run_permanent_serving(*, n: int = 10, batch: int = 32,
     if batch < 1 or requests < 1:
         raise ValueError(f"need batch >= 1 and requests >= 1, got "
                          f"batch={batch} requests={requests}")
+    backend = _mesh_backend(mesh, backend)
     rng = np.random.default_rng(seed)
 
     def draw():
@@ -96,7 +117,8 @@ def run_permanent_serving(*, n: int = 10, batch: int = 32,
     if campaign_matrix is not None:
         plan = {k: v for k, v in (("slices", campaign_slices),
                                   ("lanes", campaign_lanes)) if v is not None}
-        campaign = CampaignSpec(matrix=campaign_matrix, waves=campaign_waves,
+        campaign = CampaignSpec(matrix=campaign_matrix, mesh=campaign_mesh,
+                                waves=campaign_waves,
                                 checkpoint=campaign_checkpoint, **plan)
     svc = PermanentService(
         SolverConfig(precision=precision, backend=backend, cache=cache,
@@ -106,8 +128,24 @@ def run_permanent_serving(*, n: int = 10, batch: int = 32,
                       quantize_buckets=False, deadline_s=deadline_s,
                       lanes=(LaneSpec("default", 0, slo_s=None),),
                       max_queue_depth=2 ** 62, log_every_s=float("inf")),
-        campaign=campaign, log=None)
+        distributed_ctx=mesh, campaign=campaign, log=None)
+    if not svc.leader:
+        return {"follower": svc.follow()}
+    with svc:
+        return _drain_stream(svc, mats, complex_entries)
 
+
+def _mesh_backend(mesh, backend: str) -> str:
+    """A mesh implies the sharded bucket path, as the reference's
+    CLI has it."""
+    if mesh is not None and backend not in ("distributed",
+                                            "distributed_batch"):
+        return "distributed"
+    return backend
+
+
+def _drain_stream(svc, mats: list, complex_entries: bool) -> dict:
+    """``run_permanent_serving``'s closed loop on shard 0."""
     tickets = []
     t_all = time.time()
     for M in mats:
@@ -153,12 +191,13 @@ def run_permanent_soak(*, n: int = 12, batch: int = 8, requests: int = 64,
                        precision: str = "dq_acc", backend: str = "cuda",
                        repeat_pool: int = 8, complex_entries: bool = False,
                        seed: int = 0, device: str | None = None,
-                       slo_ms: float | None = None,
+                       mesh=None, slo_ms: float | None = None,
                        compile_cache: str | None = None,
                        warmup: bool = True, expire_every: int = 0,
                        metrics_port: int | None = None,
                        metrics_json: str | None = None,
-                       campaign_matrix=None, campaign_waves: int = 1,
+                       campaign_matrix=None, campaign_mesh=None,
+                       campaign_waves: int = 1,
                        campaign_checkpoint: str | None = None,
                        log=print):
     """Open-loop soak of the continuous-batching service (``--soak``).
@@ -173,15 +212,15 @@ def run_permanent_soak(*, n: int = 12, batch: int = 8, requests: int = 64,
     ``metrics_port`` serves the snapshot as JSON over HTTP while the soak
     runs; ``metrics_json`` writes the final snapshot to a file.
     Returns the ``run_soak`` dict (snapshot + tickets) and ``dispatch_s``,
-    the host seconds of each dispatch in order.
+    the host seconds of each dispatch in order.  ``mesh`` /
+    ``campaign_mesh`` as in :func:`run_permanent_serving`: every rank
+    calls this, and the followers get ``{"follower": ...}``.
     """
-    import json as _json
-
     from ..core.solver import SolverConfig
     from ..serve import (DEFAULT_LANES, CampaignSpec, LaneSpec,
-                         PermanentService, ServiceConfig, run_soak,
-                         start_metrics_server)
+                         PermanentService, ServiceConfig)
 
+    backend = _mesh_backend(mesh, backend)
     if slo_ms is None:
         lanes = DEFAULT_LANES
     else:
@@ -190,7 +229,8 @@ def run_permanent_soak(*, n: int = 12, batch: int = 8, requests: int = 64,
                  LaneSpec("bulk", 1, slo_s=15 * slo_ms / 1e3))
     campaign = None
     if campaign_matrix is not None:
-        campaign = CampaignSpec(matrix=campaign_matrix, waves=campaign_waves,
+        campaign = CampaignSpec(matrix=campaign_matrix, mesh=campaign_mesh,
+                                waves=campaign_waves,
                                 checkpoint=campaign_checkpoint)
     svc = PermanentService(
         SolverConfig(precision=precision, backend=backend, device=device),
@@ -198,7 +238,22 @@ def run_permanent_soak(*, n: int = 12, batch: int = 8, requests: int = 64,
                       compile_cache_dir=compile_cache,
                       warmup_ns=(n,) if warmup else (),
                       warmup_complex=complex_entries, log_every_s=5.0),
-        campaign=campaign, log=log)
+        distributed_ctx=mesh, campaign=campaign, log=log)
+    if not svc.leader:
+        return {"follower": svc.follow()}
+    with svc:
+        return _soak(svc, log, metrics_port, metrics_json, requests=requests,
+                     rate_hz=rate_hz, n=n, density=density,
+                     complex_entries=complex_entries,
+                     repeat_pool=repeat_pool, seed=seed,
+                     expire_every=expire_every)
+
+
+def _soak(svc, log, metrics_port, metrics_json, **soak) -> dict:
+    """``run_permanent_soak``'s open loop on shard 0."""
+    import json as _json
+
+    from ..serve import run_soak, start_metrics_server
     if svc.warmup_report and log:
         wr = svc.warmup_report
         log(f"[serve] warmup: {wr['geometries']} geometries in "
@@ -210,10 +265,7 @@ def run_permanent_soak(*, n: int = 12, batch: int = 8, requests: int = 64,
             log(f"[serve] metrics on http://127.0.0.1:"
                 f"{server.server_address[1]}/metrics")
     try:
-        out = run_soak(svc, requests=requests, rate_hz=rate_hz, n=n,
-                       density=density, complex_entries=complex_entries,
-                       repeat_pool=repeat_pool, seed=seed,
-                       expire_every=expire_every)
+        out = run_soak(svc, **soak)
     finally:
         if server is not None:
             server.shutdown()
@@ -247,12 +299,27 @@ def serve_main(argv=None) -> int:
     ap.add_argument("--no-cache", dest="cache", action="store_false",
                     help="disable the result cache")
     ap.add_argument("--precision", default="dq_acc")
-    ap.add_argument("--backend", default="cuda", choices=("cuda", "torch"),
+    ap.add_argument("--backend", default="cuda",
+                    choices=("cuda", "torch", "distributed",
+                             "distributed_batch"),
                     help="cuda: the CUDA kernels (their plain versions on "
-                         "the CPU); torch: the torch engines")
+                         "the CPU); torch: the torch engines; distributed"
+                         "(_batch): buckets sharded over the world's ranks, "
+                         "the cuda body on each")
     ap.add_argument("--device", default=None,
                     help="where the leaves run (default: the card; 'cpu' "
                          "for the host)")
+    ap.add_argument("--mesh", nargs="?", const="auto", default=None,
+                    metavar="N|BxS",
+                    help="shard buckets over an N-rank ('data',) mesh "
+                         "(default: the world; implies --backend "
+                         "distributed).  BxS (e.g. 2x2) builds a 2D "
+                         "(batch x step) CampaignMesh: the batch column "
+                         "serves buckets, the step row runs --campaign "
+                         "waves.  Start the ranks with torchrun")
+    ap.add_argument("--ranks-per-device", type=int, default=1,
+                    help="ranks a card may hold (several ranks time-slice "
+                         "one card)")
     ap.add_argument("--campaign", metavar="NPY|N", default=None,
                     help="advance a step-space campaign for this matrix "
                          "(.npy path, or an integer for a random NxN) "
@@ -280,6 +347,35 @@ def serve_main(argv=None) -> int:
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
                     help="soak: write the final metrics snapshot here")
     args = ap.parse_args(argv)
+    if args.mesh is not None:
+        args.backend = _mesh_backend(args.mesh, args.backend)
+    if not args.backend.startswith("distributed"):
+        return _serve(args, None, None, print)
+    from . import mesh as mesh_lib
+    with mesh_lib.world():
+        kw = dict(device=args.device, ranks_per_device=args.ranks_per_device)
+        if args.mesh is not None and "x" in args.mesh.lower():
+            b, st = (int(v) for v in args.mesh.lower().split("x"))
+            cm = mesh_lib.make_campaign_mesh(b, st, **kw)
+            mesh, campaign_mesh, lead = cm, cm.step_mesh, cm.mesh.index == 0
+            note = (f"[serve] 2D campaign mesh {b}x{st}: buckets on the "
+                    f"{b}-rank batch column, campaign waves on the "
+                    f"{st}-rank step row")
+        else:
+            mesh = mesh_lib.make_batch_mesh(
+                None if args.mesh in (None, "auto") else int(args.mesh), **kw)
+            campaign_mesh, lead = None, mesh.index == 0
+            note = (f"[serve] batch-sharding buckets over the {mesh.size}-"
+                    f"rank mesh {mesh.axis_names}")
+        out = print if lead else (lambda *a, **k: None)
+        out(note)
+        return _serve(args, mesh, campaign_mesh, out)
+
+
+def _serve(args, mesh, campaign_mesh, print) -> int:
+    """The CLI's work, over ``mesh`` when there is one; ``print`` is a
+    no-op on every rank but shard 0, and those ranks follow shard 0's
+    service until it stops."""
     campaign_matrix = None
     if args.campaign is not None:
         if args.campaign.isdigit():
@@ -298,12 +394,14 @@ def serve_main(argv=None) -> int:
             precision=args.precision, backend=args.backend,
             repeat_pool=args.repeat_pool or 8,
             complex_entries=args.complex_entries, device=args.device,
-            slo_ms=args.slo_ms, compile_cache=args.compile_cache,
+            mesh=mesh, slo_ms=args.slo_ms, compile_cache=args.compile_cache,
             warmup=args.warmup, metrics_port=args.metrics_port,
             metrics_json=args.metrics_json,
-            campaign_matrix=campaign_matrix,
+            campaign_matrix=campaign_matrix, campaign_mesh=campaign_mesh,
             campaign_waves=args.campaign_waves,
-            campaign_checkpoint=args.campaign_checkpoint)
+            campaign_checkpoint=args.campaign_checkpoint, log=print)
+        if "follower" in out:
+            return 0
         snap = out["snapshot"]
         req = snap["requests"]
         lat = snap["latency_s"]["overall"]
@@ -327,10 +425,12 @@ def serve_main(argv=None) -> int:
         density=args.density, precision=args.precision,
         backend=args.backend, repeat_pool=args.repeat_pool,
         deadline_s=args.deadline_ms / 1e3, cache=args.cache,
-        device=args.device, complex_entries=args.complex_entries,
-        campaign_matrix=campaign_matrix,
+        device=args.device, mesh=mesh, complex_entries=args.complex_entries,
+        campaign_matrix=campaign_matrix, campaign_mesh=campaign_mesh,
         campaign_waves=args.campaign_waves,
         campaign_checkpoint=args.campaign_checkpoint)
+    if "follower" in out:
+        return 0
     print(f"[serve] permanents: {args.requests} "
           f"{'complex ' if args.complex_entries else ''}reqs "
           f"x n={args.perm_n} batch={args.batch} backend={args.backend}")

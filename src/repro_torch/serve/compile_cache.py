@@ -97,8 +97,8 @@ def _band_matrix(rng, n: int, k: int, is_complex: bool = False) -> np.ndarray:
     return M[rng.permutation(n)][:, rng.permutation(n)]
 
 
-def warmup(config, geometries: Sequence[tuple], *, seed: int = 0,
-           progress=None) -> dict:
+def warmup(config, geometries: Sequence[tuple], *, distributed_ctx=None,
+           seed: int = 0, progress=None) -> dict:
     """Run every bucket geometry in ``geometries`` once before traffic
     arrives.
 
@@ -114,13 +114,18 @@ def warmup(config, geometries: Sequence[tuple], *, seed: int = 0,
     sparse matrix of each (n, is_complex) it
     warmed (``_band_matrix`` of degree 5, a sparse leaf from n = 17 on), so
     the sparse route's host operators run once too.  This adds no
-    knob: the sparse pass follows from the geometries.
+    knob: the sparse pass follows from the geometries.  With a
+    ``distributed_ctx`` (a ``launch.mesh.Mesh``) the throwaway solver runs
+    over it, as the service's does: every rank of the mesh calls this with
+    the same arguments and warms the same seeded geometries in the same
+    order, so the mesh functions see identical calls.
     Returns ``{"geometries", "seconds", "compile"}`` where ``compile`` is
     the :func:`compile_stats` delta of the pass.
     """
     from ..core.solver import PermanentSolver
 
-    solver = PermanentSolver(config.replace(cache=False))
+    solver = PermanentSolver(config.replace(cache=False),
+                             distributed_ctx=distributed_ctx)
     rng = np.random.default_rng(seed)
     before = compile_stats()
     t0 = time.perf_counter()

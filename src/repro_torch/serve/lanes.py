@@ -62,6 +62,9 @@ class ShedReason(enum.Enum):
     COST_BUDGET = "cost_budget"          # admission: est. step-cost budget
     DEADLINE_EXPIRED = "deadline_expired"  # queued past its deadline
     SHUTDOWN = "shutdown"                # service stopped with work queued
+    # the port's: its dispatch raised (on every rank of a mesh at once);
+    # the detail carries the error
+    DISPATCH_FAILED = "dispatch_failed"
 
 
 class ShedError(RuntimeError):

@@ -1,13 +1,14 @@
 """Always-on permanent service: vLLM-style continuous batching.
 
 The port of the reference package's ``serve/loop.py`` over the port's
-solver, on one card (``SolverConfig.device``, None = the card).  Its
-buckets launch the batch entries of the CUDA kernels (dense real and
+solver, on one card (``SolverConfig.device``, None = the card) or over
+the ranks of a ``torch.distributed`` world (``distributed_ctx``, below).
+Its buckets launch the batch entries of the CUDA kernels (dense real and
 complex, sparse real and complex) under the ``cuda`` backend, or the
 torch engines under ``torch``; an interleaved campaign launches the
 scalar entries from a u64 chunk base as its wave body.
 
-The solver's own queue a size bucket when it fills or its
+The solver's own queue flushes a size bucket when it fills or its
 oldest request ages out -- between triggers the device idles even with
 work queued.  :class:`PermanentService` inverts that: a synchronous loop
 (``submit`` / ``step`` / ``drain``) that dispatches whenever the device
@@ -40,7 +41,29 @@ the production concerns the solver queue has no opinion on:
 * **Campaign interleaving**: a :class:`CampaignSpec` threads a
   step-space campaign (``core/distributed.py::run_campaign``) through the
   loop -- waves advance after each bucket dispatch, and ``drain`` runs
-  the campaign to completion.  One device: the spec has no mesh.
+  the campaign to completion.
+* **Over a mesh** (``distributed_ctx``: a ``launch.mesh.Mesh``, whose
+  ranks shard each bucket under the ``distributed`` backends, or a
+  ``CampaignMesh``, whose batch column serves the buckets and whose step
+  row runs the campaign): every rank constructs the service with the
+  same arguments, and shard 0 of the mesh is the reference's one
+  process.  It alone admits, sheds, picks each bucket and keeps the
+  tickets and metrics; before each dispatch it broadcasts what the
+  others need to run it (``broadcast_object_list`` over the mesh's
+  group: the bucket's matrices in order with the padding fillers it drew,
+  its key and trigger, and the campaign waves to advance after it; then
+  "campaign" and "stop" messages).  The other ranks call :meth:`follow`,
+  which runs each broadcast until "stop": every rank then calls
+  ``plan_batch`` / ``execute`` on the same matrices through the same
+  solver config and result cache, so the mesh functions see identical
+  calls.  A dispatch that fails fails on every rank (the mesh
+  functions' ok flags): shard 0 sheds its tickets (``DISPATCH_FAILED``,
+  with the error) and every rank goes on to the next broadcast.  The
+  followers wait in a gloo collective, which gives up after
+  ``launch.mesh.DEFAULT_TIMEOUT_S``; an idle shard 0 sends a keep-alive
+  from :meth:`step` every ``KEEPALIVE_S``, and a follower that hears
+  nothing for the timeout raises.  Shard 0 ends the world with
+  :meth:`stop` (or by leaving ``with service:``).
 
 ``fill_first=True`` pins the loop to the solver-queue semantics
 (dispatch only full or deadline-aged buckets, no shedding, no padding);
@@ -61,7 +84,7 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 
-from ..core.planner import SolverConfig
+from ..core.planner import KERNEL_BACKENDS, SolverConfig
 from .compile_cache import (compile_stats, enable_compile_cache,
                             quantized_batches, warmup)
 from .lanes import (DEFAULT_LANES, LaneQueue, LaneSpec, ServeTicket,
@@ -71,6 +94,9 @@ from .metrics import ServeMetrics
 __all__ = ["ServiceConfig", "CampaignSpec", "PermanentService", "run_soak"]
 
 _LANE_DEFAULT = object()      # submit(): "use the lane's slo_s as deadline"
+# an idle shard 0 broadcasts a keep-alive this often (host seconds), far
+# inside the gloo groups' DEFAULT_TIMEOUT_S
+KEEPALIVE_S = 60.0
 
 
 @dataclass(frozen=True)
@@ -102,22 +128,41 @@ class CampaignSpec:
     is as wide as ``run_campaign`` makes it on the card.  ``slices``
     defaults to the port's ``SolverConfig.campaign_slices`` (1024: a
     card-filling wave is 1/16 of a job; the reference's 64 would be one
-    wave on one H100).  The service runs on one device: a ``mesh``
-    raises (the service over a mesh is ROADMAP item 8: the other ranks
-    would have to follow rank 0's dispatches)."""
+    wave on one H100).  ``mesh`` is the ("step",) mesh the waves run over
+    (``run_campaign(mesh=)``); None means the service's mesh -- the step
+    row of a ``CampaignMesh``, else every rank of the service's mesh --
+    or one device when the service has none."""
     matrix: Any
-    mesh: Any = None                     # ROADMAP item 8: must stay None
+    mesh: Any = None                     # step mesh (None = the service's)
     waves: int = 1                       # waves per bucket dispatch
     checkpoint: str | None = None        # JobState .npz path
     slices: int = SolverConfig.campaign_slices
     lanes: int = SolverConfig.campaign_lanes
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the service runs a campaign on one device; a campaign "
-                "mesh in the service is ROADMAP.md, modules queue, item 8 "
-                "(the service and the tuner over a mesh)")
+
+def _layout(ctx, spec: CampaignSpec | None):
+    """(world, bucket ranks, bucket ctx, step ranks, step mesh) of a
+    service: the mesh whose ranks follow shard 0's broadcasts, the ranks
+    that run the buckets and the ctx their solver gets, the ranks that run
+    the campaign waves and the mesh they run over.  None without a mesh
+    anywhere (one device, as the reference's service on one device)."""
+    from ..core.executor import _ctx_mesh
+    step = spec.mesh if spec is not None else None
+    if ctx is None:
+        if step is None:
+            return None
+        # buckets on shard 0 alone, the campaign over its mesh
+        return step, step.ranks[:1].ravel(), None, step.ranks.ravel(), step
+    if hasattr(ctx, "batch_mesh") and hasattr(ctx, "step_mesh"):
+        if step is not None and step is not ctx.step_mesh:
+            raise ValueError("a campaign under a CampaignMesh runs on its "
+                             "step_mesh; pass CampaignSpec(mesh=None)")
+        grid = ctx.mesh.ranks
+        return (ctx.mesh, grid[:, 0], ctx.batch_mesh, grid[0, :],
+                ctx.step_mesh)
+    world = _ctx_mesh(ctx)
+    step = step or world
+    return world, world.ranks.ravel(), ctx, step.ranks.ravel(), step
 
 
 class PermanentService:
@@ -127,11 +172,14 @@ class PermanentService:
     bookkeeping), ``step`` does at most one bucket dispatch, ``drain``
     steps until the queue is empty.  Callers own the thread; an open
     loop is ``run_soak``, a closed one is ``ticket.result()`` after
-    ``drain()``.
+    ``drain()``.  Over a mesh (``distributed_ctx``; see the module
+    docstring) the caller does that on shard 0 (``leader``) and calls
+    :meth:`stop` when done, and every other rank calls :meth:`follow`.
     """
 
     def __init__(self, solver_config=None, service: ServiceConfig | None = None,
-                 *, campaign: CampaignSpec | None = None,
+                 *, distributed_ctx: Any | None = None,
+                 campaign: CampaignSpec | None = None,
                  clock: Callable[[], float] | None = None,
                  log: Callable[[str], None] = print,
                  filler_seed: int = 0x5eed):
@@ -160,11 +208,37 @@ class PermanentService:
         # the wrapper in launch/serve.py derives its latency report here
         self.dispatch_log: list[tuple[tuple, int, float, str]] = []
 
+        layout = _layout(distributed_ctx, campaign)
+        self._world = None if layout is None else layout[0]
+        if layout is not None:
+            import torch.distributed as dist
+            me = dist.get_rank()
+        self.leader = layout is None or self._world.index == 0
+        self._bucket_role = layout is None or me in layout[1]
+        self._step_role = layout is None or me in layout[3]
+        self._step_mesh = None if layout is None else layout[4]
+        bucket_ctx = None if layout is None else layout[2]
+        self._last_send = time.perf_counter()
+        self._stopped = False
+        if layout is not None:
+            from ..core.distributed import _input_guard
+            # every rank must describe the same service, or the
+            # collectives below would pair up wrongly
+            _input_guard(self._world, "PermanentService",
+                         repr(solver_config), repr(self.scfg),
+                         [int(r) for r in layout[1]],
+                         [int(r) for r in layout[3]],
+                         None if campaign is None else (
+                             np.asarray(campaign.matrix), campaign.waves,
+                             campaign.slices, campaign.lanes))
+
         if self.scfg.compile_cache_dir:
             enable_compile_cache(self.scfg.compile_cache_dir)
-        self.solver = PermanentSolver(solver_config, clock=self._clock)
+        self.solver = PermanentSolver(solver_config,
+                                      distributed_ctx=bucket_ctx,
+                                      clock=self._clock)
         self.warmup_report: dict | None = None
-        if self.scfg.warmup_ns:
+        if self.scfg.warmup_ns and self._bucket_role:
             batches = self._ladder if self.scfg.quantize_buckets \
                 else (self.scfg.max_batch,)
             geoms = [(n, b, c)
@@ -172,7 +246,8 @@ class PermanentService:
                      for b in batches
                      for c in ((False, True) if self.scfg.warmup_complex
                                else (False,))]
-            self.warmup_report = warmup(solver_config, geoms)
+            self.warmup_report = warmup(solver_config, geoms,
+                                        distributed_ctx=bucket_ctx)
 
         self._campaign = campaign
         self._camp_state: dict = {"state": None, "value": None}
@@ -196,7 +271,7 @@ class PermanentService:
         defaults); the torch body has none."""
         cfg = self.solver.config
         cmat, ts, cps, C = self._camp_args
-        backend = "cuda" if cfg.backend == "cuda" else "torch"
+        backend = "cuda" if cfg.backend in KERNEL_BACKENDS else "torch"
         geometry = None
         if backend == "cuda":
             from ..core.planner import ROUTE_CAMPAIGN, _resolve_geometry
@@ -208,21 +283,138 @@ class PermanentService:
                     precision=cfg.precision, backend=backend,
                     geometry=geometry, device=cfg.device)
 
+    def _campaign_open(self) -> bool:
+        return self._campaign is not None and \
+            self._camp_state["value"] is None
+
     def _advance_campaign(self, waves: int | None) -> None:
         """Run up to ``waves`` campaign waves (None = to completion);
-        state threads across calls so each dispatch resumes in place."""
-        if self._campaign is None or self._camp_state["value"] is not None:
+        state threads across calls so each dispatch resumes in place.
+        Over a mesh shard 0 broadcasts the order first; to completion goes
+        one wave a broadcast, so no follower waits longer than a wave."""
+        if not self._campaign_open():
+            return
+        if self._world is None:
+            self._campaign_waves(waves)
+            return
+        self._check_leader("_advance_campaign")
+        while self._campaign_open():
+            self._send(("campaign", waves or 1))
+            self._campaign_waves(waves or 1)
+            if waves is not None:
+                return
+
+    def _campaign_waves(self, waves: int | None) -> None:
+        """This rank's part of ``waves`` campaign waves: the step ranks
+        run them over the step mesh, the others nothing."""
+        if not self._step_role or not self._campaign_open():
             return
         from ..core import distributed
         val, st = distributed.run_campaign(
             self._camp_args[0], **self.campaign_body(),
             checkpoint_path=self._campaign.checkpoint,
-            state=self._camp_state["state"], max_waves=waves)
+            state=self._camp_state["state"], max_waves=waves,
+            mesh=self._step_mesh)
         self._camp_state["state"], self._camp_state["value"] = st, val
 
     @property
     def campaign_value(self):
         return self._camp_state["value"]
+
+    # -- over a mesh -----------------------------------------------------------
+
+    def _check_leader(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(f"{what}: this rank follows shard 0 of the "
+                               "service's mesh; call follow() here")
+
+    def _send(self, msg: tuple) -> tuple:
+        """Broadcast ``msg`` from shard 0 to every rank of the mesh; the
+        message as received (every rank calls this; shard 0 passes it)."""
+        import torch.distributed as dist
+        box = [msg]
+        dist.broadcast_object_list(box, src=self._world.root,
+                                   group=self._world.group)
+        self._last_send = time.perf_counter()
+        return box[0]
+
+    def _bucket(self, mats: list):
+        """This rank's part of a dispatch: ``(values, error, seconds)``,
+        the bucket through the solver on the bucket ranks (an error
+        caught: on a mesh every rank sees the same one), nothing
+        elsewhere."""
+        if not self._bucket_role:
+            return None, None, 0.0
+        t0 = time.perf_counter()
+        try:
+            out = self.solver.execute(self.solver.plan_batch(mats))
+            err = None
+        except Exception as e:  # shed as DISPATCH_FAILED, never dropped
+            out, err = None, e
+        return out, err, time.perf_counter() - t0
+
+    def follow(self) -> dict:
+        """Every rank but shard 0 of a service over a mesh: run shard 0's
+        broadcasts -- each dispatch's bucket and campaign waves, campaign
+        orders, keep-alives -- until "stop".  Returns ``{"dispatches",
+        "failed", "keepalives"}``.  A failed dispatch is the shed shard 0
+        reports; a campaign error is raised after "stop" (shard 0 raised
+        it to its caller too); a shard 0 that sends nothing for the
+        group's timeout raises ``RuntimeError`` here."""
+        if self._world is None or self.leader:
+            raise RuntimeError("follow() runs on the ranks of a service's "
+                               "mesh other than shard 0")
+        from ..launch.mesh import DEFAULT_TIMEOUT_S
+        seen = {"dispatches": 0, "failed": 0, "keepalives": 0}
+        camp_err = None
+        while True:
+            try:
+                msg = self._send(None)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"service follower: no broadcast from shard 0 within "
+                    f"the group's {DEFAULT_TIMEOUT_S:.0f} s (shard 0 must "
+                    f"step() or stop()): {e}") from e
+            kind = msg[0]
+            if kind == "stop":
+                break
+            if kind == "idle":
+                seen["keepalives"] += 1
+                continue
+            if kind == "dispatch":
+                _, key, trigger, mats, served, waves = msg
+                _, err, dt = self._bucket(mats)
+                seen["dispatches"] += 1
+                if err is not None:
+                    seen["failed"] += 1
+                    if self._log is not None:
+                        self._log(f"[serve] dispatch {key} failed on this "
+                                  f"rank too: {type(err).__name__}: {err}")
+                self.dispatch_log.append((key, served, dt, trigger))
+            else:                       # ("campaign", waves)
+                waves = msg[1]
+            try:
+                if waves:
+                    self._campaign_waves(waves)
+            except Exception as e:  # raised after "stop", as on shard 0
+                camp_err = camp_err or e
+        if camp_err is not None:
+            raise camp_err
+        return seen
+
+    def stop(self) -> None:
+        """Shard 0: send "stop", ending every follower's :meth:`follow`
+        (once; later calls do nothing).  Without a mesh, and on the
+        followers, nothing."""
+        if self._world is not None and self.leader and not self._stopped:
+            self._stopped = True
+            self._send(("stop",))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
 
     @property
     def campaign_fraction(self) -> float | None:
@@ -251,6 +443,7 @@ class PermanentService:
         arrival time (open-loop drivers), so queueing latency counts
         from arrival, not from the submit call.
         """
+        self._check_leader("submit")
         A = np.asarray(A)
         if A.ndim != 2 or A.shape[0] != A.shape[1]:
             raise ValueError(f"square matrix required, got {A.shape}")
@@ -284,7 +477,9 @@ class PermanentService:
     def step(self) -> int:
         """One loop tick: shed expired work, then dispatch at most one
         bucket.  Returns the number of tickets resolved (0 = nothing
-        ready)."""
+        ready).  Over a mesh an idle step past ``KEEPALIVE_S`` since the
+        last broadcast sends a keep-alive."""
+        self._check_leader("step")
         now = self._clock()
         for t in self._queue.shed_expired(now):
             t._shed(ShedReason.DEADLINE_EXPIRED,
@@ -294,6 +489,9 @@ class PermanentService:
         self.metrics.sample_queue_depth(self._queue.depth)
         key, trigger = self._pick_bucket(now)
         served = self._dispatch(key, trigger) if key is not None else 0
+        if key is None and self._world is not None and \
+                time.perf_counter() - self._last_send >= KEEPALIVE_S:
+            self._send(("idle",))
         if self._log is not None \
                 and self.metrics.should_log(self.scfg.log_every_s):
             self._log(self.metrics.log_line(
@@ -306,6 +504,7 @@ class PermanentService:
         """Step until the queue is empty (every ticket resolved or shed);
         then run any interleaved campaign to completion.  Returns the
         number of tickets resolved."""
+        self._check_leader("drain")
         total = 0
         while self._queue.depth:
             served = self.step()
@@ -323,14 +522,16 @@ class PermanentService:
         return total
 
     def shutdown(self) -> list[ServeTicket]:
-        """Shed everything still queued (typed ``SHUTDOWN``); returns the
-        shed tickets."""
+        """Shed everything still queued (typed ``SHUTDOWN``) and, over a
+        mesh, :meth:`stop` the followers; returns the shed tickets."""
+        self._check_leader("shutdown")
         now = self._clock()
         out = self._queue.drain_all()
         for t in out:
             t._shed(ShedReason.SHUTDOWN, "service shut down with work "
                     "queued", now)
             self.metrics.record_shed(t)
+        self.stop()
         return out
 
     def _pick_bucket(self, now: float):
@@ -365,18 +566,31 @@ class PermanentService:
                     F = F + 1j * self._filler_rng.uniform(-1.0, 1.0,
                                                           (n, n))
                 mats.append(F)
+        waves = self._campaign.waves if self._campaign_open() else 0
         t0 = time.perf_counter()
-        plan = self.solver.plan_batch(mats)
-        out = self.solver.execute(plan)
+        if self._world is not None:
+            # what the followers need: the matrices with this rank's
+            # fillers, and the campaign waves that follow the bucket
+            self._send(("dispatch", key, trigger, mats, len(tickets), waves))
+        out, err, _ = self._bucket(mats)
         dt = time.perf_counter() - t0
         t_done = self._clock()
-        for t, v in zip(tickets, out):      # padded tail values discarded
-            t._resolve(complex(v) if t.is_complex else float(v), t_done)
-            self.metrics.record_complete(t)
+        if err is None:
+            for t, v in zip(tickets, out):  # padded tail values discarded
+                t._resolve(complex(v) if t.is_complex else float(v), t_done)
+                self.metrics.record_complete(t)
+        else:
+            detail = f"{type(err).__name__}: {err}"
+            for t in tickets:
+                t._shed(ShedReason.DISPATCH_FAILED, detail, t_done)
+                self.metrics.record_shed(t)
+            if self._log is not None:
+                self._log(f"[serve] dispatch {key} failed, {len(tickets)} "
+                          f"request(s) shed: {detail}")
         self.metrics.record_dispatch(len(tickets), self.scfg.max_batch)
         self.dispatch_log.append((key, len(tickets), dt, trigger))
-        if self._campaign is not None:
-            self._advance_campaign(self._campaign.waves)
+        if waves:
+            self._campaign_waves(waves)
         return len(tickets)
 
     # -- exporting -----------------------------------------------------------

@@ -23,6 +23,15 @@ The port's counterpart of the reference's ``tune/search.py``.  Per
    by CUDA events on the card and by the host clock on the CPU, where
    the entries run their plain versions (as the reference's
    ``--interpret`` runs its kernels interpreted).
+   Over a mesh (``mesh=``, a ``launch.mesh.Mesh``; every rank calls with
+   the same arguments) the ``campaign`` route measures one collective
+   wave, ``distributed.slice_sums_on_mesh`` over the first D x W slice
+   ids (W the per-rank width ``run_campaign`` would take over that
+   mesh), by the host clock after the wave, since its gather sets its
+   pace; without one it is the one-card wave above (a world of one).
+   Every rank measures the same survivors in the same order, and one
+   gather of the medians lets the slowest shard's decide, so every rank
+   picks the same winner and holds the same table.
 4. **Persist** the winner as a :class:`~repro_torch.tune.table.TableEntry`
    whose ``predicted_s`` is the model's (no HLO refinement).
 """
@@ -191,13 +200,14 @@ def _median_time(call, repeats: int, on_card: bool) -> float:
 
 
 def _route_callable(route: str, n: int, *, density: float, batch: int,
-                    precision: str, device, seed: int):
+                    precision: str, device, seed: int, mesh=None):
     """(``call``, its batch): ``call(geometry)`` -> a thunk measuring one
     launch of ``route`` through the public entries of ``kernels/ops.py``
     on inputs made once from ``seed`` on ``device``, ``batch`` matrices
     (dense, complex, sparse), or for ``campaign`` one matrix and its first
     wave of slices, whose width (the slices that fill the card at the
-    default geometry) is the batch returned."""
+    default geometry) is the batch returned; over ``mesh`` that wave is
+    ``slice_sums_on_mesh`` of D x W slices, W (a rank's) returned."""
     from ..core.ryser import resolve_device
     from ..kernels import ops as K
     dev = resolve_device(device)
@@ -234,9 +244,19 @@ def _route_callable(route: str, n: int, *, density: float, batch: int,
         A_host = rng.uniform(-1, 1, (n, n))
         A = torch.as_tensor(A_host, device=dev)
         ts, cps, C = _campaign_spec(n)
-        width = default_wave_width(A_host, pending=ts, chunks_per_slice=cps,
-                                   chunk_size=C, precision=precision,
-                                   device=dev)
+        D = 1 if mesh is None else mesh.size
+        width = default_wave_width(A_host, pending=-(-ts // D),
+                                   chunks_per_slice=cps, chunk_size=C,
+                                   precision=precision, device=dev)
+        if mesh is not None:
+            from ..core.distributed import slice_sums_on_mesh
+            ids = list(range(min(ts, D * width)))
+
+            def call(geometry):
+                return lambda: slice_sums_on_mesh(
+                    A_host, mesh, ids, chunks_per_slice=cps, chunk_size=C,
+                    precision=precision, geometry=geometry)
+            return call, width
 
         def call(geometry):
             return lambda: K.campaign_slice_sums(
@@ -248,29 +268,43 @@ def _route_callable(route: str, n: int, *, density: float, batch: int,
 
 
 def measure_candidate(call_factory, geometry: Geometry, *, repeats: int,
-                      device=None) -> float:
-    """Median measured seconds of one candidate geometry's launch."""
+                      device=None, host_clock: bool = False) -> float:
+    """Median measured seconds of one candidate geometry's launch (CUDA
+    events on the card unless ``host_clock``)."""
     from ..core.ryser import resolve_device
-    on_card = resolve_device(device).type == "cuda"
+    on_card = resolve_device(device).type == "cuda" and not host_clock
     return _median_time(call_factory(geometry), repeats, on_card)
+
+
+def _slowest(mesh, seconds: list[float]) -> list[float]:
+    """Each entry's largest value over the shards of ``mesh``: one gather
+    (the mesh functions' ``_gather``), the same list on every rank."""
+    from ..core.distributed import _gather
+    rows = _gather(mesh, torch.tensor(seconds, dtype=torch.float64))
+    return [float(v) for v in rows.max(axis=0)]
 
 
 def tune_key(route: str, n: int, *, density: float = 1.0,
              dtype: str = "<f8", precision: str = "dq_acc",
              batch: int = 16, top_k: int = 3, repeats: int = 3,
-             device=None, seed: int = 0, hw: HwSpec | None = None):
+             device=None, seed: int = 0, mesh=None,
+             hw: HwSpec | None = None):
     """Tune one table key; returns (TableEntry, candidate report rows).
 
     The report rows carry every *measured* candidate's launch, modelled
-    and measured times -- the raw material of the mispredict report.
+    and measured times and the mesh's ranks (1 without one) -- the raw
+    material of the mispredict report.  Over ``mesh`` every rank returns
+    the same entry: each candidate's time is the slowest shard's median.
     """
+    from ..core.distributed import _mesh_device
     from ..core.ryser import resolve_device
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else \
+        _mesh_device(mesh, device)
     on_card = dev.type == "cuda"
     hw = hw or (detect_hw() if on_card else get_hw("cpu"))
     call_factory, width = _route_callable(
         route, n, density=density, batch=batch, precision=precision,
-        device=dev, seed=seed)
+        device=dev, seed=seed, mesh=mesh)
 
     def cost(g, ctas=None):
         return model_cost(g, n, route=route, density=density, batch=width,
@@ -303,19 +337,25 @@ def tune_key(route: str, n: int, *, density: float = 1.0,
     if DEFAULT_GEOMETRY not in survivors:
         survivors.append(DEFAULT_GEOMETRY)   # tuned >= untuned floor
 
+    # over a mesh the campaign wave is collective: timed on the host
+    wave = mesh is not None and route == "campaign"
+    measured = [measure_candidate(call_factory, g, repeats=repeats,
+                                  device=dev, host_clock=wave)
+                for g in survivors]
+    if mesh is not None:
+        measured = _slowest(mesh, measured)
     report, results = [], {}
-    for g in survivors:
-        measured = measure_candidate(call_factory, g, repeats=repeats,
-                                     device=dev)
+    for g, meas in zip(survivors, measured):
         modeled = cost(g, occupancy[g])
-        results[g] = (measured, modeled)
+        results[g] = (meas, modeled)
         TB, C, Wu, ctas = _launch(route, g, n, width)
         report.append({"route": route, "n": n, "geometry": g.tag(),
                        "launch": [TB, C, Wu, ctas], "batch": width,
+                       "ranks": 1 if mesh is None else mesh.size,
                        "ctas_per_sm": occupancy[g], "modeled_s": modeled,
-                       "predicted_s": modeled, "measured_s": measured,
-                       "mispredict_ratio": (modeled / measured
-                                            if measured else 0.0)})
+                       "predicted_s": modeled, "measured_s": meas,
+                       "mispredict_ratio": (modeled / meas
+                                            if meas else 0.0)})
 
     winner = min(results, key=lambda g: results[g][0])
     measured_s, predicted_s = results[winner]
@@ -335,13 +375,14 @@ def tune_key(route: str, n: int, *, density: float = 1.0,
 def tune_table(routes, ns, *, density: float = 1.0,
                precision: str = "dq_acc", batch: int = 16, top_k: int = 3,
                repeats: int = 3, device=None, seed: int = 0,
-               hw: HwSpec | None = None,
+               mesh=None, hw: HwSpec | None = None,
                table: TuningTable | None = None, progress=None):
     """Tune every (route, n) pair into a TuningTable.
 
     Routes map to dtypes: ``dense``/``sparse``/``campaign`` tune the
-    ``<f8`` key, ``complex`` the ``<c16`` key.  Returns (table, report
-    rows).
+    ``<f8`` key, ``complex`` the ``<c16`` key.  Over ``mesh`` every rank
+    calls this and gets the same table (:func:`tune_key`).  Returns
+    (table, report rows).
     """
     table = table or TuningTable()
     report = []
@@ -354,7 +395,7 @@ def tune_table(routes, ns, *, density: float = 1.0,
             entry, rows = tune_key(
                 route, n, density=dens, dtype=dtype, precision=precision,
                 batch=batch, top_k=top_k, repeats=repeats, device=device,
-                seed=seed, hw=hw)
+                seed=seed, mesh=mesh, hw=hw)
             table.put(entry)
             report.extend(rows)
             if progress:

@@ -605,6 +605,43 @@ def test_campaign_wave_body_at_main_path_lanes_on_card(card, n, cplx):
         torch.testing.assert_close(lo, want[1], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n,cplx", [(40, False), (32, True)])
+def test_single_precision_wave_body_equals_plain_on_card(card, n, cplx):
+    """f32 and complex64 campaigns keep their dtype: the wave body is #1's
+    ``_f32`` entry in batched mode (#3's for complex64) from u64 chunk
+    bases at the start, middle and end of the space, bit for bit its plain
+    version, and the per-slice sums come back in that dtype."""
+    rng = np.random.default_rng(950 + n)
+    A = _cgauss(rng, (n, n)) / 2 if cplx else rng.uniform(-1, 1, (n, n)) / 2
+    A = torch.as_tensor(A, device=card,
+                        dtype=torch.complex64 if cplx else torch.float32)
+    cps, C, Wu, TB = 256, 1 << 10, 16, 128
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=2 * cps // TB)
+    slices = (1 << (n - 1)) // C // cps
+    entry = ("ryser_complex_scalar" if cplx else "ryser_dense_scalar") \
+        + "_f32"
+    before = (RX.counters if cplx else RC.counters)[entry]
+    for first in (0, slices // 2 - 1, slices - 2):
+        base = first * cps
+        hi, lo = ops.campaign_slice_sums(A, first, 2, chunks_per_slice=cps,
+                                         chunk_size=C, device=card)
+        assert hi.dtype == lo.dtype == A.dtype
+        if cplx:
+            ins = ops.prepare_complex(A[None])[:4]
+            plain = RX.block_partials_plain_complex(*ins, base, **geo)[0]
+            re = ops._slice_sums(plain[:, 0], plain[:, 1], 2)
+            im = ops._slice_sums(plain[:, 2], plain[:, 3], 2)
+            want = (torch.complex(re[0], im[0]), torch.complex(re[1], im[1]))
+        else:
+            A_pads, xb_pads, _ = ops.prepare(A[None])
+            plain = RC.block_partials_plain(A_pads, xb_pads, base,
+                                            mode="batched", **geo)[0]
+            want = ops._slice_sums(plain[:, 0], plain[:, 1], 2)
+        torch.testing.assert_close(hi, want[0], rtol=0, atol=0)
+        torch.testing.assert_close(lo, want[1], rtol=0, atol=0)
+    assert (RX.counters if cplx else RC.counters)[entry] - before == 3
+
+
 def test_chunk_size_past_the_space_refused_on_card(card):
     """A chunk size past the 2^(n-1) step space, or a chunk range past it,
     is refused by the wrapper (ValueError) and by the C entry (rc 1,
@@ -755,6 +792,68 @@ def test_world_of_two_ranks_on_card_equals_one_device(card, tmp_path):
             "ryser_dense_scalar", "ryser_complex_scalar",
             "ryser_dense_batched", "ryser_complex_batched",
             "ryser_sparse_batched", "ryser_sparse_complex_batched"))
+        assert not any(v for k, v in c.items()
+                       if k.startswith("block_partials"))
+
+
+def _card_service(rank: int, world: int) -> dict:
+    """A service over both ranks on the card: shard 0 drives a stream of
+    dense real and complex n = 16 requests (three buckets a kind and a
+    lone one), the other rank follows; each rank's launches."""
+    from repro_torch.core.planner import SolverConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve import PermanentService, ServiceConfig
+    mesh = M.make_batch_mesh(ranks_per_device=world)
+    RC.reset_counters()
+    svc = PermanentService(SolverConfig(backend="distributed", cache=False),
+                           ServiceConfig(max_batch=8, quantize_buckets=False,
+                                         log_every_s=float("inf")),
+                           distributed_ctx=mesh, log=None)
+    out = {"device": str(mesh.device)}
+    if svc.leader:
+        with svc:
+            ts = [svc.submit(A, deadline_s=None) for A in _service_stream()]
+            svc.drain()
+        out["values"] = [t.result() for t in ts]
+    else:
+        out["follower"] = svc.follow()
+    out["counters"] = dict(RC.counters)
+    return out
+
+
+def _service_stream() -> list:
+    rng = np.random.default_rng(2121)
+    real = [rng.uniform(-1, 1, (16, 16)) for _ in range(25)]
+    return real + [A + 1j * rng.uniform(-1, 1, A.shape) for A in real]
+
+
+def test_world_of_two_service_on_card_equals_one_device(card, tmp_path):
+    """The service over two ranks sharing the card: every member of the
+    full buckets bit for bit the one-device service's, the lone requests
+    (a bucket of one over the mesh, the scalar entry on one device) within
+    1e-12; both ranks launched #2 and #4, no plain version."""
+    from repro_torch.core.planner import SolverConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.serve import PermanentService, ServiceConfig
+    lead, follower = M.run_world(_card_service, 2, str(tmp_path / "w"),
+                                 timeout_s=300)
+    svc = PermanentService(SolverConfig(cache=False), ServiceConfig(
+        max_batch=8, quantize_buckets=False, log_every_s=float("inf")),
+        log=None)
+    ts = [svc.submit(A, deadline_s=None) for A in _service_stream()]
+    svc.drain()
+    want = [t.result() for t in ts]
+    for i, (g, w) in enumerate(zip(lead["values"], want)):
+        if i % 25 == 24:                     # the lone request of a kind
+            assert abs(g - w) <= 1e-12 * abs(w)
+        else:
+            assert g == w, i
+    assert follower["follower"]["dispatches"] == 8
+    for out in (lead, follower):
+        c = out["counters"]
+        assert out["device"] == "cuda:0"
+        assert c["ryser_dense_batched"] >= 3 and \
+            c["ryser_complex_batched"] >= 3
         assert not any(v for k, v in c.items()
                        if k.startswith("block_partials"))
 

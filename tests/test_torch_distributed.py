@@ -122,7 +122,7 @@ def _world4(rank: int, world: int, work: str) -> dict:
             S = _bucket(6, cplx, True)
             out["buckets"]["sparse", body, cplx] = \
                 D.sparse_batch_permanents_on_mesh(S, mesh, backend=body)
-    # f32 keeps its dtype across the gather
+    # f32 is cast to f64 before the gather, as the reference casts
     out["f32"] = D.batch_permanents_on_mesh(
         _bucket(7, False, False).astype(np.float32), mesh)
     # the chain's first leg: killed right after its first wave
@@ -372,12 +372,13 @@ def test_ragged_buckets_equal_one_device_backends(runs, route, body, cplx):
     assert np.array_equal(got, want)
 
 
-def test_f32_bucket_keeps_its_dtype_across_the_gather(runs):
+def test_f32_bucket_is_computed_in_f64_across_the_gather(runs):
     got = runs["worlds"][4][0]["f32"]
-    S = _bucket(7, False, False).astype(np.float32)
+    S = _bucket(7, False, False).astype(np.float32).astype(np.float64)
     want = get_backend("cuda").dense_batch(S, precision="dq_acc",
                                            num_chunks=4096, device="cpu")
-    assert got.dtype == np.float32 and np.array_equal(got, want)
+    assert got.dtype == np.float64 and want.dtype == np.float64
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("fn", ["batch_permanents_on_mesh",
@@ -387,6 +388,104 @@ def test_small_n_buckets_use_closed_forms(mesh1, fn):
     got = getattr(D, fn)(S, mesh1)
     np.testing.assert_array_equal(
         got, S[:, 0, 0] * S[:, 1, 1] + S[:, 0, 1] * S[:, 1, 0])
+
+
+# ---------------------------------------------------------------------------
+# single precision and edge stacks against the reference on one jax device
+# ---------------------------------------------------------------------------
+
+def _ref_mesh():
+    """The reference's one-device jax CPU mesh (imported here: a spawned
+    rank imports this module and must not load jax)."""
+    import jax
+    return jax.make_mesh((1,), ("step",))
+
+
+def _f12_matrix(cplx: bool) -> np.ndarray:
+    A = np.random.default_rng(7).uniform(0.2, 1.2, (N_MESH, N_MESH))
+    if cplx:
+        return (A + 1j * np.random.default_rng(8).uniform(
+            0.2, 1.2, (N_MESH, N_MESH))).astype(np.complex64)
+    return A.astype(np.float32)
+
+
+@pytest.mark.parametrize("body", ["torch", "cuda"])
+@pytest.mark.parametrize("cplx", [False, True])
+def test_single_precision_step_space_keeps_its_dtype(mesh1, body, cplx):
+    """f32 and complex64 run the whole step-space family in their dtype
+    (the ``_f32`` wave entries; slice sums, JobState and the g = 0 term
+    alike) and land within 1e-5 of the reference's, which keeps it too."""
+    from repro.core import distributed as RD
+    A = _f12_matrix(cplx)
+    want = RD.permanent_on_mesh(A, _ref_mesh(), lanes_per_device=LANES,
+                                backend=BODIES[body])
+    single = np.complex64 if cplx else np.float32
+    assert np.asarray(want).dtype == single
+    got = D.permanent_on_mesh(A, mesh1, lanes_per_device=LANES,
+                              backend=body)
+    ts, cps, C = plan_slices(N_MESH, 4, 1, LANES)
+    camp, state = D.run_campaign(A, total_slices=ts, chunks_per_slice=cps,
+                                 chunk_size=C, backend=body, device="cpu")
+    his, _, _ = D.slice_sums(A, [0, 1], chunks_per_slice=cps, chunk_size=C,
+                             backend=body, device="cpu")
+    assert his.dtype == single and state.hi.dtype == single
+    for v in (got, camp):
+        assert type(v) is single
+        assert _rel(v, complex(np.asarray(want))) <= 1e-5
+    # the f64 value of the same rounded input: single precision's own gap
+    exact = oracle.perm_ryser_exact(A.astype(np.complex128 if cplx
+                                             else np.float64))
+    assert _rel(got, exact) <= 1e-5 and _rel(camp, exact) <= 1e-5
+
+
+def test_single_precision_checkpoint_is_refused_at_f64(tmp_path):
+    A = _f12_matrix(False)
+    ts, cps, C = plan_slices(N_MESH, 4, 1, LANES)
+    spec = dict(total_slices=ts, chunks_per_slice=cps, chunk_size=C,
+                device="cpu", checkpoint_path=str(tmp_path / "job.npz"))
+    value, state = D.run_campaign(A, **spec, max_waves=1)
+    assert value is None and state.hi.dtype == np.float32
+    for B in (A.astype(np.float64), A.astype(np.complex64)):
+        with pytest.raises(ValueError, match="config mismatch.*dtype"):
+            D.run_campaign(B, **spec)
+    got, _ = D.run_campaign(A, **spec)           # its own dtype resumes
+    assert got == D.run_campaign(A, **{**spec, "checkpoint_path": None})[0]
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_single_precision_bucket_is_cast_to_f64_as_the_reference(mesh1,
+                                                                cplx):
+    from repro.core import distributed as RD
+    S = np.random.default_rng(7).uniform(-1, 1, (5, 8, 8))
+    if cplx:
+        S = (np.random.default_rng(8).uniform(-1, 1, (5, 8, 8))
+             + 1j * np.random.default_rng(9).uniform(-1, 1, (5, 8, 8)))
+    S = S.astype(np.complex64 if cplx else np.float32)
+    wide = S.astype(np.complex128 if cplx else np.float64)
+    want = RD.batch_permanents_on_mesh(S, _ref_mesh())
+    entry = get_backend("cuda").dense_batch(wide, precision="dq_acc",
+                                            num_chunks=4096, device="cpu")
+    got = {b: D.batch_permanents_on_mesh(S, mesh1, backend=b)
+           for b in ("cuda", "torch")}
+    for v in got.values():
+        assert v.dtype == want.dtype == wide.dtype
+        np.testing.assert_allclose(v, want, rtol=1e-12)
+    assert np.array_equal(got["cuda"], entry)
+    np.testing.assert_allclose(got["cuda"], got["torch"], rtol=1e-12)
+
+
+@pytest.mark.parametrize("stack", [
+    np.zeros((0, 5, 5)), np.zeros((0, 5, 5), np.float32),
+    np.zeros((0, 4, 4), np.complex64),
+    np.arange(-3, 4).reshape(7, 1, 1),
+    np.arange(6, dtype=np.int32).reshape(6, 1, 1),
+    np.arange(12).reshape(3, 2, 2)], ids=lambda s: f"{s.shape}{s.dtype}")
+def test_edge_stacks_match_the_reference(mesh1, stack):
+    from repro.core import distributed as RD
+    want = RD.batch_permanents_on_mesh(stack, _ref_mesh())
+    got = D.batch_permanents_on_mesh(stack, mesh1)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------

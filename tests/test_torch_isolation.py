@@ -106,10 +106,15 @@ def test_sparse_input_runs_and_matches_oracle():
 
 
 def test_unported_routes_raise(tmp_path):
-    """Tuning is ported: a table resolves into the plan.  The one route
-    left to port, a campaign mesh in the service (item 8), raises."""
+    """The name is the seed's; no route is left to port.  Tuning is
+    ported: a table resolves into the plan.  A campaign mesh in the
+    service is accepted; what still raises is a campaign under a
+    CampaignMesh on a mesh other than its step row."""
+    from types import SimpleNamespace
+
     from repro_torch.core.stepspace import Geometry
-    from repro_torch.serve import CampaignSpec
+    from repro_torch.core.planner import SolverConfig
+    from repro_torch.serve import CampaignSpec, PermanentService
     from repro_torch.tune.table import TableEntry, TuningTable
     table = TuningTable()
     table.put(TableEntry(route="dense", n=4, density_bucket="1.00",
@@ -121,5 +126,8 @@ def test_unported_routes_raise(tmp_path):
     plan = PermanentSolver(device="cpu", tuning_table=path,
                            preprocess=False).plan(np.eye(4) + 1)
     assert plan.leaves[0].geometry == Geometry(4, 2, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CampaignSpec(matrix=np.eye(4), mesh=object())
+    spec = CampaignSpec(matrix=np.eye(4), mesh=object())
+    grid = SimpleNamespace(mesh=None, batch_mesh=None, step_mesh=None)
+    with pytest.raises(ValueError, match="step_mesh"):
+        PermanentService(SolverConfig(device="cpu"), distributed_ctx=grid,
+                         campaign=spec, log=None)

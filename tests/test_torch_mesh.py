@@ -71,8 +71,11 @@ def test_one_rank_world_meshes(world1):
     assert set(mesh.groups) == {"step"}
     assert M.make_batch_mesh(device="cpu").axis_names == ("data",)
     assert M.make_local_mesh(device="cpu").shape == (1, 1)
-    assert M.make_campaign_mesh(1, 1, device="cpu").axis_names == \
-        ("batch", "step")
+    cm = M.make_campaign_mesh(1, 1, device="cpu")
+    assert cm.mesh.axis_names == ("batch", "step")
+    assert (cm.batch_mesh.axis_names, cm.step_mesh.axis_names) == \
+        (("batch",), ("step",))
+    assert cm.batch_mesh.size == cm.step_mesh.size == 1
     assert "mesh(step=1) rank 0 shard 0 device cpu" in mesh.describe()
 
 
@@ -132,7 +135,11 @@ def _world4(rank: int, world: int) -> dict:
                    _axis_members(grid, "batch"), _axis_members(grid, "step"))
     out["local"] = M.make_local_mesh(device="cpu").shape
     out["batch"] = M.make_batch_mesh(device="cpu").shape
-    out["campaign"] = M.make_campaign_mesh(2, 2, device="cpu").axis_names
+    cm = M.make_campaign_mesh(2, 2, device="cpu")
+    out["campaign"] = (cm.mesh.axis_names, *(
+        None if m is None else (m.axis_names, m.ranks.tolist(), m.index,
+                                _axis_members(m, m.axis_names[0]))
+        for m in (cm.batch_mesh, cm.step_mesh)))
     # four ranks on one card need ranks_per_device >= 4
     real = torch.cuda.device_count
     torch.cuda.device_count = lambda: 1
@@ -156,7 +163,14 @@ def test_world_of_four_meshes(tmp_path):
         assert batch_axis == [rank % 2, rank % 2 + 2]    # a column
         assert step_axis == [rank // 2 * 2, rank // 2 * 2 + 1]   # a row
         assert out["local"] == (2, 2) and out["batch"] == (4,)
-        assert out["campaign"] == ("batch", "step")
+        # the reference's carving: batch_mesh the first column, step_mesh
+        # the first row; grid[0, 0] has both roles, grid[1, 1] neither
+        names, batch, step = out["campaign"]
+        assert names == ("batch", "step")
+        assert batch == ((("batch",), [0, 2], rank // 2, [0, 2])
+                         if rank in (0, 2) else None)
+        assert step == ((("step",), [0, 1], rank, [0, 1])
+                        if rank in (0, 1) else None)
         assert "4 ranks" in out["refused"] and \
             "ranks_per_device=2" in out["refused"]
         assert out["device"] == torch.device("cuda", 0)

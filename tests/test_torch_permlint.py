@@ -128,6 +128,27 @@ def test_rule_fires_on_its_fixture(rule, tmp_path):
     assert lint.main([str(tmp_path)]) == 1
 
 
+@pytest.mark.parametrize("where,count", [("serve", 2), ("tune", 2),
+                                         ("core", 0)])
+def test_pt003_guards_the_mesh_through_serve_and_tune(where, count,
+                                                      tmp_path):
+    """A dropped ``distributed_ctx`` or ``mesh`` is a PT003 finding in
+    serve/ and tune/ (a rank would run alone where the world waits in a
+    collective); elsewhere the rule keeps to its five kwargs."""
+    _write(tmp_path, f"repro_torch/{where}/meshes.py", """\
+def inner(A, *, distributed_ctx=None, mesh=None):
+    return A
+
+
+def outer(A, *, distributed_ctx=None, mesh=None):
+    inner(A)
+    return inner(A, distributed_ctx=distributed_ctx, mesh=mesh)
+""")
+    found = [f for f in lint.lint_paths([str(tmp_path)])["findings"]
+             if f.rule == "PT003"]
+    assert len(found) == count, [f.render() for f in found]
+
+
 def test_comments_and_strings_are_blanked_line_for_line():
     src = 'a = 1; // atomicAdd(x)\n/* cub::\n */ b = "fma(1)";\n'
     code = strip_cuda(src)

@@ -625,9 +625,25 @@ def test_campaign_interleaving_equals_run_campaign(backend, cplx):
 
 
 def test_campaign_mesh_not_ported():
-    # the mesh functions are ported; the service over a mesh is item 8
-    with pytest.raises(NotImplementedError, match="item 8"):
-        CampaignSpec(matrix=np.eye(4), mesh=object())
+    """The name is the seed's; a campaign mesh is accepted now: a service
+    on one device whose interleaved campaign runs over a ("step",) mesh
+    (a world of one rank here) ends on one-device run_campaign's bits."""
+    from repro_torch.launch import mesh as M
+    rng = np.random.default_rng(33)
+    C = mk(rng, n=9)
+    with M.world():
+        mesh = M.make_mesh((1,), ("step",), device="cpu")
+        spec = CampaignSpec(matrix=C, mesh=mesh, waves=1, slices=8,
+                            lanes=16)
+        with PermanentService(cfg("cuda"), ServiceConfig(
+                max_batch=2, log_every_s=float("inf")), campaign=spec,
+                clock=FakeClock(), log=None) as svc:
+            assert svc.leader
+            ts = [svc.submit(mk(rng), deadline_s=None) for _ in range(3)]
+            svc.drain()
+        assert all(t.done for t in ts)
+        want, _ = Dm.run_campaign(C, **svc.campaign_body())
+        assert svc.campaign_value == want
     assert CampaignSpec(matrix=np.eye(4)).slices == \
         SolverConfig().campaign_slices == 1024
 
