@@ -1,0 +1,3 @@
+"""device_idle.campaign: see ``bench.readers.device_idle``."""
+
+from bench.readers import device_idle as read  # noqa: F401
