@@ -77,6 +77,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import precision as P
 from .resume import JobState, sums_dtype
 from .ryser import (_final_factor, chain_prod, chain_prod_complex,
@@ -117,13 +118,19 @@ class Wave:
     the device seconds of its kernel launches (CUDA events around each
     launch; None off the card or on the torch body), the host seconds of
     its slice sums (launches, device work, per-slice reductions and the
-    copy back) and of its checkpoint save (0 without a checkpoint)."""
+    copy back; over a mesh the gather too) and of its checkpoint save (0
+    without a checkpoint), and ``gather_s``, the host seconds of those
+    that this rank spent in the wave's ``all_gather`` (the wait for the
+    slowest rank and the gloo transfer, with the microseconds of packing
+    around it; 0.0 on one device).  The gather moves D rows of 2 + 2W
+    float64 (4W + 2 complex), fixed by D and W."""
     ids: list[int]
     width: int
     launches: int
     kernel_s: float | None
     host_s: float
     save_s: float
+    gather_s: float = 0.0
 
     def ids_text(self) -> str:
         """The slice ids as runs: ``0-32`` or ``3,5-9``."""
@@ -277,84 +284,89 @@ def run_campaign(A, *, total_slices: int, chunks_per_slice: int,
     raised by all.  W widens by the slowest shard's seconds, on every rank
     alike.
     """
-    A = np.asarray(A)
-    gtag = _gtag(geometry)
-    if mesh is not None:
-        device = _mesh_device(mesh, device)
-        _input_guard(mesh, "run_campaign", A, total_slices,
-                     chunks_per_slice, chunk_size, precision, backend, gtag,
-                     max_waves, max_wave_retries, wave_width)
-    shards = 1 if mesh is None else mesh.size
-    body = dict(chunks_per_slice=chunks_per_slice, chunk_size=chunk_size,
-                precision=precision, backend=backend, geometry=geometry,
-                device=device)
+    with span("repro.campaign"):
+        A = np.asarray(A)
+        gtag = _gtag(geometry)
+        if mesh is not None:
+            device = _mesh_device(mesh, device)
+            _input_guard(mesh, "run_campaign", A, total_slices,
+                         chunks_per_slice, chunk_size, precision, backend,
+                         gtag, max_waves, max_wave_retries, wave_width)
+        shards = 1 if mesh is None else mesh.size
+        body = dict(chunks_per_slice=chunks_per_slice, chunk_size=chunk_size,
+                    precision=precision, backend=backend, geometry=geometry,
+                    device=device)
 
-    def start():
-        st = state if state is not None else JobState.load_or_create(
-            checkpoint_path, A, total_slices, precision=precision,
-            backend=backend, chunks_per_slice=chunks_per_slice,
-            chunk_size=chunk_size, geometry=gtag)
-        share = -(-len(st.pending_slices()) // shards)
-        return st, wave_width or (
-            default_wave_width(A, pending=share, **body) if share else 1)
+        def start():
+            st = state if state is not None else JobState.load_or_create(
+                checkpoint_path, A, total_slices, precision=precision,
+                backend=backend, chunks_per_slice=chunks_per_slice,
+                chunk_size=chunk_size, geometry=gtag)
+            share = -(-len(st.pending_slices()) // shards)
+            return st, wave_width or (
+                default_wave_width(A, pending=share, **body) if share else 1)
 
-    def one_device(wave, events):
-        """``_mesh_slice_sums``'s contract on this process alone (no
-        seconds: the loop times the wave itself)."""
-        try:
-            his, los, launches = slice_sums(A, wave, events=events, **body)
-        except Exception as e:
-            # nothing recorded: the wave's slices stay pending and the
-            # next iteration re-forms it
-            return None, None, 0, None, [0], e
-        return his, los, launches, None, [], None
+        def one_device(wave, events):
+            """``_mesh_slice_sums``'s contract on this process alone (no
+            seconds: the loop times the wave itself)."""
+            try:
+                his, los, launches = slice_sums(A, wave, events=events, **body)
+            except Exception as e:
+                # nothing recorded: the wave's slices stay pending and the
+                # next iteration re-forms it
+                return None, None, 0, None, 0.0, [0], e
+            return his, los, launches, None, 0.0, [], None
 
-    if mesh is None:
-        state, W = start()
-        compute = one_device
-    else:
-        state, W = _broadcast_state(mesh, start)
-        def compute(wave, events):
-            return _mesh_slice_sums(A, mesh, wave, body, events)
-    root = mesh is None or mesh.index == 0
-    widen = wave_width is None and W > 1   # the CPU's W = 1 stays
-    waves = retries = 0
-    while True:
-        pending = state.pending_slices()
-        if not pending:
-            break
-        if max_waves is not None and waves >= max_waves:
-            return None, state
-        wave = pending[:shards * W]
-        events: list = []
-        t0 = time.perf_counter()
-        his, los, launches, secs, failed, err = compute(wave, events)
-        t1 = time.perf_counter()
-        if failed:
-            # every rank re-forms the same wave, or raises
-            retries += 1
-            if retries > max_wave_retries:
-                _raise_failed("run_campaign", failed, err)
-            continue
-        # the copy back in slice_sums synchronised: every event is done
-        kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3 \
-            if events else None
-        retries = 0
-        state.record_wave(wave, his, los)
-        waves += 1
-        if checkpoint_path and root:
-            state.save(checkpoint_path)
-        t2 = time.perf_counter()
-        if progress_cb:
-            progress_cb(state, Wave(ids=wave, width=W, launches=launches,
-                                    kernel_s=kernel_s, host_s=t1 - t0,
-                                    save_s=t2 - t1))
-        took = t2 - t0 if secs is None else float(secs.max())
-        if widen and took < MIN_WAVE_S:
-            W = math.ceil(W * MIN_WAVE_S / max(took, 1e-4))
+        if mesh is None:
+            state, W = start()
+            compute = one_device
+        else:
+            state, W = _broadcast_state(mesh, start)
+            def compute(wave, events):
+                return _mesh_slice_sums(A, mesh, wave, body, events)
+        root = mesh is None or mesh.index == 0
+        widen = wave_width is None and W > 1   # the CPU's W = 1 stays
+        waves = retries = 0
+        while True:
+            pending = state.pending_slices()
+            if not pending:
+                break
+            if max_waves is not None and waves >= max_waves:
+                return None, state
+            wave = pending[:shards * W]
+            events: list = []
+            t0 = time.perf_counter()
+            with span("repro.campaign.wave"):
+                his, los, launches, secs, gather_s, failed, err = compute(
+                    wave, events)
+            t1 = time.perf_counter()
+            if failed:
+                # every rank re-forms the same wave, or raises
+                retries += 1
+                if retries > max_wave_retries:
+                    _raise_failed("run_campaign", failed, err)
+                continue
+            # the copy back in slice_sums synchronised: every event is done
+            kernel_s = sum(a.elapsed_time(b) for a, b in events) / 1e3 \
+                if events else None
+            retries = 0
+            with span("repro.campaign.record"):
+                state.record_wave(wave, his, los)
+            waves += 1
+            if checkpoint_path and root:
+                with span("repro.campaign.save"):
+                    state.save(checkpoint_path)
+            t2 = time.perf_counter()
+            if progress_cb:
+                progress_cb(state, Wave(ids=wave, width=W, launches=launches,
+                                        kernel_s=kernel_s, host_s=t1 - t0,
+                                        save_s=t2 - t1, gather_s=gather_s))
+            took = t2 - t0 if secs is None else float(secs.max())
+            if widen and took < MIN_WAVE_S:
+                W = math.ceil(W * MIN_WAVE_S / max(took, 1e-4))
 
-    hi, lo = state.reduce()
-    return _final_value(A, hi, lo), state
+        hi, lo = state.reduce()
+        return _final_value(A, hi, lo), state
 
 
 # ---------------------------------------------------------------------------
@@ -398,7 +410,8 @@ def _gather(mesh, row: torch.Tensor) -> np.ndarray:
     group: a (D, len) array in shard order (the group orders its ranks
     by global rank, a sub-mesh's shards may not)."""
     out = [torch.empty_like(row) for _ in range(mesh.size)]
-    _dist().all_gather(out, row, group=mesh.group)
+    with span("repro.mesh.gather"):
+        _dist().all_gather(out, row, group=mesh.group)
     ranks = mesh.ranks.ravel()
     return torch.stack(out).numpy()[np.searchsorted(np.sort(ranks), ranks)]
 
@@ -461,9 +474,12 @@ def _mesh_slice_sums(A: np.ndarray, mesh, ids: list[int], body: dict,
                      events: list | None = None):
     """The slice ids (ids < 0 sentinels) in D contiguous shares, shard i
     the i-th, each rank its own through ``slice_sums``; one gather.
-    Returns ``(his, los, launches, seconds, failed, err)``, his and los
-    in the order of ``ids`` (exact zeros at sentinels), ``launches`` this
-    rank's, ``seconds`` each shard's host seconds."""
+    Returns ``(his, los, launches, seconds, gather_s, failed, err)``, his
+    and los in the order of ``ids`` (exact zeros at sentinels),
+    ``launches`` this rank's, ``seconds`` each shard's host seconds,
+    ``gather_s`` this rank's seconds in the exchange beyond its own work:
+    the gather (the wait for the slowest shard and the transfer) and the
+    packing around it."""
     per = max(1, -(-len(ids) // mesh.size))
     mine = ids[mesh.index * per:(mesh.index + 1) * per]
     mine += [-1] * (per - len(mine))
@@ -483,12 +499,14 @@ def _mesh_slice_sums(A: np.ndarray, mesh, ids: list[int], body: dict,
         return np.concatenate([_planes(hi, cplx), _planes(lo, cplx)])
 
     width = per * (4 if cplx else 2)
+    t0 = time.perf_counter()
     rows, secs, failed, err = _share(mesh, compute, width)
+    gather_s = time.perf_counter() - t0 - float(secs[mesh.index])
     half = width // 2
     # the planes carry f32 sums exactly; back in the sums' dtype
     his = _unplanes(rows[:, :half], cplx)[:len(ids)].astype(dt)
     los = _unplanes(rows[:, half:], cplx)[:len(ids)].astype(dt)
-    return his, los, launches, secs, failed, err
+    return his, los, launches, secs, gather_s, failed, err
 
 
 def slice_sums_on_mesh(A, mesh, slice_ids, *, chunks_per_slice: int,
@@ -507,7 +525,7 @@ def slice_sums_on_mesh(A, mesh, slice_ids, *, chunks_per_slice: int,
     body = dict(chunks_per_slice=chunks_per_slice, chunk_size=chunk_size,
                 precision=precision, backend=backend, geometry=geometry,
                 device=mesh.device)
-    his, los, _, _, failed, err = _mesh_slice_sums(A, mesh, ids, body)
+    his, los, _, _, _, failed, err = _mesh_slice_sums(A, mesh, ids, body)
     if failed:
         _raise_failed("slice_sums_on_mesh", failed, err)
     return his, los
@@ -542,7 +560,7 @@ def permanent_on_mesh(A, mesh, *, precision: str = "dq_acc",
     body = dict(chunks_per_slice=cps, chunk_size=C, precision=precision,
                 backend=backend, geometry=geometry, device=mesh.device)
     ids = [s if s < ts else -1 for s in range(mesh.size * spd)]
-    his, los, _, _, failed, err = _mesh_slice_sums(A, mesh, ids, body)
+    his, los, _, _, _, failed, err = _mesh_slice_sums(A, mesh, ids, body)
     if failed:
         _raise_failed("permanent_on_mesh", failed, err)
     state = JobState.create(A, ts, precision=precision, backend=backend,
@@ -561,7 +579,8 @@ def _broadcast_state(mesh, make):
             box[0], box[1] = make()
         except (ValueError, OSError) as e:
             box[2] = f"{type(e).__name__}: {e}"
-    _dist().broadcast_object_list(box, src=mesh.root, group=mesh.group)
+    with span("repro.mesh.broadcast"):
+        _dist().broadcast_object_list(box, src=mesh.root, group=mesh.group)
     if box[2] is not None:
         raise ValueError(f"run_campaign on shard 0: {box[2]}")
     return box[0], box[1]

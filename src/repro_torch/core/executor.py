@@ -74,6 +74,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from . import ryser as R
 from . import sparyser as S
 from .cache import ResultCache
@@ -254,9 +255,10 @@ class CudaBackend(TorchBackend):
               ctx=None):
         if self._kernel_ok(M.shape[-1]):
             from ..kernels import ops as K
-            return _scalar(K.permanent_cuda(M, precision=precision,
-                                            geometry=geometry,
-                                            device=device))
+            v = K.permanent_cuda(M, precision=precision, geometry=geometry,
+                                 device=device)
+            with span("repro.dispatch.copy"):
+                return _scalar(v)
         return super().dense(M, precision=precision, num_chunks=num_chunks,
                              device=device)
 
@@ -275,9 +277,10 @@ class CudaBackend(TorchBackend):
                     device=None, ctx=None):
         if self._kernel_ok(stack.shape[-1]):
             from ..kernels import ops as K
-            return _host(K.permanent_cuda_batched(
-                stack, precision=precision, geometry=geometry,
-                device=device))
+            vals = K.permanent_cuda_batched(stack, precision=precision,
+                                            geometry=geometry, device=device)
+            with span("repro.dispatch.copy"):
+                return _host(vals)
         return None                  # dispatcher falls back + tags downgrade
 
     def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
@@ -567,192 +570,204 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
     ``campaign_progress(state, wave)`` is called after every checkpointed
     wave of a campaign leaf.
     """
-    cfg = plan.config
-    backend = get_backend(cfg.backend)
-    fallback = get_backend(_FALLBACK)
-    stats = ExecStats()
-    totals = np.zeros(plan.num_matrices, dtype=np.complex128)
-    reports = [PermanentReport(n=e.n, nnz=e.nnz, density=e.density,
-                               dm_removed=e.dm_removed,
-                               fm_leaves=e.fm_leaves,
-                               leaf_sizes=list(e.leaf_sizes),
-                               precision=plan.precision, backend=cfg.backend)
-               for e in plan.entries]
-    for e in plan.entries:
-        totals[e.index] += e.const
-    if plan.precision_downgrade:
-        ptag = f"precision({plan.precision_downgrade})"
-        stats.downgrades.append(ptag)
-        for r in reports:
-            r.dispatch.append(ptag)
+    with span("repro.dispatch"):
+        cfg = plan.config
+        backend = get_backend(cfg.backend)
+        fallback = get_backend(_FALLBACK)
+        stats = ExecStats()
+        totals = np.zeros(plan.num_matrices, dtype=np.complex128)
+        reports = [PermanentReport(n=e.n, nnz=e.nnz, density=e.density,
+                                   dm_removed=e.dm_removed,
+                                   fm_leaves=e.fm_leaves,
+                                   leaf_sizes=list(e.leaf_sizes),
+                                   precision=plan.precision,
+                                   backend=cfg.backend)
+                   for e in plan.entries]
+        for e in plan.entries:
+            totals[e.index] += e.const
+        if plan.precision_downgrade:
+            ptag = f"precision({plan.precision_downgrade})"
+            stats.downgrades.append(ptag)
+            for r in reports:
+                r.dispatch.append(ptag)
 
-    def produced_by(leaf: LeafTask, batched: bool) -> str:
-        """Name of the strategy whose numerics serve this leaf.  Campaign
-        leaves name the full wave-body identity of their spec -- backend,
-        slice geometry and kernel geometry -- since their twofloat slice
-        partials depend on the decomposition, not just the engine."""
-        if leaf.route == ROUTE_CAMPAIGN:
-            s = leaf.campaign
-            return (f"campaign[{s.backend},{s.total_slices}x"
-                    f"{s.chunks_per_slice}x{s.chunk_size},"
-                    f"{s.geometry.tag() if s.geometry else '-'}]")
-        return backend.value_backend(leaf.route, leaf.n, batched=batched,
-                                     ctx=distributed_ctx, device=cfg.device)
+        def produced_by(leaf: LeafTask, batched: bool) -> str:
+            """Name of the strategy whose numerics serve this leaf.
+            Campaign leaves name the full wave-body identity of their spec
+            -- backend, slice geometry and kernel geometry -- since their
+            twofloat slice partials depend on the decomposition, not just
+            the engine."""
+            if leaf.route == ROUTE_CAMPAIGN:
+                s = leaf.campaign
+                return (f"campaign[{s.backend},{s.total_slices}x"
+                        f"{s.chunks_per_slice}x{s.chunk_size},"
+                        f"{s.geometry.tag() if s.geometry else '-'}]")
+            return backend.value_backend(leaf.route, leaf.n,
+                                         batched=batched, ctx=distributed_ctx,
+                                         device=cfg.device)
 
-    campaign_leaves = [l for l in plan.leaves if l.route == ROUTE_CAMPAIGN]
+        campaign_leaves = [l for l in plan.leaves
+                           if l.route == ROUTE_CAMPAIGN]
 
-    def campaign_ckpt(leaf: LeafTask) -> str | None:
-        """The configured checkpoint path verbatim for a plan with one
-        campaign leaf, suffixed by the leaf key when several campaign
-        (their JobStates must not collide)."""
-        base = cfg.campaign_checkpoint
-        if base is None or len(campaign_leaves) == 1:
-            return base
-        return f"{base}.{leaf.key[:12]}.npz"
+        def campaign_ckpt(leaf: LeafTask) -> str | None:
+            """The configured checkpoint path verbatim for a plan with one
+            campaign leaf, suffixed by the leaf key when several campaign
+            (their JobStates must not collide)."""
+            base = cfg.campaign_checkpoint
+            if base is None or len(campaign_leaves) == 1:
+                return base
+            return f"{base}.{leaf.key[:12]}.npz"
 
-    def run_campaign_leaf(leaf: LeafTask) -> complex | float:
-        tag = f"campaign(n={leaf.n},{leaf.campaign.backend})"
-        reports[leaf.owner].dispatch.append(tag)
-        t0 = time.perf_counter()
-        val = get_backend("campaign").campaign(
-            leaf.matrix, leaf.campaign, device=cfg.device,
-            ctx=distributed_ctx, checkpoint_path=campaign_ckpt(leaf),
-            progress_cb=campaign_progress,
-            max_waves=cfg.campaign_max_waves)
-        stats.record_time(tag, time.perf_counter() - t0)
-        stats.device_dispatches += 1
-        stats.scalar_leaves += 1
-        return val
+        def run_campaign_leaf(leaf: LeafTask) -> complex | float:
+            tag = f"campaign(n={leaf.n},{leaf.campaign.backend})"
+            reports[leaf.owner].dispatch.append(tag)
+            t0 = time.perf_counter()
+            val = get_backend("campaign").campaign(
+                leaf.matrix, leaf.campaign, device=cfg.device,
+                ctx=distributed_ctx, checkpoint_path=campaign_ckpt(leaf),
+                progress_cb=campaign_progress,
+                max_waves=cfg.campaign_max_waves)
+            stats.record_time(tag, time.perf_counter() - t0)
+            stats.device_dispatches += 1
+            stats.scalar_leaves += 1
+            return val
 
-    if not plan.batched:
-        # scalar mode: strict plan-order per-leaf dispatch
-        for leaf in plan.leaves:
-            key = val = None
-            if cache is not None:
-                key = _cache_key(leaf, plan, produced_by(leaf, False))
-                val = cache.get(key)
-                if val is None:
-                    stats.cache_misses += 1
-                else:
-                    stats.cache_hits += 1
-            if val is not None:
-                reports[leaf.owner].dispatch.append(
-                    f"cache({leaf.route},n={leaf.n})")
-            else:
-                val = run_campaign_leaf(leaf) \
-                    if leaf.route == ROUTE_CAMPAIGN else \
-                    _run_leaf(leaf, plan, backend, reports[leaf.owner], stats,
-                              distributed_ctx)
-                if key is not None:
-                    cache.put(key, val)
-            totals[leaf.owner] += leaf.coef * val
-        return totals, reports, stats
-
-    # batched mode: inline folds, cache probe (duplicate leaves of one
-    # cold batch are scheduled once), then one program per bucket
-    pending: dict[tuple[str, int], list[int]] = {}
-    computed: dict[tuple, complex | float | None] = {}
-    followers: list[LeafTask] = []
-    for (route, n), idxs in plan.buckets.items():
-        for j in idxs:
-            leaf = plan.leaves[j]
-            if route == ROUTE_INLINE:
-                reports[leaf.owner].dispatch.append(f"dense(n={n})")
-                totals[leaf.owner] += leaf.coef * _inline_value(leaf.matrix)
-                stats.inline_leaves += 1
-                continue
-            if cache is not None:
-                key = _cache_key(leaf, plan, produced_by(leaf, True))
-                if key in computed:
-                    followers.append(leaf)
-                    continue
-                val = cache.get(key)
+        if not plan.batched:
+            # scalar mode: strict plan-order per-leaf dispatch
+            for leaf in plan.leaves:
+                key = val = None
+                if cache is not None:
+                    with span("repro.dispatch.probe"):
+                        key = _cache_key(leaf, plan,
+                                         produced_by(leaf, False))
+                        val = cache.get(key)
+                        if val is None:
+                            stats.cache_misses += 1
+                        else:
+                            stats.cache_hits += 1
                 if val is not None:
-                    stats.cache_hits += 1
                     reports[leaf.owner].dispatch.append(
-                        f"cache({route},n={n})")
-                    totals[leaf.owner] += leaf.coef * val
-                    continue
-                stats.cache_misses += 1
-                computed[key] = None      # scheduled; filled after its bucket
-            pending.setdefault((route, n), []).append(j)
+                        f"cache({leaf.route},n={leaf.n})")
+                else:
+                    val = run_campaign_leaf(leaf) \
+                        if leaf.route == ROUTE_CAMPAIGN else \
+                        _run_leaf(leaf, plan, backend, reports[leaf.owner],
+                                  stats, distributed_ctx)
+                    if key is not None:
+                        cache.put(key, val)
+                totals[leaf.owner] += leaf.coef * val
+            return totals, reports, stats
 
-    for (route, n), idxs in sorted(pending.items()):
-        if route == ROUTE_CAMPAIGN:
-            # campaign leaves never share a device program: each is its
-            # own checkpointed wave sequence (probe key == store key)
+        # batched mode: inline folds, cache probe (duplicate leaves of one
+        # cold batch are scheduled once), then one program per bucket
+        pending: dict[tuple[str, int], list[int]] = {}
+        computed: dict[tuple, complex | float | None] = {}
+        followers: list[LeafTask] = []
+        with span("repro.dispatch.probe"):
+            for (route, n), idxs in plan.buckets.items():
+                for j in idxs:
+                    leaf = plan.leaves[j]
+                    if route == ROUTE_INLINE:
+                        reports[leaf.owner].dispatch.append(f"dense(n={n})")
+                        totals[leaf.owner] += \
+                            leaf.coef * _inline_value(leaf.matrix)
+                        stats.inline_leaves += 1
+                        continue
+                    if cache is not None:
+                        key = _cache_key(leaf, plan, produced_by(leaf, True))
+                        if key in computed:
+                            followers.append(leaf)
+                            continue
+                        val = cache.get(key)
+                        if val is not None:
+                            stats.cache_hits += 1
+                            reports[leaf.owner].dispatch.append(
+                                f"cache({route},n={n})")
+                            totals[leaf.owner] += leaf.coef * val
+                            continue
+                        stats.cache_misses += 1
+                        # scheduled; filled after its bucket
+                        computed[key] = None
+                    pending.setdefault((route, n), []).append(j)
+
+        for (route, n), idxs in sorted(pending.items()):
+            if route == ROUTE_CAMPAIGN:
+                # campaign leaves never share a device program: each is its
+                # own checkpointed wave sequence (probe key == store key)
+                for j in idxs:
+                    leaf = plan.leaves[j]
+                    val = run_campaign_leaf(leaf)
+                    if cache is not None:
+                        k = _cache_key(leaf, plan, produced_by(leaf, True))
+                        cache.put(k, val)
+                        computed[k] = val
+                    totals[leaf.owner] += leaf.coef * val
+                continue
+            # one device program per resolved kernel geometry: geometry is
+            # numeric identity, leaves of different geometry share none
+            groups: dict[str, list[LeafTask]] = {}
             for j in idxs:
                 leaf = plan.leaves[j]
-                val = run_campaign_leaf(leaf)
-                if cache is not None:
-                    k = _cache_key(leaf, plan, produced_by(leaf, True))
-                    cache.put(k, val)
-                    computed[k] = val
-                totals[leaf.owner] += leaf.coef * val
-            continue
-        # one device program per resolved kernel geometry: geometry is
-        # numeric identity, so leaves of different geometry never share one
-        groups: dict[str, list[LeafTask]] = {}
-        for j in idxs:
-            leaf = plan.leaves[j]
-            gtag = leaf.geometry.tag() if leaf.geometry is not None else "-"
-            groups.setdefault(gtag, []).append(leaf)
-        for _gtag, leaves in sorted(groups.items()):
-            bname = produced_by(leaves[0], True)
-            geometry = leaves[0].geometry
-            # ragged straggler: the scalar path, while it produces the
-            # bucket's numerics (over a mesh a scalar dense leaf is the
-            # step-space split, another family, and its cache entry would
-            # sit under a key the batched probes never read)
-            if len(leaves) == 1 and bname == produced_by(leaves[0], False):
-                leaf = leaves[0]
-                val = _run_leaf(leaf, plan, backend, reports[leaf.owner],
-                                stats, distributed_ctx)
-                if cache is not None:
-                    k = _cache_key(leaf, plan, bname)
-                    cache.put(k, val)
-                    computed[k] = val
-                totals[leaf.owner] += leaf.coef * val
-                continue
-            tag = f"{route}_batch(n={n},b={len(leaves)})"
-            t_bucket = time.perf_counter()
-            stack = np.stack([l.matrix for l in leaves])
-            run, run_fallback = (
-                (backend.dense_batch, fallback.dense_batch)
-                if route == ROUTE_DENSE else
-                (backend.sparse_batch, fallback.sparse_batch))
-            vals = run(stack, precision=plan.precision,
-                       num_chunks=cfg.num_chunks, geometry=geometry,
-                       device=cfg.device, ctx=distributed_ctx)
-            if vals is None:             # tiny bucket, or no mesh on the CPU
-                vals = run_fallback(stack, precision=plan.precision,
-                                    num_chunks=cfg.num_chunks,
-                                    device=cfg.device)
-                tag = f"{route}_batch(n={n},b={len(leaves)}," \
-                      f"{cfg.backend}->{_FALLBACK})"
-                stats.downgrades.append(tag)
-                bname = _FALLBACK
-            stats.device_dispatches += 1
-            stats.batched_leaves += len(leaves)
-            stats.record_time(f"{route}_batch(n={n},{bname})",
-                              time.perf_counter() - t_bucket,
-                              leaves=len(leaves))
-            for leaf, v in zip(leaves, vals):
-                v = _scalar(v)
-                reports[leaf.owner].dispatch.append(tag)
-                if cache is not None:
-                    cache.put(_cache_key(leaf, plan, bname), v)
-                    computed[_cache_key(leaf, plan,
-                                        produced_by(leaf, True))] = v
-                totals[leaf.owner] += leaf.coef * v
+                gtag = leaf.geometry.tag() if leaf.geometry is not None \
+                    else "-"
+                groups.setdefault(gtag, []).append(leaf)
+            for _gtag, leaves in sorted(groups.items()):
+                bname = produced_by(leaves[0], True)
+                geometry = leaves[0].geometry
+                # ragged straggler: the scalar path, while it produces the
+                # bucket's numerics (over a mesh a scalar dense leaf is the
+                # step-space split, another family, and its cache entry
+                # would sit under a key the batched probes never read)
+                if len(leaves) == 1 and \
+                        bname == produced_by(leaves[0], False):
+                    leaf = leaves[0]
+                    val = _run_leaf(leaf, plan, backend, reports[leaf.owner],
+                                    stats, distributed_ctx)
+                    if cache is not None:
+                        k = _cache_key(leaf, plan, bname)
+                        cache.put(k, val)
+                        computed[k] = val
+                    totals[leaf.owner] += leaf.coef * val
+                    continue
+                tag = f"{route}_batch(n={n},b={len(leaves)})"
+                t_bucket = time.perf_counter()
+                stack = np.stack([l.matrix for l in leaves])
+                run, run_fallback = (
+                    (backend.dense_batch, fallback.dense_batch)
+                    if route == ROUTE_DENSE else
+                    (backend.sparse_batch, fallback.sparse_batch))
+                vals = run(stack, precision=plan.precision,
+                           num_chunks=cfg.num_chunks, geometry=geometry,
+                           device=cfg.device, ctx=distributed_ctx)
+                if vals is None:    # tiny bucket, or no mesh on the CPU
+                    vals = run_fallback(stack, precision=plan.precision,
+                                        num_chunks=cfg.num_chunks,
+                                        device=cfg.device)
+                    tag = f"{route}_batch(n={n},b={len(leaves)}," \
+                          f"{cfg.backend}->{_FALLBACK})"
+                    stats.downgrades.append(tag)
+                    bname = _FALLBACK
+                stats.device_dispatches += 1
+                stats.batched_leaves += len(leaves)
+                stats.record_time(f"{route}_batch(n={n},{bname})",
+                                  time.perf_counter() - t_bucket,
+                                  leaves=len(leaves))
+                for leaf, v in zip(leaves, vals):
+                    v = _scalar(v)
+                    reports[leaf.owner].dispatch.append(tag)
+                    if cache is not None:
+                        cache.put(_cache_key(leaf, plan, bname), v)
+                        computed[_cache_key(leaf, plan,
+                                            produced_by(leaf, True))] = v
+                    totals[leaf.owner] += leaf.coef * v
 
-    for leaf in followers:               # duplicates of scheduled leaves
-        val = computed[_cache_key(leaf, plan, produced_by(leaf, True))]
-        if val is None:
-            raise RuntimeError("scheduled leaf was never computed")
-        cache.hits += 1                  # in-flight dedup is still a hit
-        stats.cache_hits += 1
-        reports[leaf.owner].dispatch.append(
-            f"cache({leaf.route},n={leaf.n})")
-        totals[leaf.owner] += leaf.coef * val
-    return totals, reports, stats
+        for leaf in followers:               # duplicates of scheduled leaves
+            val = computed[_cache_key(leaf, plan, produced_by(leaf, True))]
+            if val is None:
+                raise RuntimeError("scheduled leaf was never computed")
+            cache.hits += 1                  # in-flight dedup is still a hit
+            stats.cache_hits += 1
+            reports[leaf.owner].dispatch.append(
+                f"cache({leaf.route},n={leaf.n})")
+            totals[leaf.owner] += leaf.coef * val
+        return totals, reports, stats

@@ -38,6 +38,7 @@ from typing import Any
 
 import numpy as np
 
+from ..utils.spans import span
 from . import decompose as D
 from .stepspace import Geometry, plan_slices
 
@@ -426,78 +427,86 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
     is the bucketed dispatcher shape (n <= 2 leaves fold inline, same-size
     same-route leaves share a bucket).
     """
-    mats = [np.asarray(M) for M in mats]
-    for M in mats:
-        if M.ndim != 2 or M.shape[0] != M.shape[1]:
-            raise ValueError(f"square matrices required, got {M.shape}")
-    is_complex = any(np.iscomplexobj(M) for M in mats)
-    precision = config.effective_precision(is_complex)
-    dtype = np.complex128 if is_complex else np.float64
-    do_dm = config.preprocess if config.dm is None else config.dm
-    do_fm = config.preprocess if config.fm is None else config.fm
+    with span("repro.plan"):
+        mats = [np.asarray(M) for M in mats]
+        for M in mats:
+            if M.ndim != 2 or M.shape[0] != M.shape[1]:
+                raise ValueError(f"square matrices required, got {M.shape}")
+        is_complex = any(np.iscomplexobj(M) for M in mats)
+        precision = config.effective_precision(is_complex)
+        dtype = np.complex128 if is_complex else np.float64
+        do_dm = config.preprocess if config.dm is None else config.dm
+        do_fm = config.preprocess if config.fm is None else config.fm
 
-    entries: list[MatrixPlan] = []
-    leaves: list[LeafTask] = []
-    for i, M in enumerate(mats):
-        n = M.shape[0]
-        work = M.astype(dtype)
-        nnz = int((work != 0).sum())
-        mplan = MatrixPlan(index=i, n=n, nnz=nnz,
-                           density=nnz / max(1, n * n))
-        entries.append(mplan)
-        for leaf in _preprocess_leaves(work, mplan, do_dm, do_fm):
-            m = leaf.matrix
-            if m.shape == (1, 1) and m[0, 0] == 1:
-                mplan.const += leaf.coef
-                continue
-            leaves.append(LeafTask(owner=i, coef=leaf.coef, matrix=m,
-                                   route=_route(m, batched)))
+        entries: list[MatrixPlan] = []
+        leaves: list[LeafTask] = []
+        with span("repro.plan.leaves"):
+            for i, M in enumerate(mats):
+                n = M.shape[0]
+                work = M.astype(dtype)
+                nnz = int((work != 0).sum())
+                mplan = MatrixPlan(index=i, n=n, nnz=nnz,
+                                   density=nnz / max(1, n * n))
+                entries.append(mplan)
+                for leaf in _preprocess_leaves(work, mplan, do_dm, do_fm):
+                    m = leaf.matrix
+                    if m.shape == (1, 1) and m[0, 0] == 1:
+                        mplan.const += leaf.coef
+                        continue
+                    leaves.append(LeafTask(owner=i, coef=leaf.coef, matrix=m,
+                                           route=_route(m, batched)))
 
-    # Campaign re-route: any dense/sparse leaf whose step-cost estimate
-    # exceeds the threshold becomes a step_sharded leaf with a resumable
-    # slice decomposition recorded in the plan.  The geometry depends only
-    # on the plan knobs (never the runtime device count) -- that is what
-    # makes the checkpoint elastic.
-    thr = config.campaign_threshold
-    if thr is not None:
-        for leaf in leaves:
-            if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
-                    _leaf_cost(leaf.matrix, leaf.route) > thr:
-                ts, cps, C = plan_slices(
-                    leaf.n, config.campaign_slices, 1,
-                    config.campaign_lanes)
-                leaf.route = ROUTE_CAMPAIGN
-                cbackend = "cuda" if config.backend in KERNEL_BACKENDS \
-                    else "torch"
-                leaf.campaign = CampaignSpec(
-                    total_slices=ts, chunks_per_slice=cps, chunk_size=C,
-                    precision=precision,
-                    backend=cbackend,
-                    geometry=_resolve_geometry(
-                        config, ROUTE_CAMPAIGN, leaf.n,
-                        _density_of(leaf.matrix), leaf.matrix.dtype.str,
-                        precision) if cbackend == "cuda" else None)
-                leaf.geometry = None   # identity lives on the CampaignSpec
+        with span("repro.plan.geometry"):
+            # Campaign re-route: any dense/sparse leaf whose step-cost
+            # estimate exceeds the threshold becomes a step_sharded leaf
+            # with a resumable slice decomposition recorded in the plan.
+            # The geometry depends only on the plan knobs (never the
+            # runtime device count) -- that is what makes the checkpoint
+            # elastic.
+            thr = config.campaign_threshold
+            if thr is not None:
+                for leaf in leaves:
+                    if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
+                            _leaf_cost(leaf.matrix, leaf.route) > thr:
+                        ts, cps, C = plan_slices(
+                            leaf.n, config.campaign_slices, 1,
+                            config.campaign_lanes)
+                        leaf.route = ROUTE_CAMPAIGN
+                        cbackend = "cuda" \
+                            if config.backend in KERNEL_BACKENDS else "torch"
+                        leaf.campaign = CampaignSpec(
+                            total_slices=ts, chunks_per_slice=cps,
+                            chunk_size=C, precision=precision,
+                            backend=cbackend,
+                            geometry=_resolve_geometry(
+                                config, ROUTE_CAMPAIGN, leaf.n,
+                                _density_of(leaf.matrix),
+                                leaf.matrix.dtype.str, precision)
+                            if cbackend == "cuda" else None)
+                        # identity lives on the CampaignSpec
+                        leaf.geometry = None
 
-    # Kernel geometry resolution: only leaves a CUDA kernel will actually
-    # produce carry one -- torch plans (and tiny-n fallback leaves) keep
-    # geometry out of their identity entirely.
-    if config.backend in KERNEL_BACKENDS:
-        for leaf in leaves:
-            if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
-                    leaf.n >= _KERNEL_FLOOR_N:
-                leaf.geometry = _resolve_geometry(
-                    config, leaf.route, leaf.n, _density_of(leaf.matrix),
-                    leaf.matrix.dtype.str, precision)
+            # Kernel geometry resolution: only leaves a CUDA kernel will
+            # actually produce carry one -- torch plans (and tiny-n
+            # fallback leaves) keep geometry out of their identity.
+            if config.backend in KERNEL_BACKENDS:
+                for leaf in leaves:
+                    if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
+                            leaf.n >= _KERNEL_FLOOR_N:
+                        leaf.geometry = _resolve_geometry(
+                            config, leaf.route, leaf.n,
+                            _density_of(leaf.matrix),
+                            leaf.matrix.dtype.str, precision)
 
-    buckets: dict[tuple[str, int], list[int]] = {}
-    for j, leaf in enumerate(leaves):
-        buckets.setdefault((leaf.route, leaf.n), []).append(j)
-    cost = sum(_leaf_cost(l.matrix, l.route) for l in leaves)
-    downgrade = None if precision == config.precision \
-        else f"{config.precision}->{precision}"
-    return ExecutionPlan(config=config, batched=batched,
-                         is_complex=is_complex, precision=precision,
-                         entries=entries, leaves=leaves, buckets=buckets,
-                         estimated_steps=cost,
-                         precision_downgrade=downgrade)
+        with span("repro.plan.buckets"):
+            buckets: dict[tuple[str, int], list[int]] = {}
+            for j, leaf in enumerate(leaves):
+                buckets.setdefault((leaf.route, leaf.n), []).append(j)
+            cost = sum(_leaf_cost(l.matrix, l.route) for l in leaves)
+        downgrade = None if precision == config.precision \
+            else f"{config.precision}->{precision}"
+        return ExecutionPlan(config=config, batched=batched,
+                             is_complex=is_complex, precision=precision,
+                             entries=entries, leaves=leaves, buckets=buckets,
+                             estimated_steps=cost,
+                             precision_downgrade=downgrade)

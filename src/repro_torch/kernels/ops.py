@@ -57,6 +57,7 @@ from ..core.ryser import (_final_factor, _small_n, chain_prod,
                           is_complex, nw_base_vector, resolve_device)
 from ..core.sparyser import pack_padded_ccs
 from ..core.stepspace import DEFAULT_GEOMETRY, Geometry
+from ..utils.spans import span
 from .ryser_complex_cuda import (ctas_per_sm_complex, ryser_cuda_call_complex,
                                  ryser_cuda_call_complex_batched)
 from .ryser_cuda import ctas_per_sm, ryser_cuda_call, ryser_cuda_call_batched
@@ -274,28 +275,44 @@ def _reduce_complex(out, xbs, n: int):
 
 
 def _cuda_values(As, *, batched: bool, precision: str, mode: str,
-                 geometry: Geometry):
-    """The body behind both dense entries: (n, n) -> 0-d, (B, n, n) -> (B,);
-    complex input runs the split-plane kernel (window-batched only)."""
-    n = As.shape[-1]
+                 geometry: Geometry, device):
+    """The body behind both dense entries: ``As`` to ``device`` in
+    ``_kernel_dtype``, then (n, n) -> 0-d, (B, n, n) -> (B,); complex
+    input runs the split-plane kernel (window-batched only)."""
+    with span("repro.dispatch.stage"):
+        As = _as_input(As, device)
+        if As.ndim != (3 if batched else 2) or \
+                As.shape[-1] != As.shape[-2]:
+            raise ValueError(
+                f"{'(B, n, n) stack' if batched else 'square matrix'}"
+                f" required, got {tuple(As.shape)}")
+        n = As.shape[-1]
+        if n <= 2:
+            return _small_n(As) if batched else _small_n(As[None])[0]
+        cplx = As.is_complex()
+        staged = prepare_complex(As) if cplx else prepare(As)
     TB, C, Wu, blocks = geometry.kernel_geometry(n)
     geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
                precision=precision)
-    if As.is_complex():
-        Ar_pads, Ai_pads, xbr, xbi, xbs = prepare_complex(As)
+    if cplx:
+        Ar_pads, Ai_pads, xbr, xbi, xbs = staged
+        with span("repro.dispatch.launch"):
+            if batched:
+                out = ryser_cuda_call_complex_batched(Ar_pads, Ai_pads, xbr,
+                                                      xbi, **geo)
+            else:
+                out = ryser_cuda_call_complex(Ar_pads, Ai_pads, xbr, xbi, 0,
+                                              **geo)
+        with span("repro.dispatch.reduce"):
+            return _reduce_complex(out, xbs, n)
+    A_pads, xb_pads, xbs = staged
+    with span("repro.dispatch.launch"):
         if batched:
-            out = ryser_cuda_call_complex_batched(Ar_pads, Ai_pads, xbr, xbi,
-                                                  **geo)
+            out = ryser_cuda_call_batched(A_pads, xb_pads, mode=mode, **geo)
         else:
-            out = ryser_cuda_call_complex(Ar_pads, Ai_pads, xbr, xbi, 0,
-                                          **geo)
-        return _reduce_complex(out, xbs, n)
-    A_pads, xb_pads, xbs = prepare(As)
-    if batched:
-        out = ryser_cuda_call_batched(A_pads, xb_pads, mode=mode, **geo)
-    else:
-        out = ryser_cuda_call(A_pads, xb_pads, 0, mode=mode, **geo)
-    return _reduce_real(out, xbs, n)
+            out = ryser_cuda_call(A_pads, xb_pads, 0, mode=mode, **geo)
+    with span("repro.dispatch.reduce"):
+        return _reduce_real(out, xbs, n)
 
 
 def _cuda_sparse_values(As, rows, vals, *, batched: bool, precision: str,
@@ -469,14 +486,8 @@ def permanent_cuda(A, *, precision: str = "dq_acc", mode: str = "baseline",
     (default: the card) in ``_kernel_dtype(A)``: f32 or f64 for real
     input, complex64 or complex128 for complex input, which runs the
     split-plane kernel in ``batched`` mode."""
-    A = _as_input(A, device)
-    n = A.shape[0]
-    if A.ndim != 2 or A.shape[1] != n:
-        raise ValueError(f"square matrix required, got {tuple(A.shape)}")
-    if n <= 2:
-        return _small_n(A[None])[0]
     return _cuda_values(A, batched=False, precision=precision, mode=mode,
-                        geometry=geometry or DEFAULT_GEOMETRY)
+                        geometry=geometry or DEFAULT_GEOMETRY, device=device)
 
 
 def permanent_cuda_batched(As, *, precision: str = "dq_acc",
@@ -485,13 +496,8 @@ def permanent_cuda_batched(As, *, precision: str = "dq_acc",
     """perms of a (B, n, n) stack via ONE batch-grid kernel launch in
     ``mode`` baseline or batched; a (B,) tensor on ``device`` (default: the
     card) in ``_kernel_dtype(As)``."""
-    As = _as_input(As, device)
-    if As.ndim != 3 or As.shape[1] != As.shape[2]:
-        raise ValueError(f"(B, n, n) stack required, got {tuple(As.shape)}")
-    if As.shape[1] <= 2:
-        return _small_n(As)
     return _cuda_values(As, batched=True, precision=precision, mode=mode,
-                        geometry=geometry or DEFAULT_GEOMETRY)
+                        geometry=geometry or DEFAULT_GEOMETRY, device=device)
 
 
 def _sparse_entry(A, rows, vals, *, batched: bool, precision: str,

@@ -22,10 +22,11 @@ through the torch engine (``--backend torch``), and checkpoints after
 every wave.  One ``[campaign] wave`` line is printed per wave -- its
 slice ids, the wave width W (enough slices to fill the card; 1 on the
 CPU), its kernel milliseconds (CUDA events; ``-`` off the card), host and
-save milliseconds -- AFTER the checkpoint is on disk: a SIGKILL any time
-after the first such line loses at most the wave in flight, and the
-resumed run prints the same ``perm(A) = %+.17e`` as an uninterrupted one,
-on any device.
+save milliseconds, and the host milliseconds of its gather over the mesh
+(``gather_ms``, 0 on one device) -- AFTER the checkpoint is on disk: a
+SIGKILL any time after the first such line loses at most the wave in
+flight, and the resumed run prints the same ``perm(A) = %+.17e`` as an
+uninterrupted one, on any device.
 
 Under ``torchrun`` the waves span the world's ranks (a ("step",) mesh,
 ``launch/mesh.py``; ``--ranks-per-device`` lets several share a card):
@@ -134,6 +135,7 @@ def _run(args, mesh, print) -> int:
               f"launches={wave.launches} kernel_ms={kernel} "
               f"host_ms={wave.host_s * 1e3:.3f} "
               f"save_ms={wave.save_s * 1e3:.3f} "
+              f"gather_ms={wave.gather_s * 1e3:.3f} "
               f"done={state.fraction_done():.4f} "
               f"pending={len(state.pending_slices())} "
               f"t={time.perf_counter() - t0:.2f}s", flush=True)
