@@ -91,11 +91,13 @@ SEED = 20250226
 N_MAIN = 30              # the largest dense leaf the main path serves
 N_BUCKET, B_BUCKET = 22, 16
 N_THRU, B_THRU = 24, 256
-WINDOW_NS = (4, 13, N_BUCKET, N_THRU, N_MAIN, 40, 64)
+# 33 and 38 pad to NPAD 40 (its last 8 rows dropped past n by a select),
+# 41 and 47 to NPAD 48
+WINDOW_NS = (4, 13, N_BUCKET, N_THRU, N_MAIN, 33, 38, 40, 41, 47, 64)
 # the sparse route: n = 32 is its largest leaf under campaign_threshold =
 # 2^34 at degree 7 (cost 32 * 2^31 * 7/32); the buckets are degree 5
 N_SPARSE, SPARSE_DEGREE, BUCKET_DEGREE = 32, 7, 5
-SPARSE_WINDOW_NS = (4, 13, 16, N_BUCKET, N_THRU, N_SPARSE, 40, 64)
+SPARSE_WINDOW_NS = (4, 13, 16, N_BUCKET, N_THRU, N_SPARSE, 40, 47, 64)
 PLAIN_WINDOWS = 8        # the n = 32 plain pass runs in this many slices
 # the campaign route (dense n >= 31 at campaign_threshold = 2^34)
 N_CAMPAIGN, N_CAMPAIGN_CX = 40, 32   # main paths: all-ones real, complex
@@ -253,6 +255,37 @@ def phase_build(smoke: Smoke) -> None:
             print(f"  sass {name}: loop {m['loop']}, {m['rows']:g} rows: "
                   f"{m['counts']}; per row {m['per_row']}; other "
                   f"{m['other']}")
+    smoke.summary["wave_body"] = _wave_body_report(regs)
+
+
+def _wave_body_report(regs: list) -> dict:
+    """Registers, CTAs an SM and waves a permanent of the campaign's wave
+    body at n = 38 (the dense f64 dq_acc instantiation of its NPAD,
+    batched mode) under the default SolverConfig's slice plan, before any
+    widening of short waves."""
+    import torch
+    from repro_torch.core.distributed import even_wave_width
+    from repro_torch.core.planner import SolverConfig
+    from repro_torch.core.stepspace import plan_slices
+    from repro_torch.kernels import ops
+    n, cfg = 38, SolverConfig()
+    ts, cps, C = plan_slices(n, cfg.campaign_slices, 1, cfg.campaign_lanes)
+    TB, _ = ops.wave_geometry(cps, C)
+    npad = -(-n // 8) * 8
+    ctas = ops.wave_ctas_per_sm(n, False, chunks_per_slice=cps, chunk_size=C,
+                                precision="dq_acc")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    width = even_wave_width(ts, max(1, -(-sms * ctas // (cps // TB))))
+    reg = next((r["registers"] for r in regs
+                if (r["kernel"], r["dtype"], r["sched"], r["npad"],
+                    r["prec"]) == ("dense", "f64", False, npad, 2)), None)
+    out = {"n": n, "npad": npad, "registers": reg, "ctas_per_sm": ctas,
+           "TB": TB, "wave_width": width, "waves": -(-ts // width),
+           "slices": ts}
+    print(f"  wave body n={n}: dense f64 dq_acc npad={npad} registers={reg} "
+          f"ctas_per_sm={ctas} (TB={TB}), {out['waves']} waves of {width} "
+          f"slices a permanent ({ts} slices, {sms} SMs)")
+    return out
 
 
 def _sass_mix(build, prec: int = 2) -> dict:
@@ -261,9 +294,10 @@ def _sass_mix(build, prec: int = 2) -> dict:
     Complex body (NPAD 32, dense and sparse instantiation): the innermost
     loop (a backward branch with no other inside it) holding the most
     DMUL, its rows DMUL / 4 (the complex product's four multiplies).  Real
-    body (NPAD 32 and 24, dense and sparse): every innermost loop with 8 or
-    more DMUL -- the modes' step loops, the sparse body's RPAD variants --
-    its rows the DMUL count (one multiply a row); a variant's DADD per row
+    body (NPAD 32 and 24, dense and sparse, and the dense campaign wave
+    body at NPAD 40): every innermost loop with 8 or more DMUL -- the
+    modes' step loops, the sparse body's RPAD variants -- its rows the
+    DMUL count (one multiply a row and step); a variant's DADD per row
     says its RPAD.  ``per_row`` divides each class by the rows."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     out = {}
@@ -274,6 +308,7 @@ def _sass_mix(build, prec: int = 2) -> dict:
     for kernel, obj, fn, sparse, npad, per in (
             ("complex", "ryser_complex", "ryser_cx_kernel", 0, 32, 4),
             ("sparse_cx", "ryser_sparse", "ryser_cx_kernel", 1, 32, 4),
+            ("dense", "ryser_dense", "ryser_kernel", 0, 40, 1),
             ("dense", "ryser_dense", "ryser_kernel", 0, 32, 1),
             ("dense", "ryser_dense", "ryser_kernel", 0, 24, 1),
             ("sparse", "ryser_sparse", "ryser_kernel", 1, 32, 1),
@@ -319,7 +354,7 @@ def _loop_mix(body: str, per: int = 4, min_dmul: int = 0):
 
     def mix(lp):
         ops = ops_in(lp)
-        classes = ("DADD", "DMUL", "DFMA", "LDS", "SHFL")
+        classes = ("DADD", "DMUL", "DFMA", "LDS", "SHFL", "ISETP", "BRA")
         counts = {c: ops.count(c) for c in classes}
         counts["other"] = len(ops) - sum(counts.values())
         rows = counts["DMUL"] / per
@@ -1683,17 +1718,22 @@ def _campaign_main_path(smoke: Smoke, torch, card: dict) -> tuple:
     counts = dict(RC.counters)
     rel = abs(v - exact) / exact
     bound = 2.0 * n * 2.0 ** (n - 1) / (fp64 / 2)
-    others = sum(c for k, c in counts.items() if k != "ryser_dense_scalar")
+    free = counts[RC.FREE_ROWS_COUNTER]
+    others = sum(c for k, c in counts.items()
+                 if k not in ("ryser_dense_scalar", RC.FREE_ROWS_COUNTER))
     print(f"campaign n={n} all-ones: {v:+.17e} exact {exact:+.17e} rel.err "
           f"{rel:.3e}, dispatch {rep.dispatch}, host {wall:.4f} s, device "
           f"{dev:.4f} s, busy share {dev / wall:.3f}, "
           f"{2.0 ** (n - 1) / wall:.4e} Gray steps/s, bound {bound:.4f} s "
           f"({wall / bound:.2f}x), counters {counts}")
     smoke.check(rel <= ONES_BAR and rep.dispatch == [f"campaign(n={n},cuda)"]
-                and counts["ryser_dense_scalar"] > 0 and others == 0,
+                and counts["ryser_dense_scalar"] > 0 and others == 0
+                and free == counts["ryser_dense_scalar"],
                 f"all-ones n={n} through permanent() at the default config "
-                f"runs the campaign route on ryser_dense_scalar only "
-                f"({rep.dispatch}), rel.err {rel:.3e} <= {ONES_BAR:g}")
+                f"runs the campaign route on ryser_dense_scalar only, every "
+                f"wave with branch-free rows ({rep.dispatch}, {free} "
+                f"{RC.FREE_ROWS_COUNTER}), rel.err {rel:.3e} <= "
+                f"{ONES_BAR:g}")
     out = {"n": n, "value": v, "rel_err": rel, "dispatch": rep.dispatch,
            "wall_s": wall, "device_s": dev, "busy_share": dev / wall,
            "gray_steps_per_s": 2.0 ** (n - 1) / wall, "bound_s": bound,
@@ -1962,7 +2002,7 @@ def phase_campaign(smoke: Smoke, torch, card: dict) -> dict:
 # Kernel-entry parity: kernel #1's schedmat mode, f32 input to #1-#8
 # ---------------------------------------------------------------------------
 
-PARITY_WINDOW_NS = tuple(n for n in WINDOW_NS if n <= N_MAIN)
+PARITY_WINDOW_NS = tuple(n for n in WINDOW_NS if n <= 47)
 SCHED_ORACLE_NS = (8, 11, 14)        # schedmat values against the oracle
 F32_NS = (10, 16, 20, 24)            # f32 values against the f64 kernel
 ORACLE_BAR, F32_BAR = 1e-9, 5e-4     # the reference's bars (f64, f32)
@@ -1980,8 +2020,9 @@ def _parity_windows(smoke: Smoke, torch) -> dict:
     """#1 in schedmat mode (f64 and f32) and in baseline and batched mode
     on f32, and #2 on f32, bit for bit with their plain versions on block
     windows (the first and the last, all precisions) at n in
-    PARITY_WINDOW_NS, with the same inputs in both dtypes.  The full grids
-    at n = 30 and 256 x n = 24 are the timing phase's."""
+    PARITY_WINDOW_NS, with the same inputs in both dtypes (above N_MAIN
+    U(0.1, 1) * 2 / n, which keeps every f32 product in range).  The full
+    grids at n = 30 and 256 x n = 24 are the timing phase's."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
     from repro_torch.kernels import ops
     from repro_torch.kernels import ryser_cuda as RC
@@ -1993,7 +2034,9 @@ def _parity_windows(smoke: Smoke, torch) -> dict:
         TB, C, Wu, blocks = geom.kernel_geometry(n)
         nb = min(8, blocks)
         geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=nb)
-        As = torch.as_tensor(rng.uniform(-1, 1, (3, n, n)), device="cuda")
+        A = rng.uniform(-1, 1, (3, n, n)) if n <= N_MAIN else \
+            rng.uniform(0.1, 1, (3, n, n)) * 2 / n
+        As = torch.as_tensor(A, device="cuda")
         for dt in (torch.float64, torch.float32):
             f32 = dt == torch.float32
             A_pads, xb_pads, _ = ops.prepare(As.to(dt))
@@ -2041,8 +2084,8 @@ def _single_windows(smoke: Smoke, torch) -> dict:
     ordered as the main path orders them) and #7/#8 (complex64) bit for
     bit with their plain versions on block windows (the first and the
     last, every precision) and over a B = 3 batch grid, at n in
-    PARITY_WINDOW_NS and 40 (dense) and SPARSE_WINDOW_NS up to 40
-    (sparse; NPAD 40 runs the f32 complex rows branch-free), each
+    PARITY_WINDOW_NS up to N_MAIN and 40 (dense) and SPARSE_WINDOW_NS up
+    to 47 (sparse; NPAD 40-48 run the f32 complex rows branch-free), each
     returning f32 partials.  The full grids of the main path's shapes are
     the timing phase's."""
     from repro_torch.core.stepspace import DEFAULT_GEOMETRY, Geometry
@@ -2051,9 +2094,10 @@ def _single_windows(smoke: Smoke, torch) -> dict:
     rng = np.random.default_rng(SEED + 19)
     err = dict.fromkeys(SINGLE_ROWS, 0.0)
     equal = True
-    cases = [("complex", n) for n in PARITY_WINDOW_NS + (40,)] + \
+    cases = [("complex", n) for n in PARITY_WINDOW_NS
+             if n <= N_MAIN or n == 40] + \
         [(kind, n) for kind in ("sparse", "sparse_complex")
-         for n in SPARSE_WINDOW_NS if n <= 40]
+         for n in SPARSE_WINDOW_NS if n <= 47]
     for kind, n in cases:
         geom = DEFAULT_GEOMETRY if n >= N_BUCKET else Geometry(8, 8, 4)
         TB, C, Wu, blocks = geom.kernel_geometry(n)
@@ -2392,9 +2436,10 @@ def phase_tune(smoke: Smoke, torch, card: dict) -> dict:
                          f"{','.join(TUNE_ROUTES)}: {rc} in {cli_s:.1f} s")
     if rc != 0:
         return {}
-    smoke.check(set(launches) == set(TUNE_ENTRIES),
+    smoke.check(set(launches) == set(TUNE_ENTRIES) | {RC.FREE_ROWS_COUNTER},
                 f"the tune path launched #2, #4, #6 and the campaign wave "
-                f"body #1, and no plain version: {launches}")
+                f"body #1 (its NPAD 40 rows branch-free), and no plain "
+                f"version: {launches}")
     table.save(path)
     print(f"tune results on {card['nvidia_smi']} (dq_acc, CUDA events, "
           f"median of {TUNE_REPEATS} after a warm-up):")
@@ -2487,7 +2532,7 @@ def phase_tune(smoke: Smoke, torch, card: dict) -> dict:
     rel_default["campaign"] = abs(got - want) / abs(want)   # J = |J|
     rel_oracle["campaign"] = abs(got - exact) / exact
     ok &= (spec is not None and spec.geometry == winner
-           and set(launched) == {"ryser_dense_scalar"}
+           and set(launched) == {"ryser_dense_scalar", RC.FREE_ROWS_COUNTER}
            and rel_default["campaign"] <= TUNE_GEOMETRY_BAR
            and rel_oracle["campaign"] <= ORACLE_BAR)
     vals["campaign"] = {"winner": winner.tag(), "launched": launched}
@@ -3173,6 +3218,7 @@ def phase_serve(smoke: Smoke, torch) -> None:
           f"fill_first {fill} (twice the recorded drain's "
           f"{out['fill_first']['scalar']}), campaign {during}")
     ok = (set(launches) <= set(SERVE_ENTRIES) | set(STRAGGLER_ENTRIES)
+          | {RC.FREE_ROWS_COUNTER}
           and all(RC.counters[k] > 0 for k in SERVE_ENTRIES)
           and warm == alone and soaks == recorded
           and fill == out["fill_first"]["scalar"]

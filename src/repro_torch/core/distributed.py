@@ -18,7 +18,8 @@ checkpointed after every wave (``core.resume.JobState``):
   out over the waves that count needs, so the last wave is not a sliver
   (``default_wave_width``); 1 on the CPU.  A card-filling wave shorter
   than ``MIN_WAVE_S`` is mostly launch, copy and save, so the next wave
-  is widened to last about that long (small campaigns, n around 31-34);
+  is widened by a whole number of that width to last at least that long
+  (small campaigns, n around 31-34, and the faster wave bodies);
 * a wave launches once per contiguous run of its slice ids (one run,
   unless a resume left gaps);
 * a failed wave records nothing; its slices stay pending and the next
@@ -363,7 +364,9 @@ def run_campaign(A, *, total_slices: int, chunks_per_slice: int,
                                         save_s=t2 - t1, gather_s=gather_s))
             took = t2 - t0 if secs is None else float(secs.max())
             if widen and took < MIN_WAVE_S:
-                W = math.ceil(W * MIN_WAVE_S / max(took, 1e-4))
+                # a whole number of the first width, which fills the card
+                # once: a wave of k full rounds of CTAs, not k and a sliver
+                W *= math.ceil(MIN_WAVE_S / max(took, 1e-4))
 
         hi, lo = state.reduce()
         return _final_value(A, hi, lo), state

@@ -50,10 +50,15 @@
 // TFLOP/s on the H100 SXM).  What the design
 // does about it: no global memory traffic inside the step loop (A in shared
 // memory, X in registers), each update is one DFMA, and the product runs
-// its rows without a branch, dropping the padded ones by a select
-// (ryser_kernels.cuh::re_chain), so the rows' loads and states overlap the
-// chain.  Not done: the product is one serial DMUL chain; splitting it would
-// change the reference's association order.
+// its rows without a branch up to NPAD 48, dropping the padded ones by a
+// select (ryser_kernels.cuh::re_chain), so the rows' loads and states
+// overlap the chain; one pass over the rows carries two steps' chains
+// (RealForm).  The campaign's wave body (NPAD 40, batched mode) holds
+// 168 registers, 3 CTAs of 128 an SM, with its baseline steps one a pass
+// and its boundary step a branch a row: in the two-chain form throughout
+// it took 198 (2 CTAs), and capped at 168 it spilled.  Not done: a step's
+// product is one serial DMUL chain; splitting it would change the
+// reference's association order.
 
 #include <cstdint>
 #include <cuda_runtime.h>

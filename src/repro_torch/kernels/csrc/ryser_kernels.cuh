@@ -39,13 +39,16 @@
 // past n are dropped by a select, and the compiler issues the loads and
 // states ahead of the chain.  A real row gives the chain one multiply and
 // little else to overlap it, so the real body also takes its inner steps
-// two at a time up to NPAD 32: one pass over the rows carries two
-// independent chains, each step's product and accumulation op for op and
-// in order as before.  Splitting a complex chunk's rows over a lagged
-// thread pair, for 16 warps at 128 registers, costs more in selects,
-// unpaired loads and per-step work than the extra warps win, so a chunk
-// stays on one thread; capping the real body at 128 registers (16 warps)
-// spills.
+// two at a time: one pass over the rows carries two independent chains,
+// each step's product and accumulation op for op and in order as before.
+// The real body runs both forms up to NPAD 48 (RealForm): at NPAD 40, where
+// a branch a row had left compares and selects on every row and step, a
+// launch of the campaign's wave body at n = 38 went from 43.5 to 31.6 ms
+// (PERF.md, the kernel table).  Splitting a complex chunk's rows
+// over a lagged thread pair, for 16 warps at 128 registers, costs more in
+// selects, unpaired loads and per-step work than the extra warps win, so a
+// chunk stays on one thread; capping the real body at 128 registers (16
+// warps) spills.
 //
 // The sparse real body also skips the rows no window state touches.  On a
 // row that none of the kw low columns reaches, D and the mid column are
@@ -71,10 +74,11 @@
 // real body steps its windows' first steps in 64 bits, one window a call
 // of its window loop, and the complex body counts its windows in 64 bits.
 // Of the forms tried on the card these are the ones ptxas compiles without
-// a spill at NPAD 40-48 (the real body at 126-140 registers at NPAD 40,
-// where a pass loop around the 32-bit loop took 166 and ran a campaign
-// 1.8x slower); NPAD <= 32 keeps the 32-bit loop because every change to
-// it moved ptxas there (spills at NPAD 8-24, #5 17% slower).
+// a spill at NPAD 40-48 (with a branch a row the real body took 126-140
+// registers at NPAD 40, where a pass loop around the 32-bit loop took 166
+// and ran a campaign 1.8x slower); NPAD <= 32 keeps the 32-bit loop because
+// every change to it moved ptxas there (spills at NPAD 8-24, #5 17%
+// slower).
 #pragma once
 
 #include <cstdint>
@@ -192,17 +196,46 @@ __device__ __forceinline__ void re_chain(T (&X)[NPAD],
   }
 }
 
-// re_chain for any n, as cx_chain_rows: up to NPAD 32 the rows run
-// branch-free -- all unconditional when n == NPAD, those below NPAD - 8
-// when n > NPAD - 8 (every caller pads to the least multiple of 8 >= n), a
-// select on every row otherwise; above NPAD 32 each row keeps its branch.
-template <typename T, int NPAD, int STATE, int RPAD, int K>
+// How the real chain loops run, fixed at compile time for each
+// instantiation and code path: FREE, the rows without a branch (re_chain's
+// LIVE_FROM forms) or each behind its own; K, the steps of one pass over
+// the rows.  Up to NPAD 48 every loop runs branch-free, the baseline and
+// batched modes two steps a pass (the schedmat mode up to NPAD 32).  The
+// campaign's wave body, the f64 dense body at NPAD 40, is held to 168
+// registers, 3 CTAs of 128 an SM (launch_threads): there its baseline steps
+// run one a pass and its boundary step keeps a branch a row, which frees
+// the registers the batched mode's two chains need (at 168 with both in
+// the two-chain form ptxas spilled 148-180 B).  Above NPAD 48 each row
+// keeps its branch and a pass takes one step (a second chain spilled
+// 600-700 B at NPAD 64).
+template <typename T, int NPAD, bool SPARSE>
+struct RealForm {
+  static constexpr bool wave_body = NPAD == 40 && !SPARSE && sizeof(T) == 8;
+  static constexpr bool free_rows = NPAD <= 48;
+  static constexpr bool free_boundary = free_rows && !wave_body;
+  // the batched mode's window steps a pass
+  static constexpr int window_k = NPAD <= 48 ? 2 : 1;
+  // the baseline mode's steps a pass
+  static constexpr int step_k = NPAD <= 32 || (NPAD <= 48 && !wave_body)
+                                    ? 2 : 1;
+  // the schedmat mode's steps a pass
+  static constexpr int sched_k = NPAD <= 32 ? 2 : 1;
+  // __launch_bounds__' thread count: 65,536 registers over 384 threads
+  // caps the wave body at 168 a thread
+  static constexpr int launch_threads = wave_body ? 384 : kMaxThreads;
+};
+
+// re_chain for any n, as cx_chain_rows: branch-free (FREE), all rows
+// unconditional when n == NPAD, those below NPAD - 8 when n > NPAD - 8
+// (every caller pads to the least multiple of 8 >= n), a select on every
+// row otherwise; else a branch a row.
+template <typename T, int NPAD, int STATE, int RPAD, int K, bool FREE>
 __device__ __forceinline__ void re_chain_rows(T (&X)[NPAD],
                                               const T* const (&src)[K],
                                               const T (&f)[K],
                                               const T* cmc, T cm,
                                               int n, T (&p)[K]) {
-  if constexpr (NPAD > 32)
+  if constexpr (!FREE)
     re_chain<T, NPAD, STATE, RPAD, K, 0, true>(X, src, f, cmc, cm, n, p);
   else if (n == NPAD)
     re_chain<T, NPAD, STATE, RPAD, K, NPAD, false>(X, src, f, cmc, cm, n, p);
@@ -214,7 +247,7 @@ __device__ __forceinline__ void re_chain_rows(T (&X)[NPAD],
 }
 
 // K window steps idx.. from their states into (s_acc, c_acc), in order.
-template <typename T, int NPAD, int P, int STATE, int RPAD, int K>
+template <typename T, int NPAD, int P, int STATE, int RPAD, int K, bool FREE>
 __device__ __forceinline__ void window_steps(T (&X)[NPAD],
                                              const T* Ds, int idx,
                                              const T* col_mid, T cm,
@@ -227,14 +260,14 @@ __device__ __forceinline__ void window_steps(T (&X)[NPAD],
     src[k] = Ds + (idx + k) * NPAD;
     f[k] = 0;
   }
-  re_chain_rows<T, NPAD, STATE, RPAD, K>(X, src, f, col_mid, cm, n, p);
+  re_chain_rows<T, NPAD, STATE, RPAD, K, FREE>(X, src, f, col_mid, cm, n, p);
 #pragma unroll
   for (int k = 0; k < K; ++k)
     accum_add<P>(s_acc, c_acc, ((idx + k + 1) & 1) ? -p[k] : p[k]);
 }
 
 // K baseline steps w.. (X advanced in place) into (s_acc, c_acc), in order.
-template <typename T, int NPAD, int P, int K>
+template <typename T, int NPAD, int P, int K, bool FREE>
 __device__ __forceinline__ void baseline_steps(T (&X)[NPAD],
                                                const T* As, int w,
                                                int kw, T mid_flip, int n,
@@ -250,28 +283,31 @@ __device__ __forceinline__ void baseline_steps(T (&X)[NPAD],
                         : mid_flip;
     src[k] = As + j * NPAD;
   }
-  re_chain_rows<T, NPAD, RE_STEP, NPAD, K>(X, src, f, nullptr, T(0), n, p);
+  re_chain_rows<T, NPAD, RE_STEP, NPAD, K, FREE>(X, src, f, nullptr, T(0), n,
+                                                 p);
 #pragma unroll
   for (int k = 0; k < K; ++k)
     accum_add<P>(s_acc, c_acc, ((w + k) & 1) ? -p[k] : p[k]);
 }
 
 // The M windows of one chunk from X (its start state) into (s_acc, c_acc),
-// the inner steps K at a time: two up to NPAD 32, so each pass over the
-// rows issues two independent product chains; one above, where a second
-// chain spills (600-700 B at NPAD 64).  Rows from RPAD on are untouched by
-// D and col_mid (RPAD = NPAD unless the sparse body found fewer rows in its
-// low columns): they neither take the window states nor advance with them.
+// each mode's inner steps in the form RealForm gives them: with K = 2 one
+// pass over the rows issues two independent product chains.  Rows from
+// RPAD on are untouched by D and col_mid (RPAD = NPAD unless the sparse
+// body found fewer rows in its low columns): they neither take the window
+// states nor advance with them.
 template <typename T, int NPAD, int P, bool SPARSE, int RPAD>
 __device__ __forceinline__ void real_windows(
     T (&X)[NPAD], const T* As, const T* Ds,
     const T* col_mid, uint64_t start, int M, int Wu_log2, int n,
     bool batched, T& s_acc, T& c_acc) {
+  using F = RealForm<T, NPAD, SPARSE>;
+  constexpr bool WF = F::free_rows;
+  constexpr int KS = F::step_k;
   const int Wu = 1 << Wu_log2;
   const int kw = Wu_log2;
   const int mid_idx = Wu / 2 - 1;
   const uint64_t space = 1ull << (n - 1);
-  constexpr int K = NPAD <= 32 ? 2 : 1;
   for (int m = 0; m < M; ++m) {
     if constexpr (SPARSE) {
       // With the mode fixed at compile time the compiler hoists the
@@ -285,42 +321,41 @@ __device__ __forceinline__ void real_windows(
     if (!batched) {
       const T mid_flip = T(1) - T(2) * bitk;
       int w = 1;
-      for (; w + K - 1 < Wu; w += K)
-        baseline_steps<T, NPAD, P, K>(X, As, w, kw, mid_flip, n, s_acc,
-                                      c_acc);
-      if constexpr (K == 2)     // Wu - 1 steps: one is left
-        baseline_steps<T, NPAD, P, 1>(X, As, w, kw, mid_flip, n, s_acc,
-                                      c_acc);
+      for (; w + KS - 1 < Wu; w += KS)
+        baseline_steps<T, NPAD, P, KS, WF>(X, As, w, kw, mid_flip, n, s_acc,
+                                           c_acc);
+      if constexpr (KS == 2)    // Wu - 1 steps: one is left
+        baseline_steps<T, NPAD, P, 1, WF>(X, As, w, kw, mid_flip, n, s_acc,
+                                          c_acc);
     } else {
       // states (X + D[:, idx]) + corr, corr = col_mid * (-2 * bitk) from the
       // mid step on; X itself is advanced once per window
       const T cm = T(-2) * bitk;
-      if constexpr (K == 1) {
-        // one loop over the steps: split in two as below, the sparse
-        // NPAD 40-64 instantiations took 43-74 more registers and spilled
-        // at NPAD 56-64
+      if constexpr (F::window_k == 1) {
+        // one loop over the steps (NPAD 56-64): split in two as below, the
+        // sparse instantiations took 43-74 more registers and spilled
         for (int idx = 0; idx < Wu - 1; ++idx) {
           if (idx >= mid_idx)
-            window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 1>(
+            window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 1, WF>(
                 X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
           else
-            window_steps<T, NPAD, P, RE_WINDOW, RPAD, 1>(X, Ds, idx, col_mid,
-                                                      cm, n, s_acc, c_acc);
+            window_steps<T, NPAD, P, RE_WINDOW, RPAD, 1, WF>(
+                X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
         }
       } else {
         int idx = 0;
         for (; idx + 1 < mid_idx; idx += 2)
-          window_steps<T, NPAD, P, RE_WINDOW, RPAD, 2>(X, Ds, idx, col_mid, cm,
-                                                    n, s_acc, c_acc);
+          window_steps<T, NPAD, P, RE_WINDOW, RPAD, 2, WF>(
+              X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
         if (idx < mid_idx)
-          window_steps<T, NPAD, P, RE_WINDOW, RPAD, 1>(X, Ds, idx++, col_mid, cm,
-                                                    n, s_acc, c_acc);
+          window_steps<T, NPAD, P, RE_WINDOW, RPAD, 1, WF>(
+              X, Ds, idx++, col_mid, cm, n, s_acc, c_acc);
         for (; idx + 1 < Wu - 1; idx += 2)
-          window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 2>(X, Ds, idx, col_mid,
-                                                         cm, n, s_acc, c_acc);
+          window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 2, WF>(
+              X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
         if (idx < Wu - 1)
-          window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 1>(X, Ds, idx, col_mid,
-                                                         cm, n, s_acc, c_acc);
+          window_steps<T, NPAD, P, RE_WINDOW_CORR, RPAD, 1, WF>(
+              X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
       }
       const T* Dl = Ds + (Wu - 2) * NPAD;
 #pragma unroll
@@ -344,8 +379,8 @@ __device__ __forceinline__ void real_windows(
     // 174 registers at NPAD 32 (8 warps/SM) and spills at NPAD 24 and 64
     const T* none[1] = {nullptr};
     T p[1];
-    re_chain_rows<T, NPAD, RE_X, NPAD, 1>(X, none, {T(0)}, nullptr, T(0), n,
-                                          p);
+    re_chain_rows<T, NPAD, RE_X, NPAD, 1, F::free_boundary>(
+        X, none, {T(0)}, nullptr, T(0), n, p);
     accum_add<P>(s_acc, c_acc, p[0] * live);
   }
 }
@@ -354,49 +389,49 @@ __device__ __forceinline__ void real_windows(
 // arm): an inner step adds its signed schedule column C0[:, idx] (Ds, from
 // the wrapper's A @ Sel) to X in place, the mid step also col_mid * cm with
 // cm = -2 bitk, then takes the product; the inner steps run two at a time
-// up to NPAD 32 (the mid step alone), as the baseline mode's do, and one
-// at a time in one loop above, as the batched mode's do there (split
-// around the mid step, NPAD 40-48 took 236 registers and spilled).  The
-// boundary step is real_windows' own, written out again here so that the
-// baseline and batched modes' window loop stays the code it was.
+// up to NPAD 32 (the mid step alone) and one at a time in one loop above
+// (split around the mid step, NPAD 40-48 took 236 registers and spilled),
+// their rows branch-free up to NPAD 48.  The boundary step is
+// real_windows' own, written out again here so that the baseline and
+// batched modes' window loop stays the code it was.
 template <typename T, int NPAD, int P>
 __device__ __forceinline__ void sched_windows(
     T (&X)[NPAD], const T* As, const T* Ds, const T* col_mid, uint64_t start,
     int M, int Wu_log2, int n, T& s_acc, T& c_acc) {
+  using F = RealForm<T, NPAD, false>;
+  constexpr bool CF = F::free_rows;
   const int Wu = 1 << Wu_log2;
   const int kw = Wu_log2;
   const int mid_idx = Wu / 2 - 1;
   const uint64_t space = 1ull << (n - 1);
-  constexpr int K = NPAD <= 32 ? 2 : 1;
   for (int m = 0; m < M; ++m) {
     const uint64_t macro = start + ((uint64_t)m << Wu_log2);
     const T cm = T(-2) * (T)((macro >> kw) & 1ull);
-    if constexpr (K == 1) {
+    if constexpr (F::sched_k == 1) {
       for (int idx = 0; idx < Wu - 1; ++idx) {
         if (idx == mid_idx)
-          window_steps<T, NPAD, P, RE_SCHED_MID, NPAD, 1>(X, Ds, idx, col_mid,
-                                                          cm, n, s_acc,
-                                                          c_acc);
+          window_steps<T, NPAD, P, RE_SCHED_MID, NPAD, 1, CF>(
+              X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
         else
-          window_steps<T, NPAD, P, RE_SCHED, NPAD, 1>(X, Ds, idx, col_mid,
-                                                      cm, n, s_acc, c_acc);
+          window_steps<T, NPAD, P, RE_SCHED, NPAD, 1, CF>(
+              X, Ds, idx, col_mid, cm, n, s_acc, c_acc);
       }
     } else {
       int idx = 0;
       for (; idx + 1 < mid_idx; idx += 2)
-        window_steps<T, NPAD, P, RE_SCHED, NPAD, 2>(X, Ds, idx, col_mid, cm,
-                                                    n, s_acc, c_acc);
+        window_steps<T, NPAD, P, RE_SCHED, NPAD, 2, CF>(X, Ds, idx, col_mid,
+                                                        cm, n, s_acc, c_acc);
       if (idx < mid_idx)
-        window_steps<T, NPAD, P, RE_SCHED, NPAD, 1>(X, Ds, idx++, col_mid,
-                                                    cm, n, s_acc, c_acc);
-      window_steps<T, NPAD, P, RE_SCHED_MID, NPAD, 1>(X, Ds, idx++, col_mid,
-                                                      cm, n, s_acc, c_acc);
+        window_steps<T, NPAD, P, RE_SCHED, NPAD, 1, CF>(X, Ds, idx++, col_mid,
+                                                        cm, n, s_acc, c_acc);
+      window_steps<T, NPAD, P, RE_SCHED_MID, NPAD, 1, CF>(
+          X, Ds, idx++, col_mid, cm, n, s_acc, c_acc);
       for (; idx + 1 < Wu - 1; idx += 2)
-        window_steps<T, NPAD, P, RE_SCHED, NPAD, 2>(X, Ds, idx, col_mid, cm,
-                                                    n, s_acc, c_acc);
+        window_steps<T, NPAD, P, RE_SCHED, NPAD, 2, CF>(X, Ds, idx, col_mid,
+                                                        cm, n, s_acc, c_acc);
       if (idx < Wu - 1)
-        window_steps<T, NPAD, P, RE_SCHED, NPAD, 1>(X, Ds, idx, col_mid, cm,
-                                                    n, s_acc, c_acc);
+        window_steps<T, NPAD, P, RE_SCHED, NPAD, 1, CF>(X, Ds, idx, col_mid,
+                                                        cm, n, s_acc, c_acc);
     }
 
     // ---- boundary step w = Wu: per-lane column jb, no sign on the term ----
@@ -411,8 +446,8 @@ __device__ __forceinline__ void sched_windows(
     for (int i = 0; i < NPAD; ++i) X[i] = fma_rn(colb[i], f, X[i]);  // torchlint: disable=PC003 exact: f is 0 or +-1
     const T* none[1] = {nullptr};
     T p[1];
-    re_chain_rows<T, NPAD, RE_X, NPAD, 1>(X, none, {T(0)}, nullptr, T(0), n,
-                                          p);
+    re_chain_rows<T, NPAD, RE_X, NPAD, 1, CF>(X, none, {T(0)}, nullptr, T(0),
+                                              n, p);
     accum_add<P>(s_acc, c_acc, p[0] * live);
   }
 }
@@ -444,7 +479,7 @@ __device__ __forceinline__ void sparse_windows(
 // other instantiations keep their code; mode picks baseline or batched.
 template <int NPAD, int P, bool SPARSE, typename T = double,
           bool SCHED = false>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(RealForm<T, NPAD, SPARSE>::launch_threads)
 ryser_kernel(const T* __restrict__ A, const int* __restrict__ rows,
              const T* __restrict__ vals, const T* __restrict__ xb,
              const T* __restrict__ c0, T* __restrict__ out,

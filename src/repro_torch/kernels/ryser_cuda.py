@@ -25,7 +25,10 @@ CUDA tensor it launches the kernel or raises; a failed build or launch
 propagates.  ``counters`` counts kernel launches per entry and plain
 calls, so a run can show which path served it; the scalar entry's
 schedmat launches count apart (``ryser_dense_scalar_schedmat``,
-``..._f32_schedmat``), as they run an instantiation of their own.
+``..._f32_schedmat``), as they run an instantiation of their own.  Every
+launch of either entry at NPAD 40-48, where the body's rows run without a
+branch (``ryser_kernels.cuh::RealForm``), counts once more under
+``ryser_dense_free_rows``: a campaign's waves at n = 33-48 show there.
 """
 
 from __future__ import annotations
@@ -40,19 +43,24 @@ from ..core import gray as G
 
 __all__ = ["ryser_cuda_call", "ryser_cuda_call_batched",
            "block_partials_plain", "counters", "reset_counters",
-           "ctas_per_sm", "sched_columns", "PRECISION_CODES"]
+           "ctas_per_sm", "sched_columns", "PRECISION_CODES",
+           "FREE_ROWS_COUNTER", "FREE_ROWS_NPADS"]
 
 # _accum_add's modes; qq has no twofloat product in-kernel and runs as dd
 PRECISION_CODES = {"dd": 0, "qq": 0, "kahan": 1, "dq_acc": 2, "dq_fast": 3}
 _MODE_CODES = {"baseline": 0, "batched": 1, "schedmat": 2}
 _BATCH_MODES = ("baseline", "batched")   # one schedule input for the grid
 _DTYPES = (torch.float64, torch.float32)
+# the padded sizes above 32 whose real dense rows run branch-free, and the
+# counter of their launches (both entries, every mode and dtype)
+FREE_ROWS_NPADS = (40, 48)
+FREE_ROWS_COUNTER = "ryser_dense_free_rows"
 
 # one dict for every entry of the port, so one reset covers them all
 counters = {"ryser_dense_scalar": 0, "ryser_dense_batched": 0,
             "ryser_dense_scalar_f32": 0, "ryser_dense_batched_f32": 0,
             "ryser_dense_scalar_schedmat": 0,
-            "ryser_dense_scalar_f32_schedmat": 0,
+            "ryser_dense_scalar_f32_schedmat": 0, FREE_ROWS_COUNTER: 0,
             "block_partials_plain": 0, "ryser_complex_scalar": 0,
             "ryser_complex_batched": 0, "ryser_complex_scalar_f32": 0,
             "ryser_complex_batched_f32": 0, "block_partials_plain_complex": 0,
@@ -420,6 +428,13 @@ def _launch(entry: str, A, xb, out, *args, counter: str | None = None) -> None:
     counters[counter or entry] += 1
 
 
+def _count_free_rows(A_pads) -> None:
+    """Count a dense launch again under FREE_ROWS_COUNTER when its NPAD
+    runs the rows branch-free above 32."""
+    if A_pads.shape[-1] in FREE_ROWS_NPADS:
+        counters[FREE_ROWS_COUNTER] += 1
+
+
 def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
                     TB: int, C: int, Wu: int, num_blocks: int,
                     precision: str = "dq_acc",
@@ -450,6 +465,7 @@ def ryser_cuda_call(A_pad, x_base_pad, dev_chunk_base: int, *, n: int,
             int(math.log2(C)), int(math.log2(Wu)), num_blocks,
             PRECISION_CODES[precision], _MODE_CODES[mode],
             counter=f"{entry}_schedmat" if mode == "schedmat" else None)
+    _count_free_rows(A_pad)
     return out
 
 
@@ -482,4 +498,5 @@ def ryser_cuda_call_batched(A_pads, x_base_pads, *, n: int, TB: int, C: int,
             B, n, A_pads.shape[1], TB, int(math.log2(C)),
             int(math.log2(Wu)), num_blocks, PRECISION_CODES[precision],
             _MODE_CODES[mode])
+    _count_free_rows(A_pads)
     return out

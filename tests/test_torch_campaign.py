@@ -341,6 +341,25 @@ def test_short_default_waves_widen(monkeypatch):
     assert np.array_equal(got.hi, want.hi) and np.array_equal(got.lo, want.lo)
 
 
+def test_widened_waves_are_whole_multiples_of_the_first(monkeypatch):
+    """A widened wave is a whole number of the first (card-filling) width,
+    so it runs whole rounds of CTAs; the JobState stays the W = 1 one."""
+    A = _matrix(10, 13)
+    ts, cps, C = plan_slices(10, 64, 1, 2)
+    body = dict(total_slices=ts, chunks_per_slice=cps, chunk_size=C,
+                device="cpu")
+    _, want = D.run_campaign(A, wave_width=1, **body)
+    monkeypatch.setattr(D, "default_wave_width", lambda *a, **k: 3)
+    monkeypatch.setattr(D, "MIN_WAVE_S", 60.0)
+    waves = []
+    _, got = D.run_campaign(A, progress_cb=lambda st, w: waves.append(w),
+                            **body)
+    assert waves[0].width == 3 and waves[1].width > 3
+    assert all(w.width % 3 == 0 for w in waves)
+    assert sum(len(w.ids) for w in waves) == ts
+    assert np.array_equal(got.hi, want.hi) and np.array_equal(got.lo, want.lo)
+
+
 @pytest.mark.parametrize("cplx", [False, True])
 @pytest.mark.parametrize("backend", ["cuda", "torch"])
 def test_wave_width_never_changes_the_job_state(backend, cplx):

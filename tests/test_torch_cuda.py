@@ -43,7 +43,7 @@ def card():
 
 
 @pytest.mark.parametrize("mode", ["baseline", "batched"])
-@pytest.mark.parametrize("n", [5, 13, 30, 64])
+@pytest.mark.parametrize("n", [5, 13, 30, 33, 38, 40, 47, 64])
 def test_kernel_matches_plain_on_card(card, n, mode):
     As = torch.as_tensor(np.random.default_rng(n).uniform(-1, 1, (2, n, n)),
                          device=card)

@@ -57,8 +57,8 @@ def test_loop_mix_counts_the_innermost_hot_loop():
     assert mix["loop"] == ["0x10", "0xb0"]
     assert mix["rows"] == 1
     assert mix["counts"] == {"DADD": 2, "DMUL": 4, "DFMA": 0, "LDS": 2,
-                             "SHFL": 1, "other": 2}
-    assert mix["other"] == {"ISETP": 1, "BRA": 1}
+                             "SHFL": 1, "ISETP": 1, "BRA": 1, "other": 0}
+    assert mix["other"] == {}
 
 
 def test_loop_mix_without_a_loop():
@@ -82,7 +82,8 @@ def test_loop_mix_lists_every_real_loop():
     assert [m["rows"] for m in mixes] == [2, 2]
     assert mixes[0]["per_row"]["DADD"] == 0.5
     assert mixes[1]["per_row"]["DADD"] == 1.0
-    assert mixes[0]["other"] == {"FSEL": 1, "BRA": 1}
+    assert mixes[0]["counts"]["BRA"] == 1
+    assert mixes[0]["other"] == {"FSEL": 1}
 
 
 @pytest.mark.parametrize("n, R, kw", [(4, 4, 2), (13, 5, 2), (22, 12, 4),
