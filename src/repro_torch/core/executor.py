@@ -266,10 +266,12 @@ class CudaBackend(TorchBackend):
                device=None, ctx=None):
         if self._kernel_ok(M.shape[-1]):
             from ..kernels import ops as K
-            return _scalar(K.sparse_value_cuda(M, *S.padded_ccs(M),
-                                               precision=precision,
-                                               geometry=geometry,
-                                               device=device))
+            with span("repro.dispatch.sparse.ccs"):
+                ccs = S.padded_ccs(M)
+            v = K.sparse_value_cuda(M, *ccs, precision=precision,
+                                    geometry=geometry, device=device)
+            with span("repro.dispatch.copy"):
+                return _scalar(v)
         return super().sparse(M, precision=precision, num_chunks=num_chunks,
                               device=device)
 
@@ -287,9 +289,14 @@ class CudaBackend(TorchBackend):
                      device=None, ctx=None):
         if self._kernel_ok(stack.shape[-1]):
             from ..kernels import ops as K
-            return _host(K.sparse_batched_values_cuda(
-                stack, *S.padded_ccs(stack), precision=precision,
-                geometry=geometry, device=device))
+            with span("repro.dispatch.sparse.ccs"):
+                ccs = S.padded_ccs(stack)
+            vals = K.sparse_batched_values_cuda(stack, *ccs,
+                                                precision=precision,
+                                                geometry=geometry,
+                                                device=device)
+            with span("repro.dispatch.copy"):
+                return _host(vals)
         return None                  # tiny bucket: torch fallback, tagged
 
     def value_backend(self, route, n, *, batched, ctx=None, device=None):

@@ -220,7 +220,9 @@ def prepare_sparse(As, rows, vals, Wu: int):
     one = As.ndim == 2
     if one:
         As, rows, vals = As[None], rows[None], vals[None]
-    As, rows, vals = order_sparse_leaves(As, rows, vals, int(math.log2(Wu)))
+    with span("repro.dispatch.sparse.order"):
+        As, rows, vals = order_sparse_leaves(As, rows, vals,
+                                             int(math.log2(Wu)))
     if one:
         As, rows, vals = As[0], rows[0], vals[0]
     A_pads, xb_pads, xbs = prepare(As)
@@ -315,33 +317,57 @@ def _cuda_values(As, *, batched: bool, precision: str, mode: str,
         return _reduce_real(out, xbs, n)
 
 
-def _cuda_sparse_values(As, rows, vals, *, batched: bool, precision: str,
-                        geometry: Geometry):
-    """The sparse arm: ``As`` (n, n) / (B, n, n) is the dense form (init,
-    NW base vectors, boundary column), ``rows`` (int32) / ``vals`` the
-    (..., n, maxdeg) padded CCS arrays driving the window states.  Real
-    input is ordered (``prepare_sparse``) and launches the real sparse
-    kernel, complex the split-plane one as it comes."""
-    n = As.shape[-1]
-    TB, C, Wu, blocks = geometry.kernel_geometry(n)
+def _cuda_sparse_values(A, rows, vals, *, batched: bool, precision: str,
+                        geometry: Geometry, device):
+    """The body behind both sparse entries: the dense form(s) ``A`` (init,
+    NW base vectors, boundary column) and the (..., n, maxdeg) padded CCS
+    arrays driving the window states to ``device`` (the values'
+    ``_kernel_dtype`` for both, int32 rows), then (n, n) -> 0-d,
+    (B, n, n) -> (B,).  Real input is ordered (``prepare_sparse``) and
+    launches the real sparse kernel, complex the split-plane one as it
+    comes."""
+    with span("repro.dispatch.stage"):
+        device = resolve_device(device)
+        dt = _kernel_dtype(vals)
+        As = _as_input(A, device, dt)
+        rows = torch.as_tensor(rows, dtype=torch.int32, device=device)
+        vals = _as_input(vals, device, dt)
+        if As.ndim != (3 if batched else 2) or \
+                As.shape[-1] != As.shape[-2]:
+            raise ValueError(
+                f"{'(B, n, n) stack' if batched else 'square matrix'}"
+                f" required, got {tuple(As.shape)}")
+        n = As.shape[-1]
+        if n <= 2:
+            return _small_n(As) if batched else _small_n(As[None])[0]
+        TB, C, Wu, blocks = geometry.kernel_geometry(n)
+        cplx = As.is_complex()
+        if cplx:
+            Ar_pads, Ai_pads, xbr, xbi, xbs = prepare_complex(As)
+            planes = (Ar_pads, Ai_pads, rows, vals.real.contiguous(),
+                      vals.imag.contiguous(), xbr, xbi)
+        else:
+            A_pads, rows, vals, xb_pads, xbs = prepare_sparse(As, rows, vals,
+                                                              Wu)
     geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks,
                precision=precision)
-    if As.is_complex():
-        Ar_pads, Ai_pads, xbr, xbi, xbs = prepare_complex(As)
-        planes = (Ar_pads, Ai_pads, rows, vals.real.contiguous(),
-                  vals.imag.contiguous(), xbr, xbi)
+    if cplx:
+        with span("repro.dispatch.launch"):
+            if batched:
+                out = ryser_sparse_cuda_call_complex_batched(*planes, **geo)
+            else:
+                out = ryser_sparse_cuda_call_complex(*planes, 0, **geo)
+        with span("repro.dispatch.reduce"):
+            return _reduce_complex(out, xbs, n)
+    with span("repro.dispatch.launch"):
         if batched:
-            out = ryser_sparse_cuda_call_complex_batched(*planes, **geo)
+            out = ryser_sparse_cuda_call_batched(A_pads, rows, vals, xb_pads,
+                                                 **geo)
         else:
-            out = ryser_sparse_cuda_call_complex(*planes, 0, **geo)
-        return _reduce_complex(out, xbs, n)
-    A_pads, rows, vals, xb_pads, xbs = prepare_sparse(As, rows, vals, Wu)
-    if batched:
-        out = ryser_sparse_cuda_call_batched(A_pads, rows, vals, xb_pads,
-                                             **geo)
-    else:
-        out = ryser_sparse_cuda_call(A_pads, rows, vals, xb_pads, 0, **geo)
-    return _reduce_real(out, xbs, n)
+            out = ryser_sparse_cuda_call(A_pads, rows, vals, xb_pads, 0,
+                                         **geo)
+    with span("repro.dispatch.reduce"):
+        return _reduce_real(out, xbs, n)
 
 
 def block_partials_cuda(A, *, dev_chunk_base: int = 0,
@@ -500,34 +526,16 @@ def permanent_cuda_batched(As, *, precision: str = "dq_acc",
                         geometry=geometry or DEFAULT_GEOMETRY, device=device)
 
 
-def _sparse_entry(A, rows, vals, *, batched: bool, precision: str,
-                  geometry: Geometry | None, device):
-    """The dense form(s) and padded CCS arrays to the card (the values'
-    ``_kernel_dtype`` for both, int32 rows), then the scalar or batched
-    entry: (n, n) -> 0-d, (B, n, n) -> (B,)."""
-    device = resolve_device(device)
-    dt = _kernel_dtype(vals)
-    As = _as_input(A, device, dt)
-    rows = torch.as_tensor(rows, dtype=torch.int32, device=device)
-    vals = _as_input(vals, device, dt)
-    if As.ndim != (3 if batched else 2) or As.shape[-1] != As.shape[-2]:
-        raise ValueError(f"{'(B, n, n) stack' if batched else 'square matrix'}"
-                         f" required, got {tuple(As.shape)}")
-    if As.shape[-1] <= 2:
-        return _small_n(As) if batched else _small_n(As[None])[0]
-    return _cuda_sparse_values(As, rows, vals, batched=batched,
-                               precision=precision,
-                               geometry=geometry or DEFAULT_GEOMETRY)
-
-
 def sparse_value_cuda(A, rows, vals, *, precision: str = "dq_acc",
                       geometry: Geometry | None = None, device=None):
     """perm of one matrix via the scalar SpaRyser entry from its dense form
     ``A`` (init, NW base vector, boundary column) and its (n, maxdeg)
     padded CCS arrays (window states); a 0-d tensor in the values'
     ``_kernel_dtype``."""
-    return _sparse_entry(A, rows, vals, batched=False, precision=precision,
-                         geometry=geometry, device=device)
+    return _cuda_sparse_values(A, rows, vals, batched=False,
+                               precision=precision,
+                               geometry=geometry or DEFAULT_GEOMETRY,
+                               device=device)
 
 
 def sparse_batched_values_cuda(A_stack, rows_stack, vals_stack, *,
@@ -537,9 +545,10 @@ def sparse_batched_values_cuda(A_stack, rows_stack, vals_stack, *,
     """(B,) sparse kernel values of a packed padded-CCS stack
     (``sparyser.pack_padded_ccs`` or ``sparyser.padded_ccs``) in ONE
     batch-grid launch."""
-    return _sparse_entry(A_stack, rows_stack, vals_stack, batched=True,
-                         precision=precision, geometry=geometry,
-                         device=device)
+    return _cuda_sparse_values(A_stack, rows_stack, vals_stack,
+                               batched=True, precision=precision,
+                               geometry=geometry or DEFAULT_GEOMETRY,
+                               device=device)
 
 
 def permanent_cuda_sparse(sp, *, precision: str = "dq_acc",

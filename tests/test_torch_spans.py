@@ -7,7 +7,10 @@ without the check.  Under ``torch.profiler`` the same paths record the
 documented spans, each under the span ``PERF.md`` nests it in, a plan's
 as many for 8 matrices as for 64.  A world of two gloo ranks records the
 mesh's gather and broadcast and each wave's ``gather_s``; one device
-reads 0.0, and the campaign CLI prints it as ``gather_ms=``."""
+reads 0.0, and the campaign CLI prints it as ``gather_ms=``.  A sparse leaf
+and a sparse bucket add the CCS build and the leaf ordering to the
+dispatch's spans, and without a profiler keep the bits of the steps
+they took before they had spans."""
 
 import collections
 import os
@@ -20,6 +23,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import PermanentSolver, SolverConfig  # noqa: E402
 from repro_torch.core import distributed as D  # noqa: E402
+from repro_torch.core import sparyser as S  # noqa: E402
+from repro_torch.core.stepspace import DEFAULT_GEOMETRY  # noqa: E402
+from repro_torch.examples.sparse_matchings import circulant_band  # noqa: E402
+from repro_torch.kernels import ops as K  # noqa: E402
+from repro_torch.kernels.ryser_sparse_cuda import (  # noqa: E402
+    ryser_sparse_cuda_call, ryser_sparse_cuda_call_batched)
 from repro_torch.core.stepspace import plan_slices  # noqa: E402
 from repro_torch.launch import mesh as M  # noqa: E402
 from repro_torch.utils.spans import span  # noqa: E402
@@ -35,6 +44,8 @@ DISPATCH = {("repro.dispatch", None): 1,
             ("repro.dispatch.launch", "repro.dispatch"): 1,
             ("repro.dispatch.reduce", "repro.dispatch"): 1,
             ("repro.dispatch.copy", "repro.dispatch"): 1}
+SPARSE = {("repro.dispatch.sparse.ccs", "repro.dispatch"): 1,
+          ("repro.dispatch.sparse.order", "repro.dispatch.stage"): 1}
 
 
 def _matrix(n: int, seed: int) -> np.ndarray:
@@ -55,6 +66,46 @@ def _dense():
 def _bucket():
     solver = PermanentSolver(SolverConfig(device="cpu"))
     return solver.execute(solver.plan_batch(_stack(64, 6, 2, True)))
+
+
+def _bands(B: int, n: int = 18, degree: int = 5, seed: int = 4):
+    """(B, n, n) circulant bands with U(0, 1) weights, rows and columns
+    relabelled: density 5/18, minimum degree 5, one whole sparse leaf
+    each."""
+    rng = np.random.default_rng(seed)
+    band = circulant_band(n, degree)
+    return np.stack([(band * rng.uniform(0, 1, (n, n)))
+                     [rng.permutation(n)][:, rng.permutation(n)]
+                     for _ in range(B)])
+
+
+def _sparse_leaf():
+    solver = PermanentSolver(SolverConfig(device="cpu"))
+    return solver.execute(solver.plan(_bands(1)[0]))
+
+
+def _sparse_bucket():
+    solver = PermanentSolver(SolverConfig(device="cpu"))
+    return solver.execute(solver.plan_batch(_bands(6)))
+
+
+def _parent_sparse(As, *, batched: bool):
+    """The sparse arm's values by the steps it took before its spans:
+    padded CCS, upload, ordering and padding, the kernel entry (its plain
+    version here), the real epilogue."""
+    rows, vals = S.padded_ccs(As)
+    As, rows, vals = (torch.as_tensor(As), torch.as_tensor(rows),
+                      torch.as_tensor(vals))
+    n = As.shape[-1]
+    TB, C, Wu, blocks = DEFAULT_GEOMETRY.kernel_geometry(n)
+    geo = dict(n=n, TB=TB, C=C, Wu=Wu, num_blocks=blocks, precision="dq_acc")
+    A_pads, rows, vals, xb_pads, xbs = K.prepare_sparse(As, rows, vals, Wu)
+    if batched:
+        out = ryser_sparse_cuda_call_batched(A_pads, rows, vals, xb_pads,
+                                             **geo)
+    else:
+        out = ryser_sparse_cuda_call(A_pads, rows, vals, xb_pads, 0, **geo)
+    return K._reduce_real(out, xbs, n).numpy()
 
 
 def _campaign(path: str, mesh=None):
@@ -99,6 +150,29 @@ def test_off_path_builds_no_record_function(monkeypatch, tmp_path):
     got = (_dense(), _bucket(), _campaign(str(tmp_path / "b.npz"))[0])
     assert got[0] == want[0] and got[2] == want[2]
     np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_sparse_arm_off_builds_no_record_function_and_keeps_its_bits(
+        monkeypatch):
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", _refuse)
+    leaf, bucket = _sparse_leaf(), _sparse_bucket()
+    assert leaf == _parent_sparse(_bands(1)[0], batched=False)
+    np.testing.assert_array_equal(bucket,
+                                  _parent_sparse(_bands(6), batched=True))
+
+
+def test_sparse_leaf_records_its_spans_nested():
+    value, found = _profiled(_sparse_leaf)
+    assert value == _sparse_leaf()
+    assert found == collections.Counter({**PLAN, **DISPATCH, **SPARSE})
+    assert sum(found.values()) == 12          # a sparse_bands32 call's
+
+
+def test_sparse_bucket_records_its_spans_once():
+    values, found = _profiled(_sparse_bucket)
+    np.testing.assert_array_equal(values, _sparse_bucket())
+    assert found == collections.Counter({**PLAN, **DISPATCH, **SPARSE})
 
 
 def test_dense_call_records_its_spans_nested():
