@@ -55,6 +55,10 @@ __all__ = [
 
 # Alg. 4: dense kernel when nonzero density >= 30%
 DENSITY_SWITCH = 0.30
+# Sec. 4: DM runs below this density; FM compresses a row or column of
+# at most _FM_MAX_MIN_NNZ nonzeros (``fm_decompose``'s ``max_min_nnz``).
+_DM_DENSITY = 0.5
+_FM_MAX_MIN_NNZ = 4
 
 ROUTE_DENSE = "dense"
 ROUTE_SPARSE = "sparse"
@@ -232,6 +236,10 @@ class ExecutionPlan:
     # one (complex qq); None otherwise.  Executor mirrors it into every
     # report's dispatch tags.
     precision_downgrade: str | None = None
+    # Matrices the stack screen passed whole (one leaf, the matrix as
+    # cast).  Not identity: a plan is the same plan whichever path
+    # planned its matrices, so it stays out of ``fingerprint()``.
+    screened: int = 0
 
     @property
     def num_matrices(self) -> int:
@@ -317,6 +325,7 @@ class ExecutionPlan:
                 {"route": r, "n": n, "size": len(idx), "leaves": list(idx)}
                 for (r, n), idx in sorted(self.buckets.items())],
             "estimated_steps": self.estimated_steps,
+            "screened": self.screened,
         }
 
     def json(self, **kw) -> str:
@@ -334,7 +343,7 @@ class ExecutionPlan:
             else f"{self.precision}({self.precision_downgrade})"
         return (f"plan[{'batch' if self.batched else 'scalar'}] "
                 f"matrices={b} leaves={len(self.leaves)} ({rtxt}) "
-                f"buckets={len(self.buckets)} "
+                f"buckets={len(self.buckets)} screened={self.screened} "
                 f"est_steps={self.estimated_steps:.3g} "
                 f"precision={ptxt} backend={self.config.backend}")
 
@@ -346,14 +355,14 @@ def _preprocess_leaves(work: np.ndarray, mplan: MatrixPlan,
     Returns the leaf list; [] when DM zeroed the matrix (perm == 0).
     """
     n = work.shape[0]
-    if do_dm and mplan.density < 0.5 and n >= 3:
+    if do_dm and mplan.density < _DM_DENSITY and n >= 3:
         work, removed = D.dm_eliminate(work)
         mplan.dm_removed = removed
         if not work.any():
             mplan.fm_leaves = 0
             return []
     if do_fm and n >= 3:
-        leaves = D.fm_decompose(work)
+        leaves = D.fm_decompose(work, max_min_nnz=_FM_MAX_MIN_NNZ)
     else:
         leaves = [D.Leaf(1.0, work)]
     mplan.fm_leaves = len(leaves)
@@ -366,13 +375,53 @@ def _density_of(m: np.ndarray) -> float:
     return float((m != 0).sum()) / max(1, n * n)
 
 
-def _route(m: np.ndarray, batched: bool) -> str:
+def _route(m: np.ndarray, batched: bool,
+           density: float | None = None) -> str:
+    """``density`` is ``m``'s when the caller has it; else counted here."""
     n = m.shape[0]
     if batched and n <= 2:
         return ROUTE_INLINE          # closed form, folded at execute time
-    if n <= 2 or _density_of(m) >= DENSITY_SWITCH:
+    if n <= 2:
         return ROUTE_DENSE
-    return ROUTE_SPARSE
+    if density is None:
+        density = _density_of(m)
+    return ROUTE_DENSE if density >= DENSITY_SWITCH else ROUTE_SPARSE
+
+
+def _screen(stack: np.ndarray, do_dm: bool,
+            do_fm: bool) -> tuple[list[int], list[bool]]:
+    """Per matrix of a (k, n, n) stack: its nnz, and whether the
+    per-matrix path provably returns it unchanged as its only leaf.
+
+    That holds for n >= 5 when DM does not run (off, or density at
+    least 0.5) and FM cannot compress (off, or every row and column has
+    more than four nonzeros): ``_preprocess_leaves`` then hands back
+    ``[Leaf(1.0, work)]``.  One mask over the stack serves every test.
+    Smaller matrices always take the per-matrix path (with FM on, one
+    of their rows is short enough to compress).
+    """
+    k, n = stack.shape[0], stack.shape[1]
+    if n <= _FM_MAX_MIN_NNZ:
+        return (stack != 0).sum(axis=(1, 2)).tolist(), [False] * k
+    if np.iscomplexobj(stack):
+        # nonzero iff either half is: the two halves' bools, side by side,
+        # read as one uint16 (half the time of a complex != 0)
+        mask = (stack.view(np.float64) != 0).view(np.uint16) != 0
+    else:
+        mask = stack != 0
+    # degrees as products with ones: float32 sums of 0/1 are exact
+    # below 2**24, and BLAS takes a tenth of the time of bool reductions
+    fmask = mask.astype(np.float32)
+    ones = np.ones(n, np.float32)
+    rdeg = fmask @ ones                          # (k, n) row degrees
+    nnz = rdeg.sum(axis=1).astype(np.int64).tolist()
+    area = n * n
+    whole = [not do_dm or c / area >= _DM_DENSITY for c in nnz]
+    if do_fm and any(whole):
+        cdeg = ones @ fmask                      # (k, n) column degrees
+        deg = np.minimum(rdeg.min(axis=1), cdeg.min(axis=1)).tolist()
+        whole = [w and d > _FM_MAX_MIN_NNZ for w, d in zip(whole, deg)]
+    return nnz, whole
 
 
 # Backends whose leaves and campaign waves run the CUDA kernels: ``cuda``
@@ -385,9 +434,11 @@ _KERNEL_FLOOR_N = 4
 
 
 def _resolve_geometry(config: SolverConfig, route: str, n: int,
-                      density: float, dtype_str: str,
+                      density: float | None, dtype_str: str,
                       precision: str) -> Geometry | None:
     """config override > tuning-table hit > None (kernel defaults).
+
+    ``density`` is read only for a table lookup; None where none is made.
 
     The table import is lazy and only happens when a table is configured:
     the default planning path stays file-I/O-free.  The table's device
@@ -418,43 +469,89 @@ def _leaf_cost(m: np.ndarray, route: str) -> float:
     return steps
 
 
-def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
+def build_plan(mats: list[np.ndarray] | np.ndarray, config: SolverConfig, *,
                batched: bool) -> ExecutionPlan:
     """Run type sniff + DM/FM + routing + bucketing over ``mats``.
 
+    ``mats`` is a sequence of square matrices or a (B, n, n) stack.
     ``batched=False`` preserves the scalar engine's per-leaf dispatch
     order exactly (every leaf is its own unit of work); ``batched=True``
     is the bucketed dispatcher shape (n <= 2 leaves fold inline, same-size
     same-route leaves share a bucket).
+
+    Same-shape matrices are cast and screened as one stack (``_screen``):
+    a matrix DM and FM would hand back unchanged becomes its own leaf
+    without the per-matrix pass; the rest take it, in the same order.
     """
     with span("repro.plan"):
-        mats = [np.asarray(M) for M in mats]
-        for M in mats:
-            if M.ndim != 2 or M.shape[0] != M.shape[1]:
-                raise ValueError(f"square matrices required, got {M.shape}")
-        is_complex = any(np.iscomplexobj(M) for M in mats)
+        if isinstance(mats, np.ndarray) and mats.ndim == 3:
+            if mats.shape[1] != mats.shape[2]:
+                raise ValueError(
+                    f"square matrices required, got {mats.shape[1:]}")
+            is_complex = np.iscomplexobj(mats)
+            count = mats.shape[0]
+            groups = [(range(count), mats)]
+        else:
+            mats = [np.asarray(M) for M in mats]
+            by_shape: dict[tuple, list[int]] = {}
+            for i, M in enumerate(mats):
+                if M.ndim != 2 or M.shape[0] != M.shape[1]:
+                    raise ValueError(
+                        f"square matrices required, got {M.shape}")
+                by_shape.setdefault(M.shape, []).append(i)
+            is_complex = any(np.iscomplexobj(M) for M in mats)
+            count = len(mats)
+            groups = [(idx, [mats[i] for i in idx])
+                      for idx in by_shape.values()]
         precision = config.effective_precision(is_complex)
         dtype = np.complex128 if is_complex else np.float64
         do_dm = config.preprocess if config.dm is None else config.dm
         do_fm = config.preprocess if config.fm is None else config.fm
 
-        entries: list[MatrixPlan] = []
+        entries: list[MatrixPlan] = [None] * count
         leaves: list[LeafTask] = []
+        passed = [False] * count
         with span("repro.plan.leaves"):
-            for i, M in enumerate(mats):
-                n = M.shape[0]
-                work = M.astype(dtype)
-                nnz = int((work != 0).sum())
-                mplan = MatrixPlan(index=i, n=n, nnz=nnz,
-                                   density=nnz / max(1, n * n))
-                entries.append(mplan)
-                for leaf in _preprocess_leaves(work, mplan, do_dm, do_fm):
-                    m = leaf.matrix
-                    if m.shape == (1, 1) and m[0, 0] == 1:
-                        mplan.const += leaf.coef
+            for idx, group in groups:
+                # the planner's own copy: leaves never alias the caller's
+                stack = np.array(group, dtype=dtype, order="C")
+                n = stack.shape[1]
+                nnz, whole = _screen(stack, do_dm, do_fm)
+                for k, i in enumerate(idx):
+                    work = stack[k]
+                    mplan = MatrixPlan(index=i, n=n, nnz=nnz[k],
+                                       density=nnz[k] / max(1, n * n))
+                    entries[i] = mplan
+                    if whole[k]:
+                        passed[i] = True
+                        mplan.fm_leaves = 1
+                        mplan.leaf_sizes = [n]
+                        leaves.append(LeafTask(
+                            owner=i, coef=1.0, matrix=work,
+                            route=_route(work, batched, mplan.density)))
                         continue
-                    leaves.append(LeafTask(owner=i, coef=leaf.coef, matrix=m,
-                                           route=_route(m, batched)))
+                    for leaf in _preprocess_leaves(work, mplan, do_dm,
+                                                   do_fm):
+                        m = leaf.matrix
+                        if m.shape == (1, 1) and m[0, 0] == 1:
+                            mplan.const += leaf.coef
+                            continue
+                        leaves.append(LeafTask(owner=i, coef=leaf.coef,
+                                               matrix=m,
+                                               route=_route(m, batched)))
+            if len(groups) > 1:
+                leaves.sort(key=lambda l: l.owner)   # stable: FM order kept
+
+        # _resolve_geometry reads a leaf's density only to look up a table
+        reads_density = config.geometry is None and \
+            config.tuning_table is not None
+
+        def density(leaf: LeafTask) -> float | None:
+            if not reads_density:
+                return None
+            if passed[leaf.owner]:
+                return entries[leaf.owner].density
+            return _density_of(leaf.matrix)
 
         with span("repro.plan.geometry"):
             # Campaign re-route: any dense/sparse leaf whose step-cost
@@ -480,8 +577,8 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
                             backend=cbackend,
                             geometry=_resolve_geometry(
                                 config, ROUTE_CAMPAIGN, leaf.n,
-                                _density_of(leaf.matrix),
-                                leaf.matrix.dtype.str, precision)
+                                density(leaf), leaf.matrix.dtype.str,
+                                precision)
                             if cbackend == "cuda" else None)
                         # identity lives on the CampaignSpec
                         leaf.geometry = None
@@ -489,13 +586,14 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
             # Kernel geometry resolution: only leaves a CUDA kernel will
             # actually produce carry one -- torch plans (and tiny-n
             # fallback leaves) keep geometry out of their identity.
-            if config.backend in KERNEL_BACKENDS:
+            # Without a configured geometry or table every leaf keeps None.
+            if config.backend in KERNEL_BACKENDS and (
+                    config.geometry is not None or reads_density):
                 for leaf in leaves:
                     if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
                             leaf.n >= _KERNEL_FLOOR_N:
                         leaf.geometry = _resolve_geometry(
-                            config, leaf.route, leaf.n,
-                            _density_of(leaf.matrix),
+                            config, leaf.route, leaf.n, density(leaf),
                             leaf.matrix.dtype.str, precision)
 
         with span("repro.plan.buckets"):
@@ -509,4 +607,5 @@ def build_plan(mats: list[np.ndarray], config: SolverConfig, *,
                              is_complex=is_complex, precision=precision,
                              entries=entries, leaves=leaves, buckets=buckets,
                              estimated_steps=cost,
-                             precision_downgrade=downgrade)
+                             precision_downgrade=downgrade,
+                             screened=sum(passed))

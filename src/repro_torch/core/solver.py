@@ -127,8 +127,12 @@ class PermanentSolver:
         return build_plan([A], self.config, batched=False)
 
     def plan_batch(self, As: Sequence) -> ExecutionPlan:
-        """Bucketed batch plan: same-size leaves share one device program."""
-        return build_plan(list(As), self.config, batched=True)
+        """Bucketed batch plan: same-size leaves share one device program.
+
+        A (B, n, n) ndarray goes to the planner whole, as one stack."""
+        if not isinstance(As, np.ndarray):
+            As = list(As)
+        return build_plan(As, self.config, batched=True)
 
     # -- execute ------------------------------------------------------------
 
