@@ -90,7 +90,8 @@ __all__ = ["CampaignPaused", "MIN_WAVE_S", "Wave", "default_wave_width",
            "even_wave_width", "slice_sums", "run_campaign",
            "permanent_on_mesh", "slice_sums_on_mesh",
            "batch_permanents_on_mesh", "sparse_batch_permanents_on_mesh",
-           "DistributedPermanent", "MESH_LANES", "plan_slices"]
+           "DistributedPermanent", "MESH_LANES", "plan_slices",
+           "input_guard"]
 
 MIN_WAVE_S = 0.1   # host seconds below which a default-width wave widens
 # permanent_on_mesh's chunks a rank: 2^16 lanes (512 CTAs of 128) fill an
@@ -290,9 +291,9 @@ def run_campaign(A, *, total_slices: int, chunks_per_slice: int,
         gtag = _gtag(geometry)
         if mesh is not None:
             device = _mesh_device(mesh, device)
-            _input_guard(mesh, "run_campaign", A, total_slices,
-                         chunks_per_slice, chunk_size, precision, backend,
-                         gtag, max_waves, max_wave_retries, wave_width)
+            input_guard(mesh, "run_campaign", A, total_slices,
+                        chunks_per_slice, chunk_size, precision, backend,
+                        gtag, max_waves, max_wave_retries, wave_width)
         shards = 1 if mesh is None else mesh.size
         body = dict(chunks_per_slice=chunks_per_slice, chunk_size=chunk_size,
                     precision=precision, backend=backend, geometry=geometry,
@@ -419,7 +420,7 @@ def _gather(mesh, row: torch.Tensor) -> np.ndarray:
     return torch.stack(out).numpy()[np.searchsorted(np.sort(ranks), ranks)]
 
 
-def _input_guard(mesh, what: str, *parts) -> None:
+def input_guard(mesh, what: str, *parts) -> None:
     """Gather a digest of this rank's input; ``ValueError`` on every rank
     when they differ (a broadcast would hide it)."""
     got = _gather(mesh, torch.tensor([_digest(*parts)], dtype=torch.int64))
@@ -523,8 +524,8 @@ def slice_sums_on_mesh(A, mesh, slice_ids, *, chunks_per_slice: int,
     complex64 keep theirs), in the order given."""
     A = np.asarray(A)
     ids = [int(i) for i in slice_ids]
-    _input_guard(mesh, "slice_sums_on_mesh", A, ids, chunks_per_slice,
-                 chunk_size, precision, backend, _gtag(geometry))
+    input_guard(mesh, "slice_sums_on_mesh", A, ids, chunks_per_slice,
+                chunk_size, precision, backend, _gtag(geometry))
     body = dict(chunks_per_slice=chunks_per_slice, chunk_size=chunk_size,
                 precision=precision, backend=backend, geometry=geometry,
                 device=mesh.device)
@@ -558,8 +559,8 @@ def permanent_on_mesh(A, mesh, *, precision: str = "dq_acc",
     ts, cps, C = plan_slices(n, mesh.size, slices_per_device,
                              lanes_per_device)
     spd = max(1, ts // mesh.size)
-    _input_guard(mesh, "permanent_on_mesh", A, precision, ts, cps, C,
-                 backend, _gtag(geometry))
+    input_guard(mesh, "permanent_on_mesh", A, precision, ts, cps, C,
+                backend, _gtag(geometry))
     body = dict(chunks_per_slice=cps, chunk_size=C, precision=precision,
                 backend=backend, geometry=geometry, device=mesh.device)
     ids = [s if s < ts else -1 for s in range(mesh.size * spd)]
@@ -644,8 +645,8 @@ def batch_permanents_on_mesh(stack, mesh, *, precision: str = "dq_acc",
     if stack.ndim != 3 or stack.shape[1] != stack.shape[2]:
         raise ValueError(f"(B, n, n) stack required, got {stack.shape}")
     _check_backend(backend)
-    _input_guard(mesh, "batch_permanents_on_mesh", stack, precision,
-                 num_chunks, backend, _gtag(geometry))
+    input_guard(mesh, "batch_permanents_on_mesh", stack, precision,
+                num_chunks, backend, _gtag(geometry))
     B, n = stack.shape[:2]
     if n == 1:
         return np.asarray(stack[:, 0, 0])
@@ -695,8 +696,8 @@ def sparse_batch_permanents_on_mesh(sps, mesh, *, precision: str = "dq_acc",
             raise ValueError(f"(B, n, n) stack required, got "
                              f"{A_stack.shape}")
         rows, vals = padded_ccs(A_stack)
-    _input_guard(mesh, "sparse_batch_permanents_on_mesh", A_stack, rows,
-                 vals, precision, num_chunks, backend, _gtag(geometry))
+    input_guard(mesh, "sparse_batch_permanents_on_mesh", A_stack, rows,
+                vals, precision, num_chunks, backend, _gtag(geometry))
 
     def run(a, r, v):
         if backend == "torch":

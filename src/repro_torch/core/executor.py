@@ -1,68 +1,54 @@
 """Execute side of the plan/execute split: backend registry + dispatcher.
 
 The port of the reference package's ``core/executor.py`` for the dense,
-sparse and campaign routes, real and complex.  Each :class:`Backend` runs
-one leaf and (optionally) a whole same-size bucket of either route;
-``register_backend`` adds strategies without touching the dispatcher.
-Five register at import:
+sparse and campaign routes, real and complex.  A :class:`Backend`
+computes one leaf or one same-size bucket; ``register_backend`` adds
+strategies without touching the dispatcher.  Five register at import,
+each computing one thing:
 
 * ``torch`` -- the chunked torch engines (``core/ryser.py``, sparse
   ``core/sparyser.py``), the counterpart of the reference's ``jnp``;
-* ``cuda``  -- the CUDA kernels (``kernels/ops.py``), the counterpart of
-  ``pallas``: real dense scalar leaves run the dense scalar entry
-  (``baseline``), buckets the batch-grid entry (``batched``); complex
-  leaves and buckets run the split-plane kernel's two entries; sparse
-  leaves and buckets (density < 0.30) the SpaRyser kernel's scalar and
-  batched entries, real or complex; n < 4 runs the torch engine, as
-  ``PallasBackend._kernel_ok`` sends n < 4 to ``jnp``;
-* ``campaign`` -- not selected by ``SolverConfig.backend``: the planner
-  routes a leaf whose step estimate exceeds ``campaign_threshold`` to
-  ``step_sharded``, and :class:`CampaignBackend` runs it as checkpointed
-  waves of slices (``core/distributed.py::run_campaign``) through the wave
-  body its ``CampaignSpec`` names: the scalar CUDA entry from a u64 chunk
-  base (real ``batched`` mode, or the split-plane kernel) under ``cuda``,
-  the torch engine under ``torch``.  Its tag is ``campaign(n=..,cuda)``;
-  a ``campaign_max_waves`` budget that runs out raises
-  :class:`~repro_torch.core.distributed.CampaignPaused` through
-  :func:`execute_plan`; with a mesh in the context its waves span the
-  mesh's ranks;
+* ``cuda`` -- the CUDA kernels (``kernels/ops.py``) at n >= 4, the
+  counterpart of ``pallas``: the scalar entry for a leaf, the batch-grid
+  entry for a bucket, of the dense real kernel, the split-plane complex
+  one, or the SpaRyser one for sparse leaves (density < 0.30);
 * ``distributed_batch`` -- a bucket's batch axis sharded over the ranks
-  of the mesh in ``execute_plan(..., distributed_ctx=)``
-  (``distributed.batch_permanents_on_mesh`` /
-  ``sparse_batch_permanents_on_mesh``); each rank's body is ``cuda``
-  (the kernels on the card, their plain versions on the CPU, the torch
-  engine below the kernel floor n < 4, as ``cuda`` does); a scalar leaf
-  runs as under ``cuda`` on every rank;
-* ``distributed`` -- as ``distributed_batch``, and a scalar dense leaf is
-  split over the Gray-step space of the mesh (``permanent_on_mesh``).
+  of the mesh in ``execute_plan(..., distributed_ctx=)``, body ``cuda``;
+* ``distributed`` -- a scalar dense leaf split over the Gray-step space
+  of that mesh (``distributed.permanent_on_mesh``);
+* ``campaign`` -- a ``step_sharded`` leaf, which the planner routes when
+  its step estimate exceeds ``campaign_threshold``, as checkpointed
+  waves of slices (``distributed.run_campaign``) through the wave body
+  its ``CampaignSpec`` names, over the mesh's ranks when there is one.
+  Its tag is ``campaign(n=..,cuda)``; a ``campaign_max_waves`` budget
+  that runs out raises ``CampaignPaused`` through :func:`execute_plan`.
 
-Without a mesh both ``distributed`` strategies run as ``cuda`` on a card
-(the kernels, never the torch engine, serve card tensors), and as
-``torch`` on the CPU: buckets with a ``distributed->torch`` downgrade tag
-(the reference's ``distributed->jnp``).  A value's cache identity names the strategy
-whose numerics produced it (``value_backend``), so a torch-engine
-downgrade never satisfies a sharded lookup.  The ``distributed_ctx`` is a
-``launch.mesh.Mesh`` or any object with a ``.mesh`` (e.g.
-``distributed.DistributedPermanent``); every rank of the mesh executes
-the same plan.
+**One rule names who computes a leaf.**  :func:`producer` takes the
+configured backend, the route, n, scalar or bucket, the mesh and the
+device: ``torch`` under ``torch`` and below the kernel floor n < 4 (as
+the reference's ``PallasBackend._kernel_ok`` sends n < 4 to ``jnp``);
+``cuda`` under ``cuda``; under the ``distributed`` pair with a mesh,
+``distributed_batch`` for a bucket, ``distributed`` for a scalar dense
+leaf of ``distributed`` and ``cuda`` on every rank for other scalar
+leaves; without a mesh ``cuda`` on a card (the kernels, never the torch
+engine, serve card tensors; the reference runs ``jnp`` there) and
+``torch`` on the CPU.  :func:`execute_plan` hands each leaf or bucket to that
+strategy, on the mesh's device under the ``distributed`` pair, and the
+result cache keys on its name (``value_backend``): a value's cache
+identity is the strategy whose code ran.  The torch engine serving a
+kernel backend's bucket is tagged ``dense_batch(n=..,b=..,cuda->torch)``
+(``distributed->torch``: the reference's ``distributed->jnp``); a scalar
+sparse tag names the producer, ``sparse(n=..,cuda)``, with a
+``cfg->producer`` suffix when it is not the configured backend.  Every
+rank of the ctx's mesh (a ``launch.mesh.Mesh``, or an object with a
+``.mesh``) executes the same plan.
 
 All run on ``SolverConfig.device`` (None = the card).  A complex ``qq``
 plan runs as ``kahan`` and says so with a ``precision(qq->kahan)`` tag on
-every report.  Scalar sparse tags name the value's producer,
-``sparse(n=..,cuda)``, with a ``cuda->torch`` suffix when the torch
-engine serves an n < 4 leaf.
-
-**Batch contract.**  ``dense_batch(stack, *, precision, num_chunks,
-geometry, device)`` and ``sparse_batch(stack, ...)`` run one same-size
-bucket as a single device program and return a (B,) ndarray, or ``None`` for
-"unsupported for this bucket": the dispatcher then re-runs it on ``torch``
-and tags the downgrade ``dense_batch(n=..,b=..,cuda->torch)`` (or
-``sparse_batch(...)``).  ``value_backend`` names the
-strategy whose numerics produce a leaf's value; the result cache keys on
-THAT name, so a torch-computed downgrade never satisfies a kernel lookup.
-
-:func:`execute_plan` returns per-matrix totals, one
-:class:`PermanentReport` per matrix and an :class:`ExecStats`.
+every report.  **Batch contract**: ``dense_batch(stack, *, precision,
+num_chunks, geometry, device, ctx)`` and ``sparse_batch`` return a (B,)
+ndarray, or ``None`` where the rule hands a kernel backend's bucket to
+the torch engine: the caller runs that and tags the downgrade.
 """
 
 from __future__ import annotations
@@ -78,30 +64,60 @@ from ..utils.spans import span
 from . import ryser as R
 from . import sparyser as S
 from .cache import ResultCache
-from .planner import (KERNEL_BACKENDS, ROUTE_CAMPAIGN, ROUTE_DENSE,
-                      ROUTE_INLINE, ROUTE_SPARSE, CampaignSpec, ExecutionPlan,
-                      LeafTask, PermanentReport)
+from .planner import (KERNEL_BACKENDS, KERNEL_FLOOR_N, ROUTE_CAMPAIGN,
+                      ROUTE_DENSE, ROUTE_INLINE, ROUTE_SPARSE, CampaignSpec,
+                      ExecutionPlan, LeafTask, PermanentReport)
 
 __all__ = ["Backend", "TorchBackend", "CudaBackend", "DistributedBackend",
-           "DistributedBatchBackend", "CampaignBackend",
+           "DistributedBatchBackend", "CampaignBackend", "producer",
            "register_backend", "get_backend", "available_backends",
            "ExecStats", "LeafTiming", "execute_plan"]
 
 
-def _ctx_mesh(ctx):
-    """The port ``Mesh`` of a distributed ctx (a Mesh, or an object with
-    a ``.mesh``), else None."""
+def _mesh_of(ctx):
+    """``launch.mesh.ctx_mesh`` of a distributed ctx; None without one
+    (``launch.mesh`` loads only with a ctx)."""
     if ctx is None:
         return None
-    from ..launch.mesh import Mesh
-    mesh = getattr(ctx, "mesh", ctx)
-    return mesh if isinstance(mesh, Mesh) else None
+    from ..launch.mesh import ctx_mesh
+    return ctx_mesh(ctx)
 
 
 def _on_card(device) -> bool:
     """Whether ``device`` (None = the card) names a card; whether one is
     present is the kernels' wrappers' to check."""
     return device is None or torch.device(device).type == "cuda"
+
+
+def producer(backend: str, route: str, n: int, *, batched: bool,
+             mesh=None, device=None) -> str:
+    """Registry name of the strategy that computes an n x n ``route``
+    leaf (a bucket of them when ``batched``) under the configured
+    ``backend``, with ``mesh`` (None = none) on ``device`` (None = the
+    card): the module docstring's rule, and the value's cache identity.
+    A backend outside the kernel ones computes its own leaves."""
+    if backend not in KERNEL_BACKENDS:
+        return backend
+    if n < KERNEL_FLOOR_N:
+        return "torch"
+    if backend == "cuda":
+        return "cuda"
+    if mesh is None:
+        return "cuda" if _on_card(device) else "torch"
+    if batched:
+        return "distributed_batch"
+    return "distributed" if backend == "distributed" and \
+        route == ROUTE_DENSE else "cuda"
+
+
+def _run_device(backend: str, mesh, device):
+    """Where the configured ``backend``'s leaves run: the mesh's device
+    under the ``distributed`` pair with a mesh (a ``device`` of another
+    kind raises), else ``device``."""
+    if mesh is None or backend not in ("distributed", "distributed_batch"):
+        return device
+    from .distributed import _mesh_device
+    return _mesh_device(mesh, device)
 
 
 def _scalar(v) -> complex | float:
@@ -168,46 +184,58 @@ class ExecStats:
 class Backend:
     """One execution strategy for dense and sparse permanent leaves.
 
-    ``dense`` / ``sparse`` run a single leaf and return a Python scalar;
+    ``dense`` / ``sparse`` return a leaf's value as a Python scalar,
     ``dense_batch`` / ``sparse_batch`` follow the batch contract in the
-    module docstring.  Every strategy gets the leaf's dense matrix (a
-    stack for a bucket); a sparse strategy builds the padded CCS arrays it
-    needs from it (``sparyser.padded_ccs``), so nothing is rebuilt from
-    CRS.
-    ``geometry`` is the leaf's resolved kernel geometry (None = kernel
-    defaults); the torch engine ignores it.  Times are host wall-clock
-    around work that ends in a copy to the host, so they include the
-    device's work.
+    module docstring.  Each hands its input to the strategy that
+    :func:`producer` names for this one configured, whose ``compute``
+    computes it: a direct call gets what :func:`execute_plan` computes
+    under ``SolverConfig(backend=name)``.  Every strategy gets the leaf's
+    dense matrix (a stack for a bucket); a sparse one builds the padded
+    CCS arrays it needs from it (``sparyser.padded_ccs``).  ``geometry``
+    is the leaf's resolved kernel geometry (None = kernel defaults); the
+    torch engine ignores it.  Times are host wall-clock around work that
+    ends in a copy to the host, so they include the device's work.
     """
 
     name = "?"
-
-    def dense(self, M: np.ndarray, *, precision: str, num_chunks: int,
-              geometry=None, device=None,
-              ctx: Any | None = None) -> complex | float:
-        raise NotImplementedError
-
-    def sparse(self, M: np.ndarray, *, precision: str, num_chunks: int,
-               geometry=None, device=None,
-               ctx: Any | None = None) -> complex | float:
-        raise NotImplementedError
-
-    def dense_batch(self, stack: np.ndarray, *, precision: str,
-                    num_chunks: int, geometry=None, device=None,
-                    ctx: Any | None = None) -> np.ndarray | None:
-        return None
-
-    def sparse_batch(self, stack: np.ndarray, *, precision: str,
-                     num_chunks: int, geometry=None, device=None,
-                     ctx: Any | None = None) -> np.ndarray | None:
-        return None
 
     def value_backend(self, route: str, n: int, *, batched: bool,
                       ctx: Any | None = None, device=None) -> str:
         """Registry name of the strategy whose numerics produce this leaf's
         value (the result-cache identity) on ``device`` (None = the
         card)."""
-        return self.name
+        return producer(self.name, route, n, batched=batched,
+                        mesh=_mesh_of(ctx), device=device)
+
+    def dense(self, M: np.ndarray, **kw) -> complex | float:
+        return self._hand_over(ROUTE_DENSE, False, M, **kw)
+
+    def sparse(self, M: np.ndarray, **kw) -> complex | float:
+        return self._hand_over(ROUTE_SPARSE, False, M, **kw)
+
+    def dense_batch(self, stack: np.ndarray, **kw) -> np.ndarray | None:
+        return self._hand_over(ROUTE_DENSE, True, stack, **kw)
+
+    def sparse_batch(self, stack: np.ndarray, **kw) -> np.ndarray | None:
+        return self._hand_over(ROUTE_SPARSE, True, stack, **kw)
+
+    def _hand_over(self, route: str, batched: bool, x: np.ndarray, *,
+                device=None, ctx: Any | None = None, **kw):
+        mesh = _mesh_of(ctx)
+        name = producer(self.name, route, x.shape[-1], batched=batched,
+                        mesh=mesh, device=device)
+        if batched and name == "torch" != self.name:
+            return None           # the caller's tagged torch-engine run
+        return get_backend(name).compute(
+            route, batched, x, device=_run_device(self.name, mesh, device),
+            ctx=ctx, **kw)
+
+    def compute(self, route: str, batched: bool, x: np.ndarray, *,
+                precision: str, num_chunks: int, geometry=None, device=None,
+                ctx: Any | None = None):
+        """This strategy's own value of a ``route`` leaf (a bucket's (B,)
+        ndarray when ``batched``), for what the producer rule hands it."""
+        raise NotImplementedError
 
 
 class TorchBackend(Backend):
@@ -215,226 +243,86 @@ class TorchBackend(Backend):
 
     name = "torch"
 
-    def dense(self, M, *, precision, num_chunks, geometry=None, device=None,
-              ctx=None):
-        return _scalar(R.perm_ryser_chunked(M, num_chunks=num_chunks,
-                                            precision=precision,
-                                            device=device))
-
-    def sparse(self, M, *, precision, num_chunks, geometry=None,
-               device=None, ctx=None):
-        stack = M[None]              # a one-matrix bucket, as the reference
-        return _scalar(S.sparse_values(stack, *S.padded_ccs(stack),
-                                       num_chunks, precision,
-                                       device=device)[0])
-
-    def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
-                    device=None, ctx=None):
-        return _host(R.perm_ryser_batched(stack, num_chunks=num_chunks,
-                                          precision=precision, device=device))
-
-    def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
-                     device=None, ctx=None):
-        return _host(S.sparse_values(stack, *S.padded_ccs(stack), num_chunks,
-                                     precision, device=device))
+    def compute(self, route, batched, x, *, precision, num_chunks,
+                device=None, **_):
+        if route == ROUTE_SPARSE:
+            stack = x if batched else x[None]   # one matrix: a bucket of one
+            vals = S.sparse_values(stack, *S.padded_ccs(stack), num_chunks,
+                                   precision, device=device)
+            return _host(vals) if batched else _scalar(vals[0])
+        run = R.perm_ryser_batched if batched else R.perm_ryser_chunked
+        vals = run(x, num_chunks=num_chunks, precision=precision,
+                   device=device)
+        return _host(vals) if batched else _scalar(vals)
 
 
-class CudaBackend(TorchBackend):
-    """CUDA kernels, dense or sparse, real or complex, n >= 4 (scalar entry
-    for leaves, batch-grid entry for buckets); n < 4 runs the torch engine
-    (dense scalar silently, sparse scalar with a ``sparse(n=..,cuda->torch)``
-    tag, buckets with a ``cuda->torch`` downgrade tag)."""
+class CudaBackend(Backend):
+    """CUDA kernels, dense or sparse, real or complex, n >= 4: the scalar
+    entry for a leaf, the batch-grid entry for a bucket."""
 
     name = "cuda"
 
-    @staticmethod
-    def _kernel_ok(n: int) -> bool:
-        return n >= 4
-
-    def dense(self, M, *, precision, num_chunks, geometry=None, device=None,
-              ctx=None):
-        if self._kernel_ok(M.shape[-1]):
-            from ..kernels import ops as K
-            v = K.permanent_cuda(M, precision=precision, geometry=geometry,
-                                 device=device)
-            with span("repro.dispatch.copy"):
-                return _scalar(v)
-        return super().dense(M, precision=precision, num_chunks=num_chunks,
-                             device=device)
-
-    def sparse(self, M, *, precision, num_chunks, geometry=None,
-               device=None, ctx=None):
-        if self._kernel_ok(M.shape[-1]):
-            from ..kernels import ops as K
+    def compute(self, route, batched, x, *, precision, geometry=None,
+                device=None, **_):
+        from ..kernels import ops as K
+        if route == ROUTE_SPARSE:
             with span("repro.dispatch.sparse.ccs"):
-                ccs = S.padded_ccs(M)
-            v = K.sparse_value_cuda(M, *ccs, precision=precision,
-                                    geometry=geometry, device=device)
-            with span("repro.dispatch.copy"):
-                return _scalar(v)
-        return super().sparse(M, precision=precision, num_chunks=num_chunks,
-                              device=device)
-
-    def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
-                    device=None, ctx=None):
-        if self._kernel_ok(stack.shape[-1]):
-            from ..kernels import ops as K
-            vals = K.permanent_cuda_batched(stack, precision=precision,
-                                            geometry=geometry, device=device)
-            with span("repro.dispatch.copy"):
-                return _host(vals)
-        return None                  # dispatcher falls back + tags downgrade
-
-    def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
-                     device=None, ctx=None):
-        if self._kernel_ok(stack.shape[-1]):
-            from ..kernels import ops as K
-            with span("repro.dispatch.sparse.ccs"):
-                ccs = S.padded_ccs(stack)
-            vals = K.sparse_batched_values_cuda(stack, *ccs,
-                                                precision=precision,
-                                                geometry=geometry,
-                                                device=device)
-            with span("repro.dispatch.copy"):
-                return _host(vals)
-        return None                  # tiny bucket: torch fallback, tagged
-
-    def value_backend(self, route, n, *, batched, ctx=None, device=None):
-        # dense and sparse kernels alike; below the floor the torch engines
-        return "cuda" if self._kernel_ok(n) else "torch"
+                ccs = S.padded_ccs(x)
+            run = K.sparse_batched_values_cuda if batched \
+                else K.sparse_value_cuda
+            v = run(x, *ccs, precision=precision, geometry=geometry,
+                    device=device)
+        else:
+            run = K.permanent_cuda_batched if batched else K.permanent_cuda
+            v = run(x, precision=precision, geometry=geometry, device=device)
+        with span("repro.dispatch.copy"):
+            return _host(v) if batched else _scalar(v)
 
 
-class DistributedBatchBackend(CudaBackend):
-    """Batch-axis sharding over the mesh of the context.
-
-    ``dense_batch`` / ``sparse_batch`` cut a bucket (n >= 4) into one
-    contiguous share a rank (``distributed.batch_permanents_on_mesh`` /
+class DistributedBatchBackend(Backend):
+    """Batch-axis sharding over the mesh of the context: a bucket (n >= 4)
+    is cut into one contiguous share a rank
+    (``distributed.batch_permanents_on_mesh`` /
     ``sparse_batch_permanents_on_mesh``, body ``cuda``): each rank owns
     whole matrices, a ragged tail is padded, and one gather returns the
     values in bucket order, each bit for bit the one-device ``cuda``
-    backend's.  A scalar leaf runs as under ``cuda``, on every rank (a
-    one-matrix bucket has nothing to shard), on the mesh's device.
-    Without a mesh, on a card it runs as ``cuda`` (a world of one rank
-    has nothing to shard: the kernels, never the torch engine, serve card
-    tensors); on the CPU as ``torch``, buckets tagged
-    ``distributed_batch->torch`` (the reference's ``->jnp`` downgrade).
-    n < 4 buckets return None, as ``cuda``'s do, and run on ``torch``
-    with a tag.
-    """
+    backend's.  Scalar leaves, and everything without a mesh, the
+    producer rule hands to ``cuda`` or ``torch``."""
 
     name = "distributed_batch"
 
-    @staticmethod
-    def _device(ctx, device):
-        """This rank's device: the mesh's, or ``device`` without one."""
-        mesh = _ctx_mesh(ctx)
-        if mesh is None:
-            return device
-        from .distributed import _mesh_device
-        return _mesh_device(mesh, device)
-
-    @staticmethod
-    def _plain(ctx, device) -> bool:
-        """No mesh and the CPU: the reference's downgrade to the torch
-        engine."""
-        return _ctx_mesh(ctx) is None and not _on_card(device)
-
-    def dense(self, M, *, precision, num_chunks, geometry=None, device=None,
-              ctx=None):
-        if self._plain(ctx, device):
-            return TorchBackend.dense(self, M, precision=precision,
-                                      num_chunks=num_chunks, device=device)
-        return super().dense(M, precision=precision, num_chunks=num_chunks,
-                             geometry=geometry,
-                             device=self._device(ctx, device))
-
-    def sparse(self, M, *, precision, num_chunks, geometry=None,
-               device=None, ctx=None):
-        if self._plain(ctx, device):
-            return TorchBackend.sparse(self, M, precision=precision,
-                                       num_chunks=num_chunks, device=device)
-        return super().sparse(M, precision=precision, num_chunks=num_chunks,
-                              geometry=geometry,
-                              device=self._device(ctx, device))
-
-    def dense_batch(self, stack, *, precision, num_chunks, geometry=None,
-                    device=None, ctx=None):
-        mesh = _ctx_mesh(ctx)
-        if mesh is None:             # the card's kernels, or the CPU's
-            return None if self._plain(ctx, device) else super().dense_batch(
-                stack, precision=precision, num_chunks=num_chunks,
-                geometry=geometry, device=device)
-        if not self._kernel_ok(stack.shape[-1]):
-            return None              # the dispatcher's tagged torch run
+    def compute(self, route, batched, x, *, precision, num_chunks,
+                geometry=None, ctx=None, **_):
         from . import distributed as Dm
-        self._device(ctx, device)
-        return Dm.batch_permanents_on_mesh(
-            stack, mesh, precision=precision, num_chunks=num_chunks,
-            backend="cuda", geometry=geometry)
-
-    def sparse_batch(self, stack, *, precision, num_chunks, geometry=None,
-                     device=None, ctx=None):
-        mesh = _ctx_mesh(ctx)
-        if mesh is None:
-            return None if self._plain(ctx, device) else super().sparse_batch(
-                stack, precision=precision, num_chunks=num_chunks,
-                geometry=geometry, device=device)
-        if not self._kernel_ok(stack.shape[-1]):
-            return None
-        from . import distributed as Dm
-        self._device(ctx, device)
-        return Dm.sparse_batch_permanents_on_mesh(
-            stack, mesh, precision=precision, num_chunks=num_chunks,
-            backend="cuda", geometry=geometry)
-
-    def value_backend(self, route, n, *, batched, ctx=None, device=None):
-        if self._plain(ctx, device) or not self._kernel_ok(n):
-            return "torch"
-        if _ctx_mesh(ctx) is None:
-            return "cuda"
-        return self.name if batched else "cuda"
+        run = Dm.sparse_batch_permanents_on_mesh if route == ROUTE_SPARSE \
+            else Dm.batch_permanents_on_mesh
+        return run(x, _mesh_of(ctx), precision=precision,
+                   num_chunks=num_chunks, backend="cuda", geometry=geometry)
 
 
-class DistributedBackend(DistributedBatchBackend):
+class DistributedBackend(Backend):
     """Mesh-wide: a scalar dense leaf (n >= 4) is split over the Gray-step
     space of the context's mesh (``distributed.permanent_on_mesh``, body
     ``cuda``; a ctx with its own ``permanent`` at the plan's precision,
-    such as ``DistributedPermanent``, computes it instead); buckets are
-    ``distributed_batch``'s; scalar sparse leaves run as under ``cuda`` on
-    every rank.  Without a mesh it runs as ``distributed_batch`` does:
-    ``cuda`` on a card, ``torch`` on the CPU (buckets tagged
-    ``distributed->torch``).
-    """
+    such as ``DistributedPermanent``, computes it instead).  Its buckets
+    the producer rule hands to ``distributed_batch``, its scalar sparse
+    leaves to ``cuda`` on every rank."""
 
     name = "distributed"
 
-    def dense(self, M, *, precision, num_chunks, geometry=None, device=None,
-              ctx=None):
-        mesh = _ctx_mesh(ctx)
-        if mesh is None or not self._kernel_ok(M.shape[-1]):
-            return super().dense(M, precision=precision,
-                                 num_chunks=num_chunks, geometry=geometry,
-                                 device=device, ctx=ctx)
-        self._device(ctx, device)
+    def compute(self, route, batched, x, *, precision, geometry=None,
+                ctx=None, **_):
         # a runner computes at ITS OWN precision: only honour it when that
         # is the plan's, else the value would be cached under a precision
         # it was never computed at
         if hasattr(ctx, "permanent") and \
                 getattr(ctx, "precision", precision) == precision:
-            return _scalar(ctx.permanent(M))
+            return _scalar(ctx.permanent(x))
         from . import distributed as Dm
-        return _scalar(Dm.permanent_on_mesh(M, mesh, precision=precision,
+        return _scalar(Dm.permanent_on_mesh(x, _mesh_of(ctx),
+                                            precision=precision,
                                             backend="cuda",
                                             geometry=geometry))
-
-    def value_backend(self, route, n, *, batched, ctx=None, device=None):
-        if not batched and route == ROUTE_DENSE and self._kernel_ok(n) \
-                and _ctx_mesh(ctx) is not None:
-            return self.name
-        if batched and _ctx_mesh(ctx) is not None and self._kernel_ok(n):
-            return "distributed_batch"
-        return super().value_backend(route, n, batched=batched, ctx=ctx,
-                                     device=device)
 
 
 class CampaignBackend(Backend):
@@ -460,7 +348,7 @@ class CampaignBackend(Backend):
                  progress_cb=None,
                  max_waves: int | None = None) -> complex | float:
         from . import distributed as Dm
-        mesh = _ctx_mesh(ctx)
+        mesh = _mesh_of(ctx)
         value, state = Dm.run_campaign(
             M, total_slices=spec.total_slices,
             chunks_per_slice=spec.chunks_per_slice,
@@ -501,8 +389,6 @@ register_backend(DistributedBackend())
 register_backend(DistributedBatchBackend())
 register_backend(CampaignBackend())
 
-_FALLBACK = "torch"
-
 
 # ---------------------------------------------------------------------------
 # Plan execution
@@ -526,36 +412,17 @@ def _cache_key(leaf: LeafTask, plan: ExecutionPlan, produced_by: str) -> tuple:
                            geometry=_geometry_tag(leaf, produced_by))
 
 
-def _run_leaf(leaf: LeafTask, plan: ExecutionPlan, backend: Backend,
-              report: PermanentReport, stats: ExecStats,
-              ctx: Any | None = None) -> complex | float:
-    """One dense or sparse leaf through the scalar strategy path.  Sparse
-    tags name the value's producer, ``sparse(n=..,<backend>)``, with a
-    ``cfg->produced`` suffix when another strategy serves the leaf."""
-    n = leaf.n
-    cfg = plan.config
-    produced = backend.value_backend(leaf.route, n, batched=False, ctx=ctx,
-                                     device=cfg.device)
-    kw = dict(precision=plan.precision, num_chunks=cfg.num_chunks,
-              geometry=leaf.geometry, device=cfg.device, ctx=ctx)
-    if leaf.route == ROUTE_SPARSE:
-        if produced == cfg.backend:
-            tag = f"sparse(n={n},{produced})"
-        else:
-            tag = f"sparse(n={n},{cfg.backend}->{produced})"
-            stats.downgrades.append(tag)
-        report.dispatch.append(tag)
-        t0 = time.perf_counter()
-        val = backend.sparse(leaf.matrix, **kw)
-    else:
-        report.dispatch.append(f"dense(n={n})")
-        t0 = time.perf_counter()
-        val = backend.dense(leaf.matrix, **kw)
-    stats.record_time(f"{leaf.route}(n={n},{produced})",
-                      time.perf_counter() - t0)
-    stats.device_dispatches += 1
-    stats.scalar_leaves += 1
-    return val
+def _cached_as(leaf: LeafTask, cfg, mesh, batched: bool) -> str:
+    """The producer a leaf's value is cached under: the rule's, or a
+    campaign leaf's full wave-body identity -- backend, slice geometry and
+    kernel geometry -- since its twofloat slice partials depend on the
+    decomposition, not just the engine."""
+    if leaf.route != ROUTE_CAMPAIGN:
+        return producer(cfg.backend, leaf.route, leaf.n, batched=batched,
+                        mesh=mesh, device=cfg.device)
+    s = leaf.campaign
+    return (f"campaign[{s.backend},{s.total_slices}x{s.chunks_per_slice}x"
+            f"{s.chunk_size},{s.geometry.tag() if s.geometry else '-'}]")
 
 
 def _inline_value(m: np.ndarray) -> complex | float:
@@ -576,11 +443,19 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
     campaign waves; every rank of it executes the same plan.
     ``campaign_progress(state, wave)`` is called after every checkpointed
     wave of a campaign leaf.
+
+    One loop runs the plan's units.  A unit is a leaf (a campaign leaf, a
+    leaf of a scalar plan, a one-leaf bucket group whose scalar producer
+    is its bucket's) or a bucket group of one kernel geometry: one device
+    program.  A scalar plan's units are its leaves in plan order, each
+    probed in the cache at its turn.  A batched plan probes every leaf
+    first (n <= 2 leaves fold inline; a duplicate of a leaf scheduled in
+    this batch waits as a follower), runs what missed in sorted bucket
+    order, then serves the followers.
     """
     with span("repro.dispatch"):
         cfg = plan.config
-        backend = get_backend(cfg.backend)
-        fallback = get_backend(_FALLBACK)
+        mesh = _mesh_of(distributed_ctx)
         stats = ExecStats()
         totals = np.zeros(plan.num_matrices, dtype=np.complex128)
         reports = [PermanentReport(n=e.n, nnz=e.nnz, density=e.density,
@@ -592,189 +467,181 @@ def execute_plan(plan: ExecutionPlan, *, cache: ResultCache | None = None,
                    for e in plan.entries]
         for e in plan.entries:
             totals[e.index] += e.const
+        computed: dict[tuple, complex | float | None] = {}
+        campaigns = sum(l.route == ROUTE_CAMPAIGN for l in plan.leaves)
+
+        def tag(text: str, owners, downgrade: bool = False) -> None:
+            if downgrade:
+                stats.downgrades.append(text)
+            for i in owners:
+                reports[i].dispatch.append(text)
+
         if plan.precision_downgrade:
-            ptag = f"precision({plan.precision_downgrade})"
-            stats.downgrades.append(ptag)
-            for r in reports:
-                r.dispatch.append(ptag)
+            tag(f"precision({plan.precision_downgrade})",
+                range(len(reports)), True)
 
-        def produced_by(leaf: LeafTask, batched: bool) -> str:
-            """Name of the strategy whose numerics serve this leaf.
-            Campaign leaves name the full wave-body identity of their spec
-            -- backend, slice geometry and kernel geometry -- since their
-            twofloat slice partials depend on the decomposition, not just
-            the engine."""
-            if leaf.route == ROUTE_CAMPAIGN:
-                s = leaf.campaign
-                return (f"campaign[{s.backend},{s.total_slices}x"
-                        f"{s.chunks_per_slice}x{s.chunk_size},"
-                        f"{s.geometry.tag() if s.geometry else '-'}]")
-            return backend.value_backend(leaf.route, leaf.n,
-                                         batched=batched, ctx=distributed_ctx,
-                                         device=cfg.device)
+        def probe(key: tuple):
+            """The value cached under ``key``, or None; counted."""
+            val = cache.get(key)
+            if val is None:
+                stats.cache_misses += 1
+            else:
+                stats.cache_hits += 1
+            return val
 
-        campaign_leaves = [l for l in plan.leaves
-                           if l.route == ROUTE_CAMPAIGN]
+        def served(leaf: LeafTask, val) -> None:
+            tag(f"cache({leaf.route},n={leaf.n})", [leaf.owner])
+            totals[leaf.owner] += leaf.coef * val
 
-        def campaign_ckpt(leaf: LeafTask) -> str | None:
-            """The configured checkpoint path verbatim for a plan with one
-            campaign leaf, suffixed by the leaf key when several campaign
-            (their JobStates must not collide)."""
-            base = cfg.campaign_checkpoint
-            if base is None or len(campaign_leaves) == 1:
-                return base
-            return f"{base}.{leaf.key[:12]}.npz"
+        def put(leaf: LeafTask, key: tuple | None, val) -> None:
+            if key is not None:
+                cache.put(key, val)
+                computed[key] = val
+            totals[leaf.owner] += leaf.coef * val
 
-        def run_campaign_leaf(leaf: LeafTask) -> complex | float:
-            tag = f"campaign(n={leaf.n},{leaf.campaign.backend})"
-            reports[leaf.owner].dispatch.append(tag)
+        def timed(key: str, t0: float, leaves: int, batched: bool) -> None:
+            stats.record_time(key, time.perf_counter() - t0, leaves=leaves)
+            stats.device_dispatches += 1
+            if batched:
+                stats.batched_leaves += leaves
+            else:
+                stats.scalar_leaves += 1
+
+        def compute(name: str, route: str, batched: bool, x, geometry):
+            return get_backend(name).compute(
+                route, batched, x, precision=plan.precision,
+                num_chunks=cfg.num_chunks, geometry=geometry,
+                device=_run_device(cfg.backend, mesh, cfg.device),
+                ctx=distributed_ctx)
+
+        def run_campaign(leaf: LeafTask) -> complex | float:
+            """The checkpoint path is the configured one verbatim for a
+            plan with one campaign leaf, suffixed by the leaf key when
+            several (their JobStates must not collide)."""
+            ckpt = cfg.campaign_checkpoint
+            if ckpt is not None and campaigns > 1:
+                ckpt = f"{ckpt}.{leaf.key[:12]}.npz"
+            text = f"campaign(n={leaf.n},{leaf.campaign.backend})"
+            tag(text, [leaf.owner])
             t0 = time.perf_counter()
             val = get_backend("campaign").campaign(
                 leaf.matrix, leaf.campaign, device=cfg.device,
-                ctx=distributed_ctx, checkpoint_path=campaign_ckpt(leaf),
+                ctx=distributed_ctx, checkpoint_path=ckpt,
                 progress_cb=campaign_progress,
                 max_waves=cfg.campaign_max_waves)
-            stats.record_time(tag, time.perf_counter() - t0)
-            stats.device_dispatches += 1
-            stats.scalar_leaves += 1
+            timed(text, t0, 1, False)
             return val
 
-        if not plan.batched:
-            # scalar mode: strict plan-order per-leaf dispatch
-            for leaf in plan.leaves:
-                key = val = None
-                if cache is not None:
-                    with span("repro.dispatch.probe"):
-                        key = _cache_key(leaf, plan,
-                                         produced_by(leaf, False))
-                        val = cache.get(key)
-                        if val is None:
-                            stats.cache_misses += 1
-                        else:
-                            stats.cache_hits += 1
-                if val is not None:
-                    reports[leaf.owner].dispatch.append(
-                        f"cache({leaf.route},n={leaf.n})")
-                else:
-                    val = run_campaign_leaf(leaf) \
-                        if leaf.route == ROUTE_CAMPAIGN else \
-                        _run_leaf(leaf, plan, backend, reports[leaf.owner],
-                                  stats, distributed_ctx)
-                    if key is not None:
-                        cache.put(key, val)
-                totals[leaf.owner] += leaf.coef * val
-            return totals, reports, stats
+        def run_leaf(leaf: LeafTask, name: str) -> complex | float:
+            """One leaf through strategy ``name``'s scalar entry.  A sparse
+            tag names the strategy, with a ``cfg->name`` suffix when it is
+            not the configured backend."""
+            n = leaf.n
+            if leaf.route == ROUTE_SPARSE:
+                down = name != cfg.backend
+                tag(f"sparse(n={n},{cfg.backend}->{name})" if down
+                    else f"sparse(n={n},{name})", [leaf.owner], down)
+            else:
+                tag(f"dense(n={n})", [leaf.owner])
+            t0 = time.perf_counter()
+            val = compute(name, leaf.route, False, leaf.matrix, leaf.geometry)
+            timed(f"{leaf.route}(n={n},{name})", t0, 1, False)
+            return val
 
-        # batched mode: inline folds, cache probe (duplicate leaves of one
-        # cold batch are scheduled once), then one program per bucket
-        pending: dict[tuple[str, int], list[int]] = {}
-        computed: dict[tuple, complex | float | None] = {}
-        followers: list[LeafTask] = []
-        with span("repro.dispatch.probe"):
-            for (route, n), idxs in plan.buckets.items():
-                for j in idxs:
-                    leaf = plan.leaves[j]
-                    if route == ROUTE_INLINE:
-                        reports[leaf.owner].dispatch.append(f"dense(n={n})")
-                        totals[leaf.owner] += \
-                            leaf.coef * _inline_value(leaf.matrix)
-                        stats.inline_leaves += 1
-                        continue
-                    if cache is not None:
-                        key = _cache_key(leaf, plan, produced_by(leaf, True))
-                        if key in computed:
-                            followers.append(leaf)
-                            continue
-                        val = cache.get(key)
-                        if val is not None:
-                            stats.cache_hits += 1
-                            reports[leaf.owner].dispatch.append(
-                                f"cache({route},n={n})")
-                            totals[leaf.owner] += leaf.coef * val
-                            continue
-                        stats.cache_misses += 1
-                        # scheduled; filled after its bucket
-                        computed[key] = None
-                    pending.setdefault((route, n), []).append(j)
+        def run_bucket(leaves: list[LeafTask], name: str) -> list:
+            """One device program over a bucket group; the torch engine
+            standing in for a kernel backend is a downgrade."""
+            route, n, b = leaves[0].route, leaves[0].n, len(leaves)
+            down = name == "torch" != cfg.backend
+            text = f"{route}_batch(n={n},b={b}" + \
+                (f",{cfg.backend}->torch)" if down else ")")
+            t0 = time.perf_counter()
+            vals = compute(name, route, True,
+                           np.stack([l.matrix for l in leaves]),
+                           leaves[0].geometry)
+            timed(f"{route}_batch(n={n},{name})", t0, b, True)
+            tag(text, [l.owner for l in leaves], down)
+            return [_scalar(v) for v in vals]
 
-        for (route, n), idxs in sorted(pending.items()):
-            if route == ROUTE_CAMPAIGN:
-                # campaign leaves never share a device program: each is its
-                # own checkpointed wave sequence (probe key == store key)
-                for j in idxs:
-                    leaf = plan.leaves[j]
-                    val = run_campaign_leaf(leaf)
-                    if cache is not None:
-                        k = _cache_key(leaf, plan, produced_by(leaf, True))
-                        cache.put(k, val)
-                        computed[k] = val
-                    totals[leaf.owner] += leaf.coef * val
-                continue
-            # one device program per resolved kernel geometry: geometry is
-            # numeric identity, leaves of different geometry share none
-            groups: dict[str, list[LeafTask]] = {}
-            for j in idxs:
-                leaf = plan.leaves[j]
-                gtag = leaf.geometry.tag() if leaf.geometry is not None \
-                    else "-"
-                groups.setdefault(gtag, []).append(leaf)
-            for _gtag, leaves in sorted(groups.items()):
-                bname = produced_by(leaves[0], True)
-                geometry = leaves[0].geometry
-                # ragged straggler: the scalar path, while it produces the
-                # bucket's numerics (over a mesh a scalar dense leaf is the
-                # step-space split, another family, and its cache entry
-                # would sit under a key the batched probes never read)
-                if len(leaves) == 1 and \
-                        bname == produced_by(leaves[0], False):
-                    leaf = leaves[0]
-                    val = _run_leaf(leaf, plan, backend, reports[leaf.owner],
-                                    stats, distributed_ctx)
-                    if cache is not None:
-                        k = _cache_key(leaf, plan, bname)
-                        cache.put(k, val)
-                        computed[k] = val
-                    totals[leaf.owner] += leaf.coef * val
+        # the units: (producer, [(leaf, cache key or None), ...])
+        followers: list[tuple[LeafTask, tuple]] = []
+        if plan.batched:
+            pending: dict[tuple[str, int], list] = {}
+            names: dict[tuple[str, int], str] = {}
+            with span("repro.dispatch.probe"):
+                for (route, n), idxs in plan.buckets.items():
+                    name = names[route, n] = _cached_as(
+                        plan.leaves[idxs[0]], cfg, mesh, True)
+                    for j in idxs:
+                        leaf = plan.leaves[j]
+                        if route == ROUTE_INLINE:
+                            tag(f"dense(n={n})", [leaf.owner])
+                            totals[leaf.owner] += \
+                                leaf.coef * _inline_value(leaf.matrix)
+                            stats.inline_leaves += 1
+                            continue
+                        key = None
+                        if cache is not None:
+                            if route == ROUTE_CAMPAIGN:   # its own spec's
+                                name = _cached_as(leaf, cfg, mesh, True)
+                            key = _cache_key(leaf, plan, name)
+                            if key in computed:
+                                followers.append((leaf, key))
+                                continue
+                            val = probe(key)
+                            if val is not None:
+                                served(leaf, val)
+                                continue
+                            computed[key] = None  # filled by its unit
+                        pending.setdefault((route, n), []).append((leaf, key))
+            units = []
+            for (route, n), pairs in sorted(pending.items()):
+                if route == ROUTE_CAMPAIGN:    # each its own wave sequence
+                    units += [(None, [p]) for p in pairs]
                     continue
-                tag = f"{route}_batch(n={n},b={len(leaves)})"
-                t_bucket = time.perf_counter()
-                stack = np.stack([l.matrix for l in leaves])
-                run, run_fallback = (
-                    (backend.dense_batch, fallback.dense_batch)
-                    if route == ROUTE_DENSE else
-                    (backend.sparse_batch, fallback.sparse_batch))
-                vals = run(stack, precision=plan.precision,
-                           num_chunks=cfg.num_chunks, geometry=geometry,
-                           device=cfg.device, ctx=distributed_ctx)
-                if vals is None:    # tiny bucket, or no mesh on the CPU
-                    vals = run_fallback(stack, precision=plan.precision,
-                                        num_chunks=cfg.num_chunks,
-                                        device=cfg.device)
-                    tag = f"{route}_batch(n={n},b={len(leaves)}," \
-                          f"{cfg.backend}->{_FALLBACK})"
-                    stats.downgrades.append(tag)
-                    bname = _FALLBACK
-                stats.device_dispatches += 1
-                stats.batched_leaves += len(leaves)
-                stats.record_time(f"{route}_batch(n={n},{bname})",
-                                  time.perf_counter() - t_bucket,
-                                  leaves=len(leaves))
-                for leaf, v in zip(leaves, vals):
-                    v = _scalar(v)
-                    reports[leaf.owner].dispatch.append(tag)
-                    if cache is not None:
-                        cache.put(_cache_key(leaf, plan, bname), v)
-                        computed[_cache_key(leaf, plan,
-                                            produced_by(leaf, True))] = v
-                    totals[leaf.owner] += leaf.coef * v
+                # one device program per resolved kernel geometry: geometry
+                # is numeric identity, leaves of different geometry share
+                # none
+                groups: dict[str, list] = {}
+                for p in pairs:
+                    g = p[0].geometry
+                    groups.setdefault(g.tag() if g is not None else "-",
+                                      []).append(p)
+                units += [(names[route, n], g)
+                          for _, g in sorted(groups.items())]
+        else:                       # probed at their turn, in plan order
+            units = [(_cached_as(leaf, cfg, mesh, False), [(leaf, None)])
+                     for leaf in plan.leaves]
 
-        for leaf in followers:               # duplicates of scheduled leaves
-            val = computed[_cache_key(leaf, plan, produced_by(leaf, True))]
+        for name, pairs in units:
+            leaf = pairs[0][0]
+            if not plan.batched and cache is not None:
+                with span("repro.dispatch.probe"):
+                    key = _cache_key(leaf, plan, name)
+                    val = probe(key)
+                if val is not None:
+                    served(leaf, val)
+                    continue
+                pairs = [(leaf, key)]
+            if leaf.route == ROUTE_CAMPAIGN:
+                vals = [run_campaign(leaf)]
+            elif len(pairs) == 1 and (not plan.batched or name ==
+                                      _cached_as(leaf, cfg, mesh, False)):
+                # a one-leaf group takes the scalar path while that
+                # produces the bucket's numerics (over a mesh a scalar
+                # dense leaf is the step-space split, another family,
+                # under a key the batched probes never read)
+                vals = [run_leaf(leaf, name)]
+            else:
+                vals = run_bucket([l for l, _ in pairs], name)
+            for (leaf, key), val in zip(pairs, vals):
+                put(leaf, key, val)
+
+        for leaf, key in followers:        # duplicates of scheduled leaves
+            val = computed[key]
             if val is None:
                 raise RuntimeError("scheduled leaf was never computed")
-            cache.hits += 1                  # in-flight dedup is still a hit
+            cache.hits += 1                # in-flight dedup is still a hit
             stats.cache_hits += 1
-            reports[leaf.owner].dispatch.append(
-                f"cache({leaf.route},n={leaf.n})")
-            totals[leaf.owner] += leaf.coef * val
+            served(leaf, val)
         return totals, reports, stats

@@ -47,6 +47,7 @@ __all__ = [
     "SolverConfig",
     "PermanentReport",
     "CampaignSpec",
+    "campaign_spec",
     "LeafTask",
     "MatrixPlan",
     "ExecutionPlan",
@@ -178,10 +179,11 @@ class LeafTask:
     matrix: np.ndarray               # post-DM/FM leaf (float64 / complex128)
     route: str                       # dense | sparse | inline | step_sharded
     campaign: CampaignSpec | None = None   # set iff route == step_sharded
-    # Resolved kernel geometry; set iff a CUDA kernel will produce this
-    # leaf's value (config.backend == "cuda", n above the kernel floor)
-    # and a geometry was configured.  None = kernel defaults, or a
-    # producing backend without geometry (the torch engine).
+    # Resolved kernel geometry of a dense or sparse leaf: set where the
+    # configured backend is a kernel one (KERNEL_BACKENDS), n is at or
+    # above KERNEL_FLOOR_N and a geometry or tuning table was configured.
+    # None = kernel defaults.  The cache key reads it only where the
+    # executor's producer rule names a kernel strategy for the leaf.
     geometry: Geometry | None = None
     _key: str | None = None
 
@@ -425,12 +427,11 @@ def _screen(stack: np.ndarray, do_dm: bool,
 
 
 # Backends whose leaves and campaign waves run the CUDA kernels: ``cuda``
-# on one card, the ``distributed`` pair on each rank of a mesh.
+# on one card, the ``distributed`` pair on each rank of a mesh.  Below
+# KERNEL_FLOOR_N the torch engine serves their leaves: no kernel, no
+# geometry identity.  The executor's producer rule reads both.
 KERNEL_BACKENDS = ("cuda", "distributed", "distributed_batch")
-
-# Below this n the cuda backend's _kernel_ok falls back to torch (the
-# kernel floor in core/executor.py) -- no kernel, no geometry identity.
-_KERNEL_FLOOR_N = 4
+KERNEL_FLOOR_N = 4
 
 
 def _resolve_geometry(config: SolverConfig, route: str, n: int,
@@ -457,6 +458,23 @@ def _resolve_geometry(config: SolverConfig, route: str, n: int,
         g = resolve_geometry(config.tuning_table, ROUTE_DENSE, n, density,
                              dtype_str, precision, kind)
     return g
+
+
+def campaign_spec(config: SolverConfig, n: int, density: float | None,
+                  dtype_str: str, precision: str) -> CampaignSpec:
+    """The campaign route of an n x n matrix under ``config``: the slice
+    plan of ``campaign_slices`` x ``campaign_lanes``, the ``cuda`` wave
+    body under a kernel backend (else ``torch``), and its geometry as
+    ``_resolve_geometry`` finds it for the campaign route, falling back to
+    the dense route's table entry; the torch body has none."""
+    ts, cps, C = plan_slices(n, config.campaign_slices, 1,
+                             config.campaign_lanes)
+    cuda = config.backend in KERNEL_BACKENDS
+    return CampaignSpec(
+        total_slices=ts, chunks_per_slice=cps, chunk_size=C,
+        precision=precision, backend="cuda" if cuda else "torch",
+        geometry=_resolve_geometry(config, ROUTE_CAMPAIGN, n, density,
+                                   dtype_str, precision) if cuda else None)
 
 
 def _leaf_cost(m: np.ndarray, route: str) -> float:
@@ -565,23 +583,11 @@ def build_plan(mats: list[np.ndarray] | np.ndarray, config: SolverConfig, *,
                 for leaf in leaves:
                     if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
                             _leaf_cost(leaf.matrix, leaf.route) > thr:
-                        ts, cps, C = plan_slices(
-                            leaf.n, config.campaign_slices, 1,
-                            config.campaign_lanes)
                         leaf.route = ROUTE_CAMPAIGN
-                        cbackend = "cuda" \
-                            if config.backend in KERNEL_BACKENDS else "torch"
-                        leaf.campaign = CampaignSpec(
-                            total_slices=ts, chunks_per_slice=cps,
-                            chunk_size=C, precision=precision,
-                            backend=cbackend,
-                            geometry=_resolve_geometry(
-                                config, ROUTE_CAMPAIGN, leaf.n,
-                                density(leaf), leaf.matrix.dtype.str,
-                                precision)
-                            if cbackend == "cuda" else None)
                         # identity lives on the CampaignSpec
-                        leaf.geometry = None
+                        leaf.campaign = campaign_spec(
+                            config, leaf.n, density(leaf),
+                            leaf.matrix.dtype.str, precision)
 
             # Kernel geometry resolution: only leaves a CUDA kernel will
             # actually produce carry one -- torch plans (and tiny-n
@@ -591,7 +597,7 @@ def build_plan(mats: list[np.ndarray] | np.ndarray, config: SolverConfig, *,
                     config.geometry is not None or reads_density):
                 for leaf in leaves:
                     if leaf.route in (ROUTE_DENSE, ROUTE_SPARSE) and \
-                            leaf.n >= _KERNEL_FLOOR_N:
+                            leaf.n >= KERNEL_FLOOR_N:
                         leaf.geometry = _resolve_geometry(
                             config, leaf.route, leaf.n, density(leaf),
                             leaf.matrix.dtype.str, precision)

@@ -36,6 +36,7 @@ APIs (the reference's names):
   ``make_local_mesh``       ("data", "model") over the world
   ``make_production_mesh``  (16, 16) / (2, 16, 16) for 256 / 512 ranks
   ``mesh_device_count``     the ranks of a mesh
+  ``ctx_mesh``              the mesh of a distributed context, or None
 """
 
 from __future__ import annotations
@@ -52,10 +53,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "CampaignMesh", "DEFAULT_TIMEOUT_S", "make_mesh", "make_batch_mesh",
-           "make_campaign_mesh", "make_local_mesh", "make_production_mesh",
-           "mesh_device_count", "rank_device", "init_from_env", "shutdown",
-           "world", "world_size", "launched_by_torchrun", "run_world"]
+__all__ = ["Mesh", "CampaignMesh", "DEFAULT_TIMEOUT_S", "make_mesh",
+           "make_batch_mesh", "make_campaign_mesh", "make_local_mesh",
+           "make_production_mesh", "mesh_device_count", "ctx_mesh",
+           "rank_device", "init_from_env", "shutdown", "world",
+           "world_size", "launched_by_torchrun", "run_world"]
 
 DEFAULT_TIMEOUT_S = 600.0   # the most a collective waits, then it raises
 
@@ -112,6 +114,14 @@ def mesh_device_count(mesh: Mesh) -> int:
     """The ranks of ``mesh`` (the reference counts devices; a port rank
     is one shard, and several may share a card)."""
     return mesh.size
+
+
+def ctx_mesh(ctx) -> Mesh | None:
+    """The mesh of a distributed context: a :class:`Mesh`, or an object
+    with a ``.mesh`` (``DistributedPermanent``, ``CampaignMesh``); else
+    None."""
+    mesh = getattr(ctx, "mesh", ctx)
+    return mesh if isinstance(mesh, Mesh) else None
 
 
 def _local_placement() -> tuple[int, int]:

@@ -84,7 +84,7 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 
-from ..core.planner import KERNEL_BACKENDS, SolverConfig
+from ..core.planner import SolverConfig, campaign_spec
 from .compile_cache import (compile_stats, enable_compile_cache,
                             quantized_batches, warmup)
 from .lanes import (DEFAULT_LANES, LaneQueue, LaneSpec, ServeTicket,
@@ -146,7 +146,7 @@ def _layout(ctx, spec: CampaignSpec | None):
     that run the buckets and the ctx their solver gets, the ranks that run
     the campaign waves and the mesh they run over.  None without a mesh
     anywhere (one device, as the reference's service on one device)."""
-    from ..core.executor import _ctx_mesh
+    from ..launch.mesh import ctx_mesh
     step = spec.mesh if spec is not None else None
     if ctx is None:
         if step is None:
@@ -160,7 +160,7 @@ def _layout(ctx, spec: CampaignSpec | None):
         grid = ctx.mesh.ranks
         return (ctx.mesh, grid[:, 0], ctx.batch_mesh, grid[0, :],
                 ctx.step_mesh)
-    world = _ctx_mesh(ctx)
+    world = ctx_mesh(ctx)
     step = step or world
     return world, world.ranks.ravel(), ctx, step.ranks.ravel(), step
 
@@ -221,16 +221,16 @@ class PermanentService:
         self._last_send = time.perf_counter()
         self._stopped = False
         if layout is not None:
-            from ..core.distributed import _input_guard
+            from ..core.distributed import input_guard
             # every rank must describe the same service, or the
             # collectives below would pair up wrongly
-            _input_guard(self._world, "PermanentService",
-                         repr(solver_config), repr(self.scfg),
-                         [int(r) for r in layout[1]],
-                         [int(r) for r in layout[3]],
-                         None if campaign is None else (
-                             np.asarray(campaign.matrix), campaign.waves,
-                             campaign.slices, campaign.lanes))
+            input_guard(self._world, "PermanentService",
+                        repr(solver_config), repr(self.scfg),
+                        [int(r) for r in layout[1]],
+                        [int(r) for r in layout[3]],
+                        None if campaign is None else (
+                            np.asarray(campaign.matrix), campaign.waves,
+                            campaign.slices, campaign.lanes))
 
         if self.scfg.compile_cache_dir:
             enable_compile_cache(self.scfg.compile_cache_dir)
@@ -251,37 +251,22 @@ class PermanentService:
 
         self._campaign = campaign
         self._camp_state: dict = {"state": None, "value": None}
-        if campaign is not None:
-            self._camp_setup(campaign)
 
     # -- campaign interleaving ----------------------------------------------
 
-    def _camp_setup(self, spec: CampaignSpec) -> None:
-        from ..core.stepspace import plan_slices
-        cmat = np.asarray(spec.matrix)
-        ts, cps, C = plan_slices(cmat.shape[0], spec.slices, 1, spec.lanes)
-        self._camp_args = (cmat, ts, cps, C)
-
     def campaign_body(self) -> dict:
-        """The ``run_campaign`` keywords of the interleaved campaign: its
-        slice plan, and the wave body the solver config names -- the same
-        cuda/torch collapse as the planner's campaign route, with the
-        kernel geometry under ``cuda`` resolved as the planner's campaign
-        route resolves it (config override > tuning table > kernel
-        defaults); the torch body has none."""
+        """The ``run_campaign`` keywords of the interleaved campaign: the
+        ``CampaignSpec`` the planner's campaign route builds for its matrix
+        under the solver config at the campaign's ``slices`` x ``lanes``
+        (``planner.campaign_spec``), on the config's device."""
         cfg = self.solver.config
-        cmat, ts, cps, C = self._camp_args
-        backend = "cuda" if cfg.backend in KERNEL_BACKENDS else "torch"
-        geometry = None
-        if backend == "cuda":
-            from ..core.planner import ROUTE_CAMPAIGN, _resolve_geometry
-            geometry = _resolve_geometry(
-                cfg, ROUTE_CAMPAIGN, cmat.shape[0],
-                float(np.count_nonzero(cmat)) / cmat.size, cmat.dtype.str,
-                cfg.precision)
-        return dict(total_slices=ts, chunks_per_slice=cps, chunk_size=C,
-                    precision=cfg.precision, backend=backend,
-                    geometry=geometry, device=cfg.device)
+        cmat = np.asarray(self._campaign.matrix)
+        spec = campaign_spec(
+            cfg.replace(campaign_slices=self._campaign.slices,
+                        campaign_lanes=self._campaign.lanes),
+            cmat.shape[0], float(np.count_nonzero(cmat)) / cmat.size,
+            cmat.dtype.str, cfg.precision)
+        return dict(vars(spec), device=cfg.device)
 
     def _campaign_open(self) -> bool:
         return self._campaign is not None and \
@@ -311,7 +296,7 @@ class PermanentService:
             return
         from ..core import distributed
         val, st = distributed.run_campaign(
-            self._camp_args[0], **self.campaign_body(),
+            np.asarray(self._campaign.matrix), **self.campaign_body(),
             checkpoint_path=self._campaign.checkpoint,
             state=self._camp_state["state"], max_waves=waves,
             mesh=self._step_mesh)

@@ -417,10 +417,10 @@ def test_streams_agree_with_the_reference_service(runs, d, request):
 # ---------------------------------------------------------------------------
 
 def _one_device_campaign():
+    spec = _campaign_spec(None)
     svc = PermanentService(_config("distributed"), _service_config(),
-                           campaign=_campaign_spec(None), clock=FakeClock(),
-                           log=None)
-    want, _ = D.run_campaign(svc._camp_args[0], **svc.campaign_body())
+                           campaign=spec, clock=FakeClock(), log=None)
+    want, _ = D.run_campaign(spec.matrix, **svc.campaign_body())
     return want
 
 
